@@ -1,0 +1,7 @@
+from .convert import params_from_jax
+from .embeddings import FunctionalTimeEmbedding, sinusoidal_features
+from .unet import UNet, UNetConfig, cond_unet_config, uncond_unet_config
+
+__all__ = ["UNet", "UNetConfig", "uncond_unet_config", "cond_unet_config",
+           "FunctionalTimeEmbedding", "sinusoidal_features",
+           "params_from_jax"]

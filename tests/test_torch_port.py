@@ -1,0 +1,173 @@
+"""The port as a whole: its imports, config, image files, runner and CLI.
+
+The config tree and image grids are compared with the JAX package's for
+equality; ``evaluate`` and the CLI run end to end on the CPU at a tiny size.
+"""
+
+import ast
+import struct
+import zlib
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from itsd_tpu.utils import load_config as jax_load_config
+from itsd_tpu.utils import make_grid as jax_make_grid
+from itsd_tpu.utils import to_dict as jax_to_dict
+from itsd_tpu_torch.cli import main as cli_main
+from itsd_tpu_torch.cli import runner
+from itsd_tpu_torch.utils import images, load_config, to_dict
+
+from _torch_port import one_torch_thread  # noqa: F401
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "itsd_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "itsd_tpu")
+
+TINY = ["channel=16", "channel_mult=[1,2]", "attn=[1]", "num_res_blocks=1",
+        "T=4", "img_size=8", "train.eval_batch_size=2"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in
+                                        (ROOT / "configs").glob("*.yaml")))
+def test_config_loads_as_the_jax_package_does(name):
+    path = str(ROOT / "configs" / name)
+    assert to_dict(load_config(path)) == jax_to_dict(jax_load_config(path))
+
+
+def test_overrides_match_the_jax_package():
+    ovs = ["T=50", "channel_mult=[1,2]", "diffusion.sampler=ddpm",
+           "inference_T=none", "model.dtype=bfloat16", "lr=3e-4",
+           "search.launch_segments=2"]
+    assert to_dict(load_config(None, ovs)) == jax_to_dict(
+        jax_load_config(None, ovs))
+    with pytest.raises(KeyError, match="no.such"):
+        load_config(None, ["no.such=1"])
+
+
+def _read_png(data):
+    """Decode the 8-bit, non-interlaced, filter-0 PNGs encode_png writes."""
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(kind + body) & 0xFFFFFFFF
+        chunks[kind] = chunks.get(kind, b"") + body
+        pos += 12 + n
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    ch = {0: 1, 2: 3}[color]
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = raw.reshape(h, 1 + w * ch)
+    assert depth == 8 and (rows[:, 0] == 0).all()
+    return rows[:, 1:].reshape(h, w, ch)
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_image_grid_and_png_match_the_jax_package(tmp_path, channels):
+    rng = np.random.default_rng(channels)
+    imgs = rng.uniform(-1, 1, (5, 6, 7, channels)).astype(np.float32)
+    grid = images.make_grid(imgs, nrow=3)
+    np.testing.assert_array_equal(grid, jax_make_grid(imgs, nrow=3))
+    path = tmp_path / "g.png"
+    images.save_image_grid(imgs, str(path), nrow=3)
+    np.testing.assert_array_equal(_read_png(path.read_bytes()), grid)
+
+
+def test_png_opens_with_pillow(tmp_path):
+    Image = pytest.importorskip("PIL.Image")
+    grid = np.random.default_rng(0).integers(0, 256, (9, 11, 3), np.uint8)
+    path = tmp_path / "p.png"
+    path.write_bytes(images.encode_png(grid))
+    np.testing.assert_array_equal(np.asarray(Image.open(path)), grid)
+
+
+def test_evaluate_on_cpu_writes_both_grids(tmp_path):
+    cfg = load_config(None, TINY + [f"sampled_dir={tmp_path}"])
+    model, _ = runner.build_model(cfg)
+    params = runner.init_params(cfg, model)
+    out = runner.evaluate(cfg, params, device="cpu")
+    assert out["images"].shape == (2, 8, 8, 3)
+    assert np.isfinite(out["images"]).all()
+    assert np.abs(out["images"]).max() <= 1.0
+    assert out["path"] == str(tmp_path / "sampled.png")
+    assert (tmp_path / "noisy.png").is_file()
+    again = runner.evaluate(cfg, params, device="cpu")
+    np.testing.assert_array_equal(again["images"], out["images"])
+
+
+def test_evaluate_loads_a_saved_state_dict(tmp_path):
+    cfg = load_config(None, TINY + [f"sampled_dir={tmp_path}",
+                                    f"save_weight_dir={tmp_path}",
+                                    "test_load_weight=w.pt"])
+    model, _ = runner.build_model(cfg)
+    params = runner.init_params(cfg, model)
+    torch.save(params, tmp_path / "w.pt")
+    a = runner.evaluate(cfg, device="cpu")["images"]
+    b = runner.evaluate(cfg, params, device="cpu")["images"]
+    np.testing.assert_array_equal(a, b)
+
+
+def test_evaluate_needs_weights():
+    with pytest.raises(ValueError, match="test_load_weight"):
+        runner.evaluate(load_config(None, TINY), device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    "diffusion.sampler=ddim", "diffusion.sampler=dpm",
+    "diffusion.sampler=picard", "diffusion.launch_segments=2",
+    "train.spatial_shard=2", "model.num_labels=10", "model.backbone=vit",
+    "model.time_embed=table", "model.remat=true",
+    "diffusion.restart_intervals=[[10,5,1]]"])
+def test_unported_eval_options_raise(tmp_path, override):
+    cfg = load_config(None, TINY + [f"sampled_dir={tmp_path}", override])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        model, _ = runner.build_model(cfg)
+        runner.evaluate(cfg, runner.init_params(cfg, model), device="cpu")
+
+
+def test_unknown_sampler_raises(tmp_path):
+    cfg = load_config(None, TINY + [f"sampled_dir={tmp_path}",
+                                    "diffusion.sampler=euler"])
+    model, _ = runner.build_model(cfg)
+    with pytest.raises(ValueError, match="unknown diffusion.sampler"):
+        runner.evaluate(cfg, runner.init_params(cfg, model), device="cpu")
+
+
+def test_cli_eval_on_cpu(tmp_path, capsys):
+    cfg = load_config(None, TINY)
+    model, _ = runner.build_model(cfg)
+    torch.save(runner.init_params(cfg, model), tmp_path / "w.pt")
+    rc = cli_main.main(["eval", "--device", "cpu", *TINY,
+                        f"save_weight_dir={tmp_path}",
+                        "test_load_weight=w.pt", f"sampled_dir={tmp_path}"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert f"sampled grid: {tmp_path / 'sampled.png'}" in out
+
+
+@pytest.mark.parametrize("command", ["train", "search", "finetune-t",
+                                     "inference-metrics"])
+def test_cli_other_commands_are_not_ported(command, capsys):
+    assert cli_main.main([command]) == 2
+    assert "not yet ported" in capsys.readouterr().err
