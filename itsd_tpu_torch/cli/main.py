@@ -1,12 +1,13 @@
 """Command line of the port.
 
 Usage:
-    python -m itsd_tpu_torch.cli.main eval [--config c.yaml] [--device cuda]
-        [key=value ...]
+    python -m itsd_tpu_torch.cli.main {train|eval} [--config c.yaml]
+        [--device cuda] [key=value ...]
 
 Overrides take dotted keys (``diffusion.T=50``) and the reference's flat keys
 (``T=50``, ``channel_mult=[1,2]``), as the JAX package's CLI. The other
-subcommands of that CLI are not yet ported: they exit with status 2.
+subcommands of that CLI, and the options of ``train`` and ``eval`` that are
+not yet ported, exit with status 2 and say so.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import sys
 from ..utils import load_config, to_dict
 
 COMMANDS = ["train", "eval", "search", "finetune-t", "inference-metrics"]
+PORTED = ("train", "eval")
 
 
 def _parse(argv):
@@ -31,7 +33,7 @@ def _parse(argv):
 
 def main(argv=None) -> int:
     args = _parse(argv if argv is not None else sys.argv[1:])
-    if args.command != "eval":
+    if args.command not in PORTED:
         print(f"[itsd_tpu_torch] {args.command}: not yet ported",
               file=sys.stderr)
         return 2
@@ -40,8 +42,17 @@ def main(argv=None) -> int:
     print(to_dict(cfg))
 
     from . import runner
-    out = runner.evaluate(cfg, device=args.device)
-    print(f"sampled grid: {out['path']}")
+    try:
+        if args.command == "train":
+            out = runner.train(cfg, device=args.device)
+            print(f"final loss: {out['final_loss']} after {out['steps']} "
+                  f"steps; checkpoints: {out['checkpoints']}")
+        else:
+            out = runner.evaluate(cfg, device=args.device)
+            print(f"sampled grid: {out['path']}")
+    except NotImplementedError as e:
+        print(f"[itsd_tpu_torch] {args.command}: {e}", file=sys.stderr)
+        return 2
     return 0
 
 

@@ -1,7 +1,7 @@
 """Gaussian diffusion forward and reverse process: tensor functions.
 
-Counterpart of ``itsd_tpu/core/process.py:31-171`` (the sampling half;
-training terms and guidance come with later parts of the port).
+Counterpart of ``itsd_tpu/core/process.py:31-171``: the training terms and
+the sampling half (guidance comes with a later part of the port).
 
 Images are NHWC float32 in [-1, 1]; ``t`` is an integer ``[B]`` tensor of
 timestep indices on the images' device, so no step waits on the host.
@@ -9,7 +9,7 @@ timestep indices on the images' device, so no step waits on the host.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -31,6 +31,54 @@ def q_sample(sched: DiffusionSchedule, x_0: torch.Tensor, t: torch.Tensor,
     nd = x_0.dim()
     return (extract(sched.sqrt_alphas_bar, t, nd) * x_0
             + extract(sched.sqrt_one_minus_alphas_bar, t, nd) * noise)
+
+
+def diffusion_train_terms(
+    sched: DiffusionSchedule, generator: Optional[torch.Generator],
+    x_0: torch.Tensor, t: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(t, noise, x_t) for one training step: uniform t in [0, T) and
+    gaussian noise drawn from ``generator`` (t first), unless passed in.
+    JAX draws both from a split threefry key, which torch cannot
+    reproduce, so the tests pass JAX's t and noise in."""
+    if t is None:
+        t = torch.randint(0, sched.T, (x_0.shape[0],), generator=generator,
+                          device=x_0.device)
+    if noise is None:
+        noise = torch.randn(x_0.shape, generator=generator, dtype=x_0.dtype,
+                            device=x_0.device)
+    return t, noise, q_sample(sched, x_0, t, noise)
+
+
+def mse_elementwise(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Per-element squared error (the reference's ``reduction='none'``)."""
+    return torch.square(pred - target)
+
+
+def snr(sched: DiffusionSchedule, t: torch.Tensor) -> torch.Tensor:
+    """SNR_t = alphas_bar_t / (1 - alphas_bar_t)."""
+    ab = sched.alphas_bar[t]
+    return ab / (1.0 - ab)
+
+
+def min_snr_weight(sched: DiffusionSchedule, t: torch.Tensor,
+                   gamma: float = 5.0) -> torch.Tensor:
+    """Min-SNR-gamma loss weight for eps-prediction (Hang et al. 2023):
+    min(SNR_t, gamma) / SNR_t."""
+    s = snr(sched, t)
+    return torch.clamp(s, max=gamma) / s
+
+
+def loss_reduce(loss: torch.Tensor, mode: str = "mean") -> torch.Tensor:
+    """``mean`` (the unconditional loop) or ``sum_div_b2`` (the CFG loop's
+    ``loss.sum() / b ** 2``)."""
+    if mode == "mean":
+        return loss.mean()
+    if mode == "sum_div_b2":
+        b = loss.shape[0]
+        return loss.sum() / (b * b)
+    raise ValueError(f"unknown loss reduction: {mode!r}")
 
 
 def predict_prev_mean_from_eps(sched: DiffusionSchedule, x_t: torch.Tensor,

@@ -36,7 +36,7 @@
 
 #include <math.h>
 
-#include "common.cuh"
+#include "attention_tiles.cuh"
 
 namespace {
 
@@ -51,38 +51,6 @@ constexpr int kMaxC = 512;
 
 size_t smem_bytes(int C) {
   return (size_t)(kBQ * C + kBK * (C + kPad) + kBK * C) * sizeof(float);
-}
-
-// 4 consecutive elements as f32; p is 4-element aligned (C % 4 == 0 and
-// the wrapper checks that the base pointers are 16-byte aligned).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// acc + a . b, in the order x, y, z, w
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// The 4-element group i, counted from row r0, of a [N, C] matrix, as f32;
-// zeros past N.
-template <typename T>
-__device__ __forceinline__ float4 load_group(const T* __restrict__ src,
-                                             int i, int r0, int N, int C) {
-  const int r = 4 * i / C;
-  return r0 + r < N ? load4(src + (size_t)(r0 + r) * C + (4 * i - r * C))
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 // Stage query rows [q0, q0 + kBQ) into qs [kBQ][C] as f32. Each thread

@@ -1,0 +1,210 @@
+"""Host-side input pipelines.
+
+Counterpart of ``itsd_tpu/data/datasets.py``: datasets are in-memory numpy
+arrays ``images [N, H, W, C] float32 in [-1, 1]`` (and labels), batched by
+``BatchIterator`` with the random horizontal flip, and moved to the device
+by ``prefetch_to_device`` or ``threaded_prefetch``. ``synthetic_dataset``
+and ``shapes_dataset`` are numpy-only copies of the JAX package's, so the
+same seed gives the same images.
+
+``load_cifar10`` and ``load_image_folder`` are not yet ported: they read
+files that are not in the repository, and the image folder needs Pillow.
+"""
+
+from __future__ import annotations
+
+import collections
+import queue as queue_mod
+import threading
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+class BatchIterator:
+    """Shuffling batch iterator over in-memory arrays."""
+
+    def __init__(self, images: np.ndarray, labels: Optional[np.ndarray],
+                 batch_size: int, seed: int = 0, flip: bool = True,
+                 drop_remainder: bool = True):
+        self.images = images
+        self.labels = labels
+        self.batch_size = batch_size
+        self.flip = flip
+        self.drop_remainder = drop_remainder
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        n = len(self.images) // self.batch_size
+        if not self.drop_remainder and len(self.images) % self.batch_size:
+            n += 1
+        return n
+
+    def __iter__(self) -> Iterator[dict]:
+        order = self._rng.permutation(len(self.images))
+        for i in range(len(self)):
+            idx = order[i * self.batch_size:(i + 1) * self.batch_size]
+            imgs = self.images[idx]
+            if self.flip:
+                flip_mask = self._rng.random(len(idx)) < 0.5
+                imgs = imgs.copy()
+                imgs[flip_mask] = imgs[flip_mask, :, ::-1]
+            batch = {"image": imgs.astype(np.float32)}
+            if self.labels is not None:
+                batch["label"] = self.labels[idx].astype(np.int32)
+            yield batch
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not yet ported (it reads a dataset from disk; use "
+        "data.dataset=shapes or synthetic)")
+
+
+def load_cifar10(root: str, train: bool = True, subset_ratio=None,
+                 seed: int = 0):
+    raise _not_ported("load_cifar10")
+
+
+def load_image_folder(root: str, img_size: int = 256, subset_ratio=None,
+                      seed: int = 0, max_images=None):
+    raise _not_ported("load_image_folder")
+
+
+def _put_batch(batch: dict, device) -> dict:
+    """Each array of ``batch`` as a tensor on ``device``: through pinned
+    host memory and a non-blocking copy when the device is a GPU."""
+    device = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        else:
+            t = t.to(device)
+        out[k] = t
+    return out
+
+
+def prefetch_to_device(iterator, size: int = 2, device="cuda"):
+    """Keep the next ``size`` batches on their way to the device while the
+    current one is used."""
+    pending = collections.deque()
+    it = iter(iterator)
+    for batch in it:
+        pending.append(_put_batch(batch, device))
+        if len(pending) > size:
+            yield pending.popleft()
+    while pending:
+        yield pending.popleft()
+
+
+def threaded_prefetch(iterator, size: int = 2, device="cuda"):
+    """Like ``prefetch_to_device``, but batch assembly, augmentation and the
+    copy to the device run on a producer thread, so they overlap with the
+    step's Python dispatch.
+
+    An exception in the producer is raised in the consumer. When the
+    consumer stops early (break, exception, garbage collection of the
+    generator), the producer is told to stop, the queue is drained and the
+    thread is joined, so no thread is left holding device batches."""
+    q = queue_mod.Queue(maxsize=max(1, size))
+    end = object()
+    stop = threading.Event()
+
+    def put_guarded(item) -> bool:
+        """Blocking put that gives up once the consumer has stopped."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return not stop.is_set()
+            except queue_mod.Full:
+                continue
+        return False
+
+    def produce():
+        try:
+            for batch in iterator:
+                if not put_guarded(_put_batch(batch, device)):
+                    return
+            put_guarded(end)
+        except BaseException as e:  # noqa: BLE001 (raised in the consumer)
+            put_guarded(e)
+
+    t = threading.Thread(target=produce, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        try:
+            while True:
+                q.get_nowait()
+        except queue_mod.Empty:
+            pass
+        t.join(timeout=2.0)
+
+
+def synthetic_dataset(n: int = 256, img_size: int = 32, num_labels: int = 10,
+                      seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Deterministic random data (smooth blobs, not white noise) for tests
+    and benchmarks."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(n, img_size // 4, img_size // 4, 3))
+    imgs = np.repeat(np.repeat(base, 4, axis=1), 4, axis=2)
+    imgs = np.tanh(imgs).astype(np.float32)
+    labels = rng.integers(0, num_labels, size=n).astype(np.int32)
+    return imgs, labels
+
+
+def shapes_dataset(n: int = 10000, img_size: int = 32, num_labels: int = 10,
+                   seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Procedurally generated class-structured images: 10 classes =
+    {circle, square, triangle, ring, cross} x 2 hue families, with jittered
+    position, scale and hue and a textured background: the repository's
+    stand-in for CIFAR-10. Returns (images [N,S,S,3] float32 in [-1,1],
+    labels [N] int32)."""
+    rng = np.random.default_rng(seed)
+    S = img_size
+    yy, xx = np.mgrid[0:S, 0:S].astype(np.float32)
+    # base hue per class family (RGB in [0,1]); 2 families x 5 shapes
+    family_rgb = np.array([[0.9, 0.25, 0.2], [0.2, 0.45, 0.95]], np.float32)
+
+    imgs = np.empty((n, S, S, 3), dtype=np.float32)
+    labels = rng.integers(0, num_labels, size=n).astype(np.int32)
+    for i in range(n):
+        lab = labels[i]
+        shape_kind = lab % 5
+        fam = lab // 5
+        cx = S / 2 + rng.uniform(-S / 8, S / 8)
+        cy = S / 2 + rng.uniform(-S / 8, S / 8)
+        r = S * rng.uniform(0.22, 0.34)
+        dx, dy = xx - cx, yy - cy
+        if shape_kind == 0:      # circle
+            mask = (dx ** 2 + dy ** 2) <= r ** 2
+        elif shape_kind == 1:    # square
+            mask = (np.abs(dx) <= r * 0.85) & (np.abs(dy) <= r * 0.85)
+        elif shape_kind == 2:    # triangle (upward)
+            mask = (dy >= -r) & (dy <= r) & \
+                   (np.abs(dx) <= (dy + r) * 0.6)
+        elif shape_kind == 3:    # ring
+            rho = dx ** 2 + dy ** 2
+            mask = (rho <= r ** 2) & (rho >= (0.55 * r) ** 2)
+        else:                    # cross
+            mask = (np.abs(dx) <= r * 0.3) | (np.abs(dy) <= r * 0.3)
+            mask &= (np.abs(dx) <= r) & (np.abs(dy) <= r)
+        color = np.clip(
+            family_rgb[fam] + rng.uniform(-0.12, 0.12, 3), 0.0, 1.0)
+        bg = 0.45 + 0.1 * rng.standard_normal((S, S, 1)).astype(np.float32)
+        bg = np.clip(bg + rng.uniform(-0.15, 0.15), 0.0, 1.0)
+        img = np.broadcast_to(bg, (S, S, 3)).copy()
+        img[mask] = color
+        imgs[i] = img * 2.0 - 1.0
+    return imgs, labels

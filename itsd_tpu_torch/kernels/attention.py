@@ -1,13 +1,18 @@
-"""Single-head spatial self-attention over H*W tokens.
+"""Single-head spatial self-attention over H*W tokens, forward and backward.
 
 Counterpart of ``itsd_tpu/kernels/attention.py``: ``attention_plain`` is
 ``_attention_xla``, ``attention_plain_stats`` adds the per-row log-sum-exp of
-``_attention_flash_stats``, and the CUDA kernel (``csrc/flash_attention.cu``)
-replaces the Pallas ``_flash_fwd_kernel``.
+``_attention_flash_stats``, and ``attention_bwd_plain`` is the blockwise
+backward ``_attention_flash_bwd`` written with explicit [B, N, N] matrices.
+The CUDA kernels replace the Pallas ones: ``csrc/flash_attention.cu`` the
+forward ``_flash_fwd_kernel``, ``csrc/flash_attention_bwd.cu`` the backward
+``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``. ``flash_attention``
+ties them together as a ``torch.autograd.Function``, as
+``_flash_attention_diff`` does with ``jax.custom_vjp``.
 
-``spatial_attention`` and ``attention_with_lse`` dispatch on where their
-inputs lie: CPU tensors go to the plain versions, CUDA tensors to the kernel,
-and anything the kernel does not take raises.
+Every entry point dispatches on where its inputs lie: CPU tensors go to the
+plain versions, CUDA tensors to the kernels, and anything the kernels do not
+take raises.
 """
 
 from __future__ import annotations
@@ -16,11 +21,13 @@ import torch
 
 from . import _build
 
-# Kernel launches so far (both entry points); a run resets it to check what
-# went through the kernel.
+# Kernel launches so far: the forward (both entry points), the dq kernel and
+# the dk/dv kernel. A run resets them to check what went through the kernels.
 launches = 0
+dq_launches = 0
+dkv_launches = 0
 
-MAX_C = 512  # csrc/flash_attention.cu: kMaxC
+MAX_C = 512  # kMaxC of csrc/flash_attention.cu and flash_attention_bwd.cu
 
 
 def _scores(q, k, scale):
@@ -47,30 +54,29 @@ def attention_plain_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, torch.logsumexp(s, dim=-1)
 
 
-def _check(q, k, v):
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+def _check(q, k, v, *more):
+    """Raise unless the kernels take q, k, v (and the [B, N, C] tensors
+    ``more``, such as dO)."""
+    ts = (q, k, v, *more)
+    if q.dim() != 3 or any(t.shape != q.shape for t in ts):
         raise ValueError(
             "attention: q, k, v must share one [B, N, C] shape, got "
-            f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
-    if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
+            f"{[tuple(t.shape) for t in ts]}")
+    if q.dtype not in _build.DTYPE_CODES or any(t.dtype != q.dtype
+                                                for t in ts):
         raise TypeError("attention: kernel takes f32 or bf16 q, k, v of one "
-                        f"dtype, got {q.dtype} {k.dtype} {v.dtype}")
-    if not (k.device == q.device and v.device == q.device):
+                        f"dtype, got {[t.dtype for t in ts]}")
+    if any(t.device != q.device for t in ts):
         raise ValueError("attention: q, k, v must be on one device")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+    if not all(t.is_contiguous() for t in ts):
         raise ValueError("attention: q, k, v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if any(t.data_ptr() % 16 for t in ts):
         raise ValueError("attention: q, k, v must be 16-byte aligned (the "
                          "kernel loads 4 elements at once)")
     C = q.shape[-1]
     if C % 4 or C > MAX_C:
         raise ValueError(f"attention: kernel takes C % 4 == 0, C <= {MAX_C}; "
                          f"got C={C}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError("attention: the kernel has no backward yet; call "
-                           "it under torch.no_grad()")
 
 
 def _flash(q, k, v, scale, emit_lse):
@@ -91,6 +97,55 @@ def _flash(q, k, v, scale, emit_lse):
     return (o, lse) if emit_lse else o
 
 
+def row_dd(o, do, dlse=None):
+    """dd = rowsum(dO * O) - dlse, f32 [B, N]: the softmax Jacobian's
+    diagonal term, taken outside the kernels (as JAX takes it outside
+    Pallas)."""
+    dd = (do.float() * o.float()).sum(-1)
+    return dd if dlse is None else dd - dlse.float()
+
+
+def _p_ds(q, k, v, do, lse, dd, scale):
+    """p = exp(s - lse) and ds = p * (dO.v^T - dd), f32 [B, N, N]."""
+    p = torch.exp(_scores(q, k, scale) - lse[..., None])
+    dp = torch.einsum("bqc,bkc->bqk", do.float(), v.float())
+    return p, p * (dp - dd[..., None])
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, dd, scale):
+    """The dq kernel's function on explicit [B, N, N] matrices:
+    dq = scale * ds.k, with ds rounded to the input dtype first."""
+    _, ds = _p_ds(q, k, v, do, lse, dd, scale)
+    dq = scale * torch.einsum("bqk,bkc->bqc", ds.to(k.dtype).float(),
+                              k.float())
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, dd, scale):
+    """The dk/dv kernel's function on explicit [B, N, N] matrices:
+    dk = scale * ds^T.q and dv = p^T.dO, with ds and p rounded to the input
+    dtype first."""
+    p, ds = _p_ds(q, k, v, do, lse, dd, scale)
+    dk = scale * torch.einsum("bqk,bqc->bkc", ds.to(q.dtype).float(),
+                              q.float())
+    dv = torch.einsum("bqk,bqc->bkc", p.to(do.dtype).float(), do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        scale: float, dlse=None):
+    """(dq, dk, dv) of single-head attention from the forward's ``o`` and
+    f32 ``lse`` [B, N], with the kernels' formula and roundings on explicit
+    [B, N, N] matrices: dd = rowsum(dO*O) - dlse, p = exp(s - lse),
+    ds = p*(dO.v^T - dd), dq = scale*ds.k, dk = scale*ds^T.q, dv = p^T.dO,
+    where ds and p are rounded to the input dtype before their products.
+    ``dlse`` is the optional cotangent of lse ([B, N])."""
+    dd = row_dd(o, do, dlse)
+    return (flash_bwd_dq_plain(q, k, v, do, lse, dd, scale),
+            *flash_bwd_dkv_plain(q, k, v, do, lse, dd, scale))
+
+
 def _on_cpu(q) -> bool:
     """True for the plain version (CPU), False for the kernel (CUDA)."""
     if q.device.type not in ("cpu", "cuda"):
@@ -98,20 +153,111 @@ def _on_cpu(q) -> bool:
     return q.device.type == "cpu"
 
 
-def spatial_attention(q: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor) -> torch.Tensor:
-    """Single-head attention over ``[B, N, C]`` tokens with scale
-    ``C ** -0.5``, as the reference's AttnBlock."""
-    scale = float(q.shape[-1]) ** -0.5
-    if _on_cpu(q):
-        return attention_plain(q, k, v, scale)
-    return _flash(q, k, v, scale, emit_lse=False)
-
-
 def attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        scale: float):
     """(o, lse): attention plus the f32 per-row log-sum-exp ``[B, N]`` that
-    the blockwise backward and the ring merge need."""
+    the blockwise backward and the ring merge need. Not differentiable:
+    ``flash_attention`` is."""
     if _on_cpu(q):
         return attention_plain_stats(q, k, v, scale)
     return _flash(q, k, v, scale, emit_lse=True)
+
+
+def _check_rows(t, q, what):
+    B, N = q.shape[:2]
+    if (t.shape != (B, N) or t.dtype != torch.float32
+            or t.device != q.device or not t.is_contiguous()):
+        raise ValueError(f"attention: {what} must be contiguous f32 "
+                         f"[{B}, {N}] on {q.device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def flash_bwd_dq(q, k, v, do, lse, dd, scale):
+    """dq through the dq kernel (CUDA tensors only)."""
+    global dq_launches
+    _check(q, k, v, do)
+    _check_rows(lse, q, "lse")
+    _check_rows(dd, q, "dd")
+    B, N, C = q.shape
+    dq = torch.empty_like(q)
+    kernels = _build.load()
+    with torch.cuda.device(q.device):
+        rc = kernels.lib.itsd_flash_bwd_dq(
+            *(t.data_ptr() for t in (q, k, v, do, lse, dd, dq)), B, N, C,
+            scale, _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
+    _build.check(kernels, rc, "flash_bwd_dq")
+    dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, dd, scale):
+    """(dk, dv) through the dk/dv kernel (CUDA tensors only)."""
+    global dkv_launches
+    _check(q, k, v, do)
+    _check_rows(lse, q, "lse")
+    _check_rows(dd, q, "dd")
+    B, N, C = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    kernels = _build.load()
+    with torch.cuda.device(q.device):
+        rc = kernels.lib.itsd_flash_bwd_dkv(
+            *(t.data_ptr() for t in (q, k, v, do, lse, dd, dk, dv)), B, N,
+            C, scale, _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
+    _build.check(kernels, rc, "flash_bwd_dkv")
+    dkv_launches += 1
+    return dk, dv
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  scale: float, dlse=None):
+    """(dq, dk, dv): ``attention_bwd_plain`` for CPU tensors; for CUDA
+    tensors dd in PyTorch, then the dq kernel and the dk/dv kernel."""
+    if _on_cpu(q):
+        return attention_bwd_plain(q, k, v, o, lse, do, scale, dlse)
+    dd = row_dd(o, do, dlse).contiguous()
+    return (flash_bwd_dq(q, k, v, do, lse, dd, scale),
+            *flash_bwd_dkv(q, k, v, do, lse, dd, scale))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through ``attention_with_lse`` (saving q, k, v, o and lse),
+    backward through ``attention_bwd``: the counterpart of
+    ``_flash_attention_diff``, with the lse output differentiable too."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = attention_with_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = torch.zeros_like(o) if do is None else do.contiguous()
+        dq, dk, dv = attention_bwd(q, k, v, o, lse, do, ctx.scale, dlse)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float):
+    """Differentiable (o, lse) over ``[B, N, C]``; gradients flow into q, k
+    and v from both outputs."""
+    return _FlashAttention.apply(q, k, v, scale)
+
+
+def spatial_attention(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+    """Single-head attention over ``[B, N, C]`` tokens with scale
+    ``C ** -0.5``, as the reference's AttnBlock. When a gradient is wanted
+    it goes through ``flash_attention``; otherwise through the forward
+    alone, without the lse."""
+    scale = float(q.shape[-1]) ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash_attention(q, k, v, scale)[0]
+    if _on_cpu(q):
+        return attention_plain(q, k, v, scale)
+    return _flash(q, k, v, scale, emit_lse=False)

@@ -6,7 +6,10 @@ the CUDA kernel (``csrc/groupnorm.cu``) gives each span one block.
 
 ``groupnorm_swish`` dispatches on where its input lies: a CPU tensor goes to
 ``groupnorm_swish_plain``, a CUDA tensor to the kernel, and anything the
-kernel does not take raises.
+kernel does not take raises. When a gradient is wanted it goes through an
+``autograd.Function`` whose backward recomputes through the plain version,
+as ``_gn_diff_bwd`` recomputes through ``groupnorm_swish_xla`` with
+``jax.vjp``: the JAX package has no Pallas backward for GroupNorm.
 """
 
 from __future__ import annotations
@@ -55,17 +58,10 @@ def _check(x, weight, bias, groups):
             raise ValueError(
                 f"groupnorm_swish: {name} must be contiguous f32 [{C}] on "
                 f"{x.device}, got {p.dtype} {tuple(p.shape)} on {p.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
-                                    or bias.requires_grad):
-        raise RuntimeError("groupnorm_swish: the kernel has no backward yet; "
-                           "call it under torch.no_grad()")
 
 
-def groupnorm_swish(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                    groups: int, eps: float = 1e-5,
-                    act: bool = True) -> torch.Tensor:
-    """GroupNorm over NCHW ``x`` with f32 ``weight``/``bias`` [C], then swish
-    when ``act``; returns ``x.dtype``."""
+def _forward(x, weight, bias, groups, eps, act):
+    """The plain version for a CPU tensor, the kernel for a CUDA one."""
     global launches
     if x.device.type == "cpu":
         return groupnorm_swish_plain(x, weight, bias, groups, eps, act)
@@ -83,3 +79,35 @@ def groupnorm_swish(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     _build.check(kernels, rc, "groupnorm_swish")
     launches += 1
     return y
+
+
+class _GroupNormSwish(torch.autograd.Function):
+    """Forward through ``_forward`` (saving only its inputs); backward
+    through the plain version, recomputed under ``enable_grad``. The grads
+    of weight and bias come back in f32, the grad of x in ``x.dtype``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups, eps, act):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.args = (groups, eps, act)
+        return _forward(x, weight, bias, groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, gy):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = groupnorm_swish_plain(*inputs, *ctx.args)
+        gx, gw, gb = torch.autograd.grad(y, inputs, gy)
+        return gx, gw, gb, None, None, None
+
+
+def groupnorm_swish(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    groups: int, eps: float = 1e-5,
+                    act: bool = True) -> torch.Tensor:
+    """GroupNorm over NCHW ``x`` with f32 ``weight``/``bias`` [C], then swish
+    when ``act``; returns ``x.dtype``. Differentiable in x, weight and
+    bias."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return _GroupNormSwish.apply(x, weight, bias, groups, eps, act)
+    return _forward(x, weight, bias, groups, eps, act)

@@ -9,8 +9,12 @@ convert by a change of layout alone (``models/convert.py``).
 
 Dtype handling follows JAX: parameters are float32, compute runs in
 ``cfg.dtype`` (bfloat16 on the card), GroupNorm statistics are float32 and
-the output is cast to float32. Dropout is not applied: the port runs
-inference only.
+the output is cast to float32. Dropout (after norm2 of every ResBlock, as
+in JAX) is off by default, as Flax's ``deterministic=True``: it runs when
+the forward is called with ``deterministic=False`` on a module in training
+mode (``model.train()``), never under ``model.eval()``. Its masks come from
+the ``generator`` passed to the forward, as the Flax module takes its
+dropout key.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ class UNetConfig:
     ch_mult: Tuple[int, ...] = (1, 2, 2, 2)
     attn: Tuple[int, ...] = (1,)          # stage indices with attention
     num_res_blocks: int = 2
+    dropout: float = 0.1
     in_ch: int = 3
     num_labels: Optional[int] = None      # None => unconditional
     time_embed: str = "functional"
@@ -128,12 +133,26 @@ class AttnBlock(nn.Module):
         return x + o.transpose(1, 2).reshape(B, C, H, W)
 
 
-class ResBlock(nn.Module):
-    """GN -> swish -> conv3 -> +temb -> GN -> swish -> conv3 -> +shortcut
-    -> [attn]."""
+def dropout(h: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as Flax's ``nn.Dropout``: keep each element with
+    probability 1 - rate and divide the kept ones by it."""
+    if rate == 0.0:
+        return h
+    keep = 1.0 - rate
+    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype,
+                                                   device=h.device))
 
-    def __init__(self, in_ch: int, out_ch: int, tdim: int, attn: bool):
+
+class ResBlock(nn.Module):
+    """GN -> swish -> conv3 -> +temb -> GN -> swish -> dropout -> conv3
+    -> +shortcut -> [attn]."""
+
+    def __init__(self, in_ch: int, out_ch: int, tdim: int, attn: bool,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout
         self.norm1 = GNAct(in_ch, act=True)
         self.conv1 = Conv(in_ch, out_ch, 3, padding=1)
         self.temb_proj = Dense(tdim, out_ch)
@@ -142,10 +161,15 @@ class ResBlock(nn.Module):
         self.shortcut = Dense1x1(in_ch, out_ch) if in_ch != out_ch else None
         self.attn = AttnBlock(out_ch) if attn else None
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temb: torch.Tensor,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.conv1(self.norm1(x))
         h = h + self.temb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(self.norm2(h))
+        h = self.norm2(h)
+        if not deterministic:
+            h = dropout(h, self.dropout_rate, generator)
+        h = self.conv2(h)
         if self.shortcut is not None:
             x = self.shortcut(x)
         h = h + x
@@ -212,7 +236,8 @@ class UNet(nn.Module):
             out = ch * mult
             for j in range(cfg.num_res_blocks):
                 attn = cfg.down_attn_all or i in cfg.attn
-                self._add(f"down_{i}_{j}", ResBlock(now, out, cfg.tdim, attn),
+                self._add(f"down_{i}_{j}",
+                          ResBlock(now, out, cfg.tdim, attn, cfg.dropout),
                           "down")
                 now = out
                 skips.append(now)
@@ -220,14 +245,17 @@ class UNet(nn.Module):
                 self._add(f"down_{i}_ds", DownSample(now, cfg.down_type),
                           "ds")
                 skips.append(now)
-        self._add("mid_0", ResBlock(now, now, cfg.tdim, True), "mid")
-        self._add("mid_1", ResBlock(now, now, cfg.tdim, False), "mid")
+        self._add("mid_0", ResBlock(now, now, cfg.tdim, True, cfg.dropout),
+                  "mid")
+        self._add("mid_1", ResBlock(now, now, cfg.tdim, False, cfg.dropout),
+                  "mid")
         for i, mult in reversed(list(enumerate(cfg.ch_mult))):
             out = ch * mult
             for j in range(cfg.num_res_blocks + 1):
                 attn = cfg.up_attn and i in cfg.attn
                 self._add(f"up_{i}_{j}",
-                          ResBlock(now + skips.pop(), out, cfg.tdim, attn),
+                          ResBlock(now + skips.pop(), out, cfg.tdim, attn,
+                                   cfg.dropout),
                           "up")
                 now = out
             if i != 0:
@@ -257,7 +285,13 @@ class UNet(nn.Module):
                 nn.init.zeros_(mod.bias)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
-                return_representation: bool = False):
+                return_representation: bool = False, *,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """eps for ``x`` at ``t``. Dropout runs only with
+        ``deterministic=False`` in training mode; ``generator`` draws its
+        masks."""
+        deterministic = deterministic or not self.training
         dtype = self.cfg.torch_dtype
         h = x.to(dtype).permute(0, 3, 1, 2).contiguous()
         temb = self.time_embedding(t, dtype)
@@ -266,9 +300,10 @@ class UNet(nn.Module):
         for name, kind in self.plan:
             block = getattr(self, name)
             if kind == "up":
-                h = block(torch.cat([h, hs.pop()], dim=1), temb)
+                h = block(torch.cat([h, hs.pop()], dim=1), temb,
+                          deterministic, generator)
             elif kind in ("down", "mid"):
-                h = block(h, temb)
+                h = block(h, temb, deterministic, generator)
             else:
                 h = block(h)
             if kind in ("down", "ds"):

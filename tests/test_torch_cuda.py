@@ -13,6 +13,14 @@ plain version the normalised softmax weights. Each is off by at most 2^-9
 relative, so the sums differ by at most 2^-8 * max|v|; then each side rounds
 its output to bf16 (one step, 2^-7 relative). The test allows twice the
 first term: atol 2^-7 * max|v|, rtol 2^-7.
+
+The backward kernels against ``attention_bwd_plain`` (the same formula and
+roundings): f32 2e-5 absolute on values O(1), sums in another order
+(measured <= 3.8e-6 on an H100). bf16: both sides round ds (and p) to bf16,
+from f32 values that may differ in their last bits, so a term can land on
+the neighbouring bf16 value, and each side rounds its output (one step,
+2^-7 relative): atol 2^-7 * max|plain|, rtol 2^-7 (measured <= 2^-8 *
+max|plain|, one bf16 step at the outputs' scale).
 """
 
 import pytest
@@ -81,6 +89,59 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, N, C):
             atol=BF16_RTOL * v.float().abs().max().item())
 
 
+BWD_F32_TOL = 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,C", [(16, 256, 256), (16, 16, 256),
+                                   (4, 100, 128), (2, 64, 512),
+                                   (3, 40, 100), (2, 1, 8)])
+def test_flash_bwd_kernels_match_plain(cuda_device, dtype, B, N, C):
+    gen = torch.Generator(device=cuda_device).manual_seed(B * N + C)
+    q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
+                   .to(dtype) for _ in range(4))
+    dlse = torch.randn((B, N), generator=gen, device=cuda_device)
+    scale = C ** -0.5
+    o, lse = attention.attention_with_lse(q, k, v, scale)
+    for d in (None, dlse):
+        before = (attention.dq_launches, attention.dkv_launches)
+        got = attention.attention_bwd(q, k, v, o, lse, do, scale, d)
+        want = attention.attention_bwd_plain(q, k, v, o, lse, do, scale, d)
+        torch.cuda.synchronize()
+        assert (attention.dq_launches - before[0],
+                attention.dkv_launches - before[1]) == (1, 1)
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == (B, N, C)
+            if dtype == torch.float32:
+                torch.testing.assert_close(g, w, atol=BWD_F32_TOL, rtol=0)
+            else:
+                torch.testing.assert_close(
+                    g.float(), w.float(), rtol=BF16_RTOL,
+                    atol=BF16_RTOL * w.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_autograd_functions_pass_gradcheck_in_f32(cuda_device):
+    """Finite differences of the kernels' forward against their backward:
+    f32 differences at eps 1e-3 carry ~1e-4 of rounding noise."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn((2, 20, 8), generator=gen, device=cuda_device)
+               .requires_grad_() for _ in range(3))
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: attention.flash_attention(q, k, v, 0.35),
+        (q, k, v), eps=1e-3, atol=1e-2, rtol=1e-2, fast_mode=True)
+    x = (torch.randn((2, 8, 3, 3), generator=gen, device=cuda_device)
+         .requires_grad_())
+    w = (1 + 0.1 * torch.randn(8, generator=gen, device=cuda_device)
+         ).requires_grad_()
+    b = (0.1 * torch.randn(8, generator=gen, device=cuda_device)
+         ).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda x, w, b: groupnorm.groupnorm_swish(x, w, b, 4),
+        (x, w, b), eps=1e-3, atol=1e-2, rtol=1e-2, fast_mode=True)
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
     w = torch.ones(32, device=cuda_device)
@@ -100,3 +161,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     shifted = torch.randn(2 * 16 * 32 + 1, device=cuda_device)[1:]
     with pytest.raises(ValueError, match="16-byte aligned"):
         attention.spatial_attention(shifted.view(2, 16, 32), q, q)
+    lse = torch.zeros((2, 16), device=cuda_device)
+    for C in (6, 516):
+        q = torch.randn((2, 16, C), device=cuda_device)
+        with pytest.raises(ValueError, match="C % 4"):
+            attention.attention_bwd(q, q, q, q, lse, q, 0.5)
+    q = torch.randn((2, 16, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="lse must be"):
+        attention.attention_bwd(q, q, q, q, lse.double(), q, 0.5)
