@@ -15,33 +15,49 @@ Phases, each ending with one line that carries its elapsed seconds:
    plain PyTorch versions at every shape the eval path (batch 8) and the
    train path (batch 128) give them, in bf16 and f32, timed beside the
    plain version, one PyTorch library call and the least time the card
-   could take;
+   could take. The flash forward has two kernels: the tensor-core one
+   ("mma", the route of bf16 at C=256) and the CUDA-core one ("simt", the
+   route of f32); both are checked and timed on the same bf16 inputs;
 3. eval path: ``runner.evaluate`` at the full width of the CIFAR-10 UNet
    (ch 128, ch_mult 1,2,2,2, attention at 16x16, batch 8, 32x32, bf16,
    T=1000) on seeded weights; the kernels' launch counts must be exactly
-   51 and 6 per step and the images finite;
-4. eval path parity: kernel path against plain path, in f32 and in bf16:
-   one full-width UNet forward (eps) at timesteps across the chain, and 20
-   denoising steps from one x_T with one fed noise sequence;
-5. backward: the dq and dk/dv kernels against their plain versions at the
-   train path's shapes and one more C, in bf16 and f32, with a nonzero
-   dlse once, timed beside the plain versions, the backward of
-   ``F.scaled_dot_product_attention`` and their bound; the GroupNorm
-   backward (autograd through the plain recompute) checked and timed;
+   51 and 6 per step, all 6 flash forwards on the mma route, and the
+   images finite;
+4. eval path parity: kernel path against plain path, in f32 (the simt
+   route) and in bf16 (the mma route): one full-width UNet forward (eps)
+   at timesteps across the chain, and 20 denoising steps from one x_T with
+   one fed noise sequence;
+5. backward: the dq and dk/dv kernels (dk/dv on both routes, as in phase
+   2) against their plain versions at the train path's shapes and one more
+   C, in bf16 and f32, with a nonzero dlse once, timed beside the plain
+   versions, the backward of ``F.scaled_dot_product_attention`` and their
+   bound; the GroupNorm backward (autograd through the plain recompute)
+   checked and timed;
 6. train-step parity: 3 steps of the kernel path against the plain path at
    full width and batch 128 (dropout 0, the same params, batches, t and
-   noise), in f32 and bf16: loss, pre-clip gradient norm, max |dparam|;
+   noise), in f32 (simt) and bf16 (mma): loss, pre-clip gradient norm, max
+   |dparam|;
 7. train path: ``runner.train`` at the configuration of
    ``configs/cifar10_uncond.yaml`` on the shapes dataset (batch 128, lr
    2e-4, dropout 0.1, bf16) for 320 steps; exactly 6/6/6/51 launches a step
-   of flash forward / dq / dk-dv / GroupNorm; a finite, falling loss; the
-   checkpoint restored for one more step and for an eval; ms per step,
-   images/s, peak memory and the device's busy share (``torch.profiler``).
+   of flash forward / dq / dk-dv / GroupNorm, the forwards and dk/dv all on
+   the mma route; a finite, falling loss; the checkpoint restored for one
+   more step and for an eval; ms per step, images/s, peak memory and the
+   device's busy share (``torch.profiler``);
+8. CUDA tests: ``python -m pytest --noconftest -m cuda -q
+   tests/test_torch_cuda.py`` in a subprocess, against the library built in
+   phase 1; its pass count is printed and a failure fails the run.
 
 Then it prints the ``nvidia-smi`` line, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises:
 the script then exits non-zero and prints no result. It also exits non-zero
 when there is no CUDA device or no ``itsd_tpu_torch`` beside it.
+
+Launch counts: every count is set to 0 just before a path is driven and
+read just after. The bf16 eval and train paths (phases 3 and 7) run the
+mma kernels, dq and GroupNorm; the simt kernels are the f32 route, driven
+by the float32 kernel path of phases 4 and 6, whose counts their entries
+in the kernels' JSON line carry.
 """
 
 from __future__ import annotations
@@ -400,45 +416,74 @@ def check_groupnorm(gn_calls, dev, timer, n):
 
 
 def check_flash_forward(attn_calls, dev, timer, n):
-    """Flash forward kernel (with and without lse) against its plain
-    version at every [B, N, C] of ``attn_calls``; times at bf16 (the
-    variant with lse where ``B`` is the train batch)."""
+    """Both flash forward kernels (with and without lse) against their
+    plain version at every [B, N, C] of ``attn_calls``: the route's kernel
+    in bf16 and f32, and the simt kernel on the bf16 inputs too. Times of
+    both kernels at bf16, on the same inputs (the variant with lse where
+    ``B`` is the train batch). Returns {kernel: (max error, rows)}."""
     from itsd_tpu_torch.kernels import attention
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    worst, rows = 0.0, []
-    log("flash_attention: [B,N,C] x calls/step | max_abs_err o bf16 f32, lse "
-        "| kernel plain sdpa bound ms (bf16) | host us/call")
+    worst = {"flash_attention_mma": 0.0, "flash_attention_simt": 0.0}
+    rows = {"flash_attention_mma": [], "flash_attention_simt": []}
+    log("flash_attention: [B,N,C] x calls/step | max_abs_err o: mma bf16, "
+        "simt bf16 f32; lse | ms (bf16): mma simt plain sdpa bound | host "
+        "us/call mma simt")
+
+    def forward(fn_lse, fn, q, k, v, scale, what):
+        o, lse = fn_lse(q, k, v, scale)
+        o2 = fn(q, k, v, scale)
+        torch.cuda.synchronize()
+        if not torch.equal(o, o2):
+            fail(f"{what}: the lse variant and the plain forward disagree")
+        return o, lse
+
     for (B, N, C), calls in collections.Counter(attn_calls).items():
         scale = C ** -0.5
+        if attention.route(torch.bfloat16, C) != "mma":
+            fail(f"flash_attention {(B, N, C)}: bf16 does not route to mma")
         errs, lse_err = {}, 0.0
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype, which in ((torch.bfloat16, "mma"),
+                             (torch.bfloat16, "simt"),
+                             (torch.float32, "simt")):
+            what = f"flash_attention {which} {(B, N, C)} {dtype}"
             q, k, v = (_rand((B, N, C), gen, dev, dtype) for _ in range(3))
-            o, lse = attention.attention_with_lse(q, k, v, scale)
-            o2 = attention.spatial_attention(q, k, v)
+            n0 = read_launches()
+            if dtype == torch.float32 or which == "mma":
+                o, lse = forward(
+                    attention.attention_with_lse,
+                    lambda q, k, v, s: attention.spatial_attention(q, k, v),
+                    q, k, v, scale, what)
+            else:
+                o, lse = forward(
+                    lambda *a: attention._flash_simt(*a, emit_lse=True),
+                    lambda *a: attention._flash_simt(*a, emit_lse=False),
+                    q, k, v, scale, what)
+            n1 = read_launches()
+            if (n1["flash_attention_mma"] - n0["flash_attention_mma"]
+                    != (2 if which == "mma" else 0)):
+                fail(f"{what}: not launched on the {which} route")
             want_o, want_lse = attention.attention_plain_stats(q, k, v,
                                                                scale)
-            torch.cuda.synchronize()
-            if not torch.equal(o, o2):
-                fail(f"flash_attention {(B, N, C)} {dtype}: the lse variant "
-                     "and the plain forward disagree")
             if dtype == torch.float32:
                 atol, rtol = ATTN_F32_TOL, 0.0
             else:
                 atol = ATTN_BF16_RTOL * v.float().abs().max().item()
                 rtol = ATTN_BF16_RTOL
-            errs[dtype] = check_close(f"flash_attention {(B, N, C)} {dtype}",
-                                      o, want_o, atol, rtol)
-            lse_err = max(lse_err, check_close(
-                f"flash_attention lse {(B, N, C)} {dtype}", lse, want_lse,
-                LSE_TOL, 0.0))
-            worst = max(worst, errs[dtype], lse_err)
+            errs[which, dtype] = check_close(what, o, want_o, atol, rtol)
+            lse_e = check_close(f"{what} lse", lse, want_lse, LSE_TOL, 0.0)
+            lse_err = max(lse_err, lse_e)
+            name = f"flash_attention_{which}"
+            worst[name] = max(worst[name], errs[which, dtype], lse_e)
         q, k, v = (_rand((B, N, C), gen, dev, torch.bfloat16)
                    for _ in range(3))
         with_lse = B == TRAIN_BATCH
-        k_ms, host_us = timer(
+        m_ms, m_host = timer(
             (lambda: attention.attention_with_lse(q, k, v, scale)) if with_lse
             else (lambda: attention.spatial_attention(q, k, v)), n=n)
+        s_ms, s_host = timer(
+            lambda: attention._flash_simt(q, k, v, scale, emit_lse=with_lse),
+            n=n)
         p_ms, _ = timer(
             (lambda: attention.attention_plain_stats(q, k, v, scale))
             if with_lse else (lambda: attention.attention_plain(q, k, v,
@@ -447,11 +492,16 @@ def check_flash_forward(attn_calls, dev, timer, n):
             q[:, None], k[:, None], v[:, None]), n=n)
         by_bytes, by_ops = attn_bound_ms(B, N, C, 2)
         log(f"  {[B, N, C]} x{calls}{' (with lse)' if with_lse else ''} | "
-            f"{errs[torch.bfloat16]:.3g} {errs[torch.float32]:.3g}, "
-            f"{lse_err:.3g} | {k_ms:.5f} {p_ms:.5f} {l_ms:.5f} "
-            f"{max(by_bytes, by_ops):.5f} | {host_us:.1f}")
-        rows.append((calls, k_ms, p_ms, l_ms, by_bytes, by_ops))
-    return worst, rows
+            f"{errs['mma', torch.bfloat16]:.3g}, "
+            f"{errs['simt', torch.bfloat16]:.3g} "
+            f"{errs['simt', torch.float32]:.3g}; {lse_err:.3g} | "
+            f"{m_ms:.5f} {s_ms:.5f} {p_ms:.5f} {l_ms:.5f} "
+            f"{max(by_bytes, by_ops):.5f} | {m_host:.1f} {s_host:.1f}")
+        rows["flash_attention_mma"].append((calls, m_ms, p_ms, l_ms, by_bytes,
+                                            by_ops))
+        rows["flash_attention_simt"].append((calls, s_ms, p_ms, l_ms,
+                                             by_bytes, by_ops))
+    return {k: (worst[k], rows[k]) for k in rows}
 
 
 def check_forward_kernels(eval_shapes, train_shapes, dev, timer):
@@ -462,13 +512,14 @@ def check_forward_kernels(eval_shapes, train_shapes, dev, timer):
         f"{GN_TOL[torch.bfloat16][0]} rtol 2^-7, f32 atol "
         f"{GN_TOL[torch.float32][0]}; attention: o f32 {ATTN_F32_TOL}, o bf16 "
         f"2^-7*max|v| + 2^-7*|plain|, lse {LSE_TOL}")
-    out = {"groupnorm_swish": {}, "flash_attention": {}}
+    out = collections.defaultdict(dict)
     for tag, (gn_calls, attn_calls), n in (("eval", eval_shapes, 50),
                                            ("train", train_shapes, 10)):
         log(f"-- shapes of one {tag} step")
         out["groupnorm_swish"][tag] = check_groupnorm(gn_calls, dev, timer, n)
-        out["flash_attention"][tag] = check_flash_forward(attn_calls, dev,
-                                                          timer, n)
+        for name, res in check_flash_forward(attn_calls, dev, timer,
+                                             n).items():
+            out[name][tag] = res
     phase_done(2, "forward kernels against their plain versions", t0,
                "(all within tolerance)")
     return out
@@ -477,9 +528,11 @@ def check_forward_kernels(eval_shapes, train_shapes, dev, timer):
 def check_backward_kernels(attn_calls, gn_calls, dev, timer):
     """Phase 5: the dq and dk/dv kernels against their plain versions at
     the train path's attention shapes and [8, 256, 128], in bf16 and f32
-    (with a random dO, and a nonzero dlse at the first shape); times at
-    bf16 beside the plain versions, the backward of SDPA and the bound.
-    Then the GroupNorm backward at the train path's shapes."""
+    (with a random dO, and a nonzero dlse at the first shape), and the simt
+    dk/dv kernel on the bf16 inputs too; times at bf16 of dq and of both
+    dk/dv kernels on the same inputs, beside the plain versions, the
+    backward of SDPA and the bound. Then the GroupNorm backward at the
+    train path's shapes."""
     from itsd_tpu_torch.kernels import attention, groupnorm
     from itsd_tpu_torch.models.unet import _groups
 
@@ -487,39 +540,64 @@ def check_backward_kernels(attn_calls, gn_calls, dev, timer):
     gen = torch.Generator(device=dev).manual_seed(5)
     counts = collections.Counter(attn_calls)
     shapes = list(counts) + [(8, 256, 128)]
-    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
-    log("flash backward: [B,N,C] x calls/step | max_abs_err dq dk dv bf16, "
-        "f32 | dq dkv: kernel plain bound ms (bf16) | sdpa bwd ms | host "
-        "us/call dq dkv")
+    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv_mma": 0.0,
+             "flash_bwd_dkv_simt": 0.0}
+    rows = {k: [] for k in worst}
+    log("flash backward: [B,N,C] x calls/step | max_abs_err dq dk dv bf16 "
+        "(dk/dv mma), dk dv bf16 simt, dq dk dv f32 | ms (bf16): dq kernel "
+        "plain bound, dkv mma simt plain bound | sdpa bwd ms | host us/call "
+        "dq, dkv mma simt")
     log(f"  tolerance: f32 {BWD_F32_TOL}; bf16 2^-7*max|plain| + "
         f"2^-7*|plain|")
+
+    def check_grads(what, got, want, dtype):
+        e = []
+        for name, g, w in zip(("dq", "dk", "dv")[3 - len(got):], got, want):
+            if dtype == torch.float32:
+                atol, rtol = BWD_F32_TOL, 0.0
+            else:
+                atol = BWD_BF16_RTOL * w.float().abs().max().item()
+                rtol = BWD_BF16_RTOL
+            e.append(check_close(f"{what} {name}", g, w, atol, rtol))
+        return e
+
     for i, (B, N, C) in enumerate(shapes):
         scale = C ** -0.5
+        if attention.route(torch.bfloat16, C) != "mma":
+            fail(f"flash backward {(B, N, C)}: bf16 does not route to mma")
         errs = {}
         for dtype in (torch.bfloat16, torch.float32):
+            what = f"flash backward {(B, N, C)} {dtype}"
             q, k, v, do = (_rand((B, N, C), gen, dev, dtype)
                            for _ in range(4))
             o, lse = attention.attention_with_lse(q, k, v, scale)
             dlse = (torch.randn((B, N), generator=gen, device=dev)
                     if i == 0 else None)
+            n0 = read_launches()
             got = attention.attention_bwd(q, k, v, o, lse, do, scale, dlse)
+            n1 = read_launches()
             want = attention.attention_bwd_plain(q, k, v, o, lse, do, scale,
                                                  dlse)
             torch.cuda.synchronize()
-            e = []
-            for name, g, w in zip(("dq", "dk", "dv"), got, want):
-                if dtype == torch.float32:
-                    atol, rtol = BWD_F32_TOL, 0.0
-                else:
-                    atol = BWD_BF16_RTOL * w.float().abs().max().item()
-                    rtol = BWD_BF16_RTOL
-                e.append(check_close(f"flash backward {name} {(B, N, C)} "
-                                     f"{dtype} dlse={dlse is not None}",
-                                     g, w, atol, rtol))
+            if (n1["flash_bwd_dkv_mma"] - n0["flash_bwd_dkv_mma"]
+                    != (dtype == torch.bfloat16)):
+                fail(f"{what}: dk/dv not on the route of {dtype}")
+            e = check_grads(f"{what} dlse={dlse is not None}", got, want,
+                            dtype)
             errs[dtype] = e
             worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e[0])
-            worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], *e[1:])
+            dkv = ("flash_bwd_dkv_mma" if dtype == torch.bfloat16
+                   else "flash_bwd_dkv_simt")
+            worst[dkv] = max(worst[dkv], *e[1:])
+            if dtype == torch.bfloat16:  # the simt dk/dv on the same inputs
+                dd = attention.row_dd(o, do, dlse).contiguous()
+                got = attention._flash_bwd_dkv_simt(q, k, v, do, lse, dd,
+                                                    scale)
+                torch.cuda.synchronize()
+                errs["simt"] = check_grads(f"{what} simt", got, want[1:],
+                                           dtype)
+                worst["flash_bwd_dkv_simt"] = max(
+                    worst["flash_bwd_dkv_simt"], *errs["simt"])
         q, k, v, do = (_rand((B, N, C), gen, dev, torch.bfloat16)
                        for _ in range(4))
         o, lse = attention.attention_with_lse(q, k, v, scale)
@@ -528,6 +606,8 @@ def check_backward_kernels(attn_calls, gn_calls, dev, timer):
         n = 10
         dq_ms, dq_host = timer(lambda: attention.flash_bwd_dq(*args), n=n)
         dkv_ms, dkv_host = timer(lambda: attention.flash_bwd_dkv(*args), n=n)
+        simt_ms, simt_host = timer(
+            lambda: attention._flash_bwd_dkv_simt(*args), n=n)
         dq_plain, _ = timer(lambda: attention.flash_bwd_dq_plain(*args), n=n)
         dkv_plain, _ = timer(lambda: attention.flash_bwd_dkv_plain(*args),
                              n=n)
@@ -541,15 +621,18 @@ def check_backward_kernels(attn_calls, gn_calls, dev, timer):
         calls = counts.get((B, N, C), 0)
         log(f"  {[B, N, C]} x{calls} | "
             f"{' '.join(f'{x:.3g}' for x in errs[torch.bfloat16])}, "
+            f"{' '.join(f'{x:.3g}' for x in errs['simt'])}, "
             f"{' '.join(f'{x:.3g}' for x in errs[torch.float32])} | "
             f"dq {dq_ms:.5f} {dq_plain:.5f} {max(b_dq):.5f}, dkv "
-            f"{dkv_ms:.5f} {dkv_plain:.5f} {max(b_dkv):.5f} | "
-            f"{sdpa_ms:.5f} | {dq_host:.1f} {dkv_host:.1f}")
+            f"{dkv_ms:.5f} {simt_ms:.5f} {dkv_plain:.5f} {max(b_dkv):.5f} | "
+            f"{sdpa_ms:.5f} | {dq_host:.1f}, {dkv_host:.1f} {simt_host:.1f}")
         if calls:
             rows["flash_bwd_dq"].append((calls, dq_ms, dq_plain, sdpa_ms,
                                          *b_dq))
-            rows["flash_bwd_dkv"].append((calls, dkv_ms, dkv_plain, sdpa_ms,
-                                          *b_dkv))
+            rows["flash_bwd_dkv_mma"].append((calls, dkv_ms, dkv_plain,
+                                              sdpa_ms, *b_dkv))
+            rows["flash_bwd_dkv_simt"].append((calls, simt_ms, dkv_plain,
+                                               sdpa_ms, *b_dkv))
 
     # GroupNorm backward: the kernel path's autograd.Function (kernel
     # forward, plain recompute in the backward) against autograd of the
@@ -620,16 +703,37 @@ def reset_launches():
     from itsd_tpu_torch.kernels import attention, groupnorm
 
     groupnorm.launches = 0
-    attention.launches = attention.dq_launches = attention.dkv_launches = 0
+    attention.launches = attention.mma_launches = 0
+    attention.dq_launches = 0
+    attention.dkv_launches = attention.dkv_mma_launches = 0
 
 
 def read_launches() -> dict:
+    """Launches so far: the totals of each function (both routes) and, for
+    the flash forward and dk/dv, of each route's kernel."""
     from itsd_tpu_torch.kernels import attention, groupnorm
 
     return {"groupnorm_swish": groupnorm.launches,
             "flash_attention": attention.launches,
+            "flash_attention_mma": attention.mma_launches,
+            "flash_attention_simt": attention.launches
+            - attention.mma_launches,
             "flash_bwd_dq": attention.dq_launches,
-            "flash_bwd_dkv": attention.dkv_launches}
+            "flash_bwd_dkv": attention.dkv_launches,
+            "flash_bwd_dkv_mma": attention.dkv_mma_launches,
+            "flash_bwd_dkv_simt": attention.dkv_launches
+            - attention.dkv_mma_launches}
+
+
+def per_route(totals: dict, mma: bool) -> dict:
+    """The launch counts ``read_launches`` gives when every flash forward
+    and dk/dv of ``totals`` (function -> count) took the mma route (or,
+    with ``mma`` False, the simt route)."""
+    out = dict(totals)
+    for fn in ("flash_attention", "flash_bwd_dkv"):
+        n = totals.get(fn, 0)
+        out[fn + "_mma"], out[fn + "_simt"] = (n, 0) if mma else (0, n)
+    return out
 
 
 def eval_path(params, tmpdir, card_line, gn_per_step, attn_per_step, timer):
@@ -643,12 +747,13 @@ def eval_path(params, tmpdir, card_line, gn_per_step, attn_per_step, timer):
     launches = read_launches()
     seconds = time.perf_counter() - t0
     imgs = out["images"]
-    want = {"groupnorm_swish": gn_per_step * T_STEPS,
-            "flash_attention": attn_per_step * T_STEPS,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    want = per_route({"groupnorm_swish": gn_per_step * T_STEPS,
+                      "flash_attention": attn_per_step * T_STEPS,
+                      "flash_bwd_dq": 0, "flash_bwd_dkv": 0}, mma=True)
     if (gn_per_step, attn_per_step) != (51, 6) or launches != want:
-        fail(f"launch counts {launches}, want 51 and 6 per step x {T_STEPS} "
-             f"(one forward made {gn_per_step} and {attn_per_step})")
+        fail(f"launch counts {launches}, want 51 and 6 per step x {T_STEPS}, "
+             f"every flash forward on the mma route (one forward made "
+             f"{gn_per_step} and {attn_per_step})")
     if imgs.shape != (BATCH, 32, 32, 3) or not np.isfinite(imgs).all():
         fail(f"images of shape {imgs.shape}, finite: "
              f"{bool(np.isfinite(imgs).all())}")
@@ -693,6 +798,7 @@ def eval_parity(params, tmpdir):
     noise = [torch.randn((BATCH, 32, 32, 3), generator=gen, device=dev)
              for _ in range(PARITY_STEPS)]
     t_eps = torch.linspace(0, T_STEPS - 1, BATCH, device=dev).round().long()
+    f32_launches = {}
 
     def check(what, name, got, want, tol):
         err = (got - want).abs().max().item()
@@ -719,13 +825,17 @@ def eval_parity(params, tmpdir):
                                     noise_fn=lambda i, t: noise[i])
             return eps, x
 
-        n0 = read_launches()
+        reset_launches()
         got_eps, got = run()
         n1 = read_launches()
-        if (n1["groupnorm_swish"] - n0["groupnorm_swish"],
-                n1["flash_attention"] - n0["flash_attention"]) != (
-                51 * (1 + PARITY_STEPS), 6 * (1 + PARITY_STEPS)):
-            fail("the kernel path did not launch the kernels")
+        want_n = per_route({
+            "groupnorm_swish": 51 * (1 + PARITY_STEPS),
+            "flash_attention": 6 * (1 + PARITY_STEPS), "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}, mma=dtype == torch.bfloat16)
+        if n1 != want_n:
+            fail(f"the kernel path launched {n1}, want {want_n}")
+        if dtype == torch.float32:
+            f32_launches = n1
         p_gn, p_attn = plain_path()
         with p_gn, p_attn:
             want_eps, want = run()
@@ -734,6 +844,7 @@ def eval_parity(params, tmpdir):
         check("eps (one forward)", name, got_eps, want_eps, EPS_TOL[dtype])
         check(f"x ({PARITY_STEPS} steps)", name, got, want, PATH_TOL[dtype])
     phase_done(4, "eval path parity", t0)
+    return f32_launches
 
 
 def train_parity(tmpdir):
@@ -755,7 +866,7 @@ def train_parity(tmpdir):
                         device=dev) for _ in batches]
     noises = [torch.randn(b.shape, generator=gen, device=dev)
               for b in batches]
-    results = {}
+    results, f32_launches = {}, {}
     for dtype, name in ((torch.float32, "float32"),
                         (torch.bfloat16, "bfloat16")):
         cfg = train_config(tmpdir, name, "dropout=0.0")
@@ -778,13 +889,17 @@ def train_parity(tmpdir):
             return ([(m["loss"].item(), m["grad_norm"].item())
                      for m in metrics], model.state_dict())
 
-        n0 = read_launches()
+        reset_launches()
         got, got_params = run()
         n1 = read_launches()
-        per = {k: (n1[k] - n0[k]) / TRAIN_PARITY_STEPS for k in n1}
-        if per != {"groupnorm_swish": 51, "flash_attention": 6,
-                   "flash_bwd_dq": 6, "flash_bwd_dkv": 6}:
-            fail(f"train parity: the kernel path launched {per} a step")
+        per = {k: n / TRAIN_PARITY_STEPS for k, n in n1.items()}
+        if per != per_route({"groupnorm_swish": 51, "flash_attention": 6,
+                             "flash_bwd_dq": 6, "flash_bwd_dkv": 6},
+                            mma=dtype == torch.bfloat16):
+            fail(f"train parity {name}: the kernel path launched {per} a "
+                 "step")
+        if dtype == torch.float32:
+            f32_launches = n1
         p_gn, p_attn = plain_path()
         with p_gn, p_attn:
             want, want_params = run()
@@ -811,7 +926,7 @@ def train_parity(tmpdir):
             fail(f"train parity {name} beyond its limits")
         results[name] = (loss_err, gnorm_err, param_err)
     phase_done(6, "train-step parity", t0)
-    return results
+    return results, f32_launches
 
 
 def profile_steps(step, state, batch, gen, n=3):
@@ -840,9 +955,11 @@ def profile_steps(step, state, batch, gen, n=3):
 def _category(name: str) -> str:
     n = name.lower()
     for cat, keys in (
-            ("flash_fwd (ours)", ("flash_fwd_kernel",)),
+            ("flash_fwd mma (ours)", ("flash_fwd_mma_kernel",)),
+            ("flash_fwd simt (ours)", ("flash_fwd_kernel",)),
             ("flash_bwd_dq (ours)", ("flash_bwd_dq_kernel",)),
-            ("flash_bwd_dkv (ours)", ("flash_bwd_dkv_kernel",)),
+            ("flash_bwd_dkv mma (ours)", ("flash_bwd_dkv_mma_kernel",)),
+            ("flash_bwd_dkv simt (ours)", ("flash_bwd_dkv_kernel",)),
             ("groupnorm (ours)", ("groupnorm_swish_kernel",)),
             ("optimizer (foreach)", ("multi_tensor", "foreach")),
             ("conv/gemm", ("conv", "gemm", "xmma", "cutlass", "wgrad",
@@ -879,20 +996,19 @@ def train_path(tmpdir, card_line):
     losses = np.asarray(out["losses"])
     grids = TRAIN_EPOCHS // cfg.train.eval_freq
     grid_steps = grids * T_STEPS  # each grid: T=1000 sampler steps
-    per_step = {
-        "flash_attention": (launches["flash_attention"] - 6 * grid_steps)
-        / steps,
-        "flash_bwd_dq": launches["flash_bwd_dq"] / steps,
-        "flash_bwd_dkv": launches["flash_bwd_dkv"] / steps,
-        "groupnorm_swish": (launches["groupnorm_swish"] - 51 * grid_steps)
-        / steps}
+    grid_launches = per_route({"groupnorm_swish": 51 * grid_steps,
+                               "flash_attention": 6 * grid_steps}, mma=True)
+    per_step = {k: (n - grid_launches.get(k, 0)) / steps
+                for k, n in launches.items()}
     log(f"train: {steps} steps of batch {TRAIN_BATCH} in {seconds:.2f} s "
         f"(dataset, checkpoints and {grids} sample grid(s) of T={T_STEPS} at "
         f"batch {TRAIN_GRID_BATCH} included); launches {launches}; per train "
         f"step {per_step}")
-    if per_step != {"flash_attention": 6, "flash_bwd_dq": 6,
-                    "flash_bwd_dkv": 6, "groupnorm_swish": 51}:
-        fail(f"launches per train step {per_step}, want 6/6/6/51")
+    if per_step != per_route({"flash_attention": 6, "flash_bwd_dq": 6,
+                              "flash_bwd_dkv": 6, "groupnorm_swish": 51},
+                             mma=True):
+        fail(f"launches per train step {per_step}, want 6/6/6/51, the flash "
+             "forwards and dk/dv on the mma route")
     first, last = losses[:16].mean(), losses[-16:].mean()
     log(f"loss: first {losses[0]:.5f}, mean of the first 16 steps "
         f"{first:.5f}, of the last 16 {last:.5f}, final {losses[-1]:.5f}")
@@ -977,19 +1093,45 @@ def train_path(tmpdir, card_line):
     return launches, per_step
 
 
-def kernel_json(fwd, bwd, eval_launches, train_launches, per_step):
-    """The kernels' JSON entries: times summed over one train step (the
-    path that runs all four), the forward kernels' eval-step times
-    beside them."""
+def cuda_tests():
+    """Phase 8: the CUDA tests in a subprocess, against the library that
+    phase 1 built (the same sources hash to the same build directory)."""
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
+           "-p", "no:cacheprovider", "tests/test_torch_cuda.py"]
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    log(f"{' '.join(cmd[1:])}: exit {proc.returncode}; {tail[0]}")
+    if proc.returncode != 0:
+        log(proc.stdout[-6000:] + proc.stderr[-2000:])
+        fail(f"the CUDA tests failed (exit {proc.returncode})")
+    phase_done(8, "CUDA tests", t0)
+
+
+def kernel_json(fwd, bwd, eval_launches, train_launches, per_step,
+                f32_launches):
+    """The kernels' JSON entries, each route's kernel an entry of its own:
+    times summed over one train step at bf16 (the path that runs every
+    function), the forward kernels' eval-step times beside them. The mma
+    kernels, dq and GroupNorm carry their launches on the bf16 train path
+    (``runner.train``, its T=1000 sample grid included); the simt kernels,
+    the f32 route, carry theirs on the float32 kernel path of phases 4 and
+    6 (20 eval steps and one forward, 3 train steps)."""
     meta = {
         "groupnorm_swish": ("itsd_tpu_torch/csrc/groupnorm.cu",
                             "itsd_tpu/kernels/groupnorm.py:47"),
-        "flash_attention": ("itsd_tpu_torch/csrc/flash_attention.cu",
-                            "itsd_tpu/kernels/attention.py:50"),
+        "flash_attention_mma": ("itsd_tpu_torch/csrc/flash_attention_mma.cu",
+                                "itsd_tpu/kernels/attention.py:50"),
+        "flash_attention_simt": ("itsd_tpu_torch/csrc/flash_attention.cu",
+                                 "itsd_tpu/kernels/attention.py:50"),
         "flash_bwd_dq": ("itsd_tpu_torch/csrc/flash_attention_bwd.cu",
                          "itsd_tpu/kernels/attention.py:229"),
-        "flash_bwd_dkv": ("itsd_tpu_torch/csrc/flash_attention_bwd.cu",
-                          "itsd_tpu/kernels/attention.py:260"),
+        "flash_bwd_dkv_mma": ("itsd_tpu_torch/csrc/flash_attention_bwd_mma.cu",
+                              "itsd_tpu/kernels/attention.py:260"),
+        "flash_bwd_dkv_simt": ("itsd_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "itsd_tpu/kernels/attention.py:260"),
     }
     entries = []
     for name, (source, replaces) in meta.items():
@@ -998,12 +1140,20 @@ def kernel_json(fwd, bwd, eval_launches, train_launches, per_step):
             rows = fwd[name]["train"][1]
         else:
             err, rows = bwd[name]
+        simt = name.endswith("_simt")
+        launches = (f32_launches if simt else train_launches)[name]
+        if not launches:
+            fail(f"{name} was not launched on its path")
         entry = dict(name=name, route="cuda", source=source,
-                     replaces=replaces, launches=train_launches[name],
+                     replaces=replaces, launches=launches,
                      max_abs_err=err, **rows_entry(rows))
-        entry["launches_per_train_step"] = per_step[name]
-        entry["launches_by_path"] = {"eval": eval_launches[name],
-                                     "train": train_launches[name]}
+        entry["launches_on"] = (
+            "float32 kernel path, phases 4 and 6" if simt
+            else "bf16 train path, runner.train (phase 7)")
+        if not simt:
+            entry["launches_per_train_step"] = per_step[name]
+            entry["launches_by_path"] = {"eval": eval_launches[name],
+                                         "train": train_launches[name]}
         entry["work"] = "one train step (batch 128, bf16)"
         if name in fwd:
             entry["eval_step"] = rows_entry(fwd[name]["eval"][1])
@@ -1035,14 +1185,17 @@ def main() -> int:
         eval_launches = eval_path(params, tmpdir, smi_line,
                                   len(eval_shapes[0]), len(eval_shapes[1]),
                                   timer)
-        eval_parity(params, tmpdir)
+        f32_eval = eval_parity(params, tmpdir)
         bwd = check_backward_kernels(train_shapes[1], train_shapes[0], dev,
                                      timer)
-        train_parity(tmpdir)
+        _, f32_train = train_parity(tmpdir)
         train_launches, per_step = train_path(tmpdir, smi_line)
+    cuda_tests()
+    f32_launches = {k: f32_eval[k] + f32_train[k] for k in f32_eval}
     log(smi_line)
     log(json.dumps({"kernels": kernel_json(fwd, bwd, eval_launches,
-                                           train_launches, per_step)}))
+                                           train_launches, per_step,
+                                           f32_launches)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

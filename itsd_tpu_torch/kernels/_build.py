@@ -43,12 +43,16 @@ SIGNATURES = {
     "itsd_groupnorm_swish": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     # q, k, v, o, lse, B, N, C, scale, dtype, stream
     "itsd_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "itsd_flash_attention_mma": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                                 _P),
     # q, k, v, dout, lse, dd, dq, B, N, C, scale, dtype, stream
     "itsd_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                           _P),
     # q, k, v, dout, lse, dd, dk, dv, B, N, C, scale, dtype, stream
     "itsd_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                            _I, _P),
+    "itsd_flash_bwd_dkv_mma": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _F, _I, _P),
 }
 
 

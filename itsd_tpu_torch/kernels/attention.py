@@ -4,15 +4,24 @@ Counterpart of ``itsd_tpu/kernels/attention.py``: ``attention_plain`` is
 ``_attention_xla``, ``attention_plain_stats`` adds the per-row log-sum-exp of
 ``_attention_flash_stats``, and ``attention_bwd_plain`` is the blockwise
 backward ``_attention_flash_bwd`` written with explicit [B, N, N] matrices.
-The CUDA kernels replace the Pallas ones: ``csrc/flash_attention.cu`` the
-forward ``_flash_fwd_kernel``, ``csrc/flash_attention_bwd.cu`` the backward
-``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``. ``flash_attention``
-ties them together as a ``torch.autograd.Function``, as
+The CUDA kernels replace the Pallas ones: the forward ``_flash_fwd_kernel``
+and the backward ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``.
+``flash_attention`` ties them together as a ``torch.autograd.Function``, as
 ``_flash_attention_diff`` does with ``jax.custom_vjp``.
+
+The forward and the dk/dv backward each have two kernels, and ``route``
+picks one from the dtype and C alone:
+* "mma": bf16 with C % 16 == 0 and C <= 256, on the tensor cores
+  (``csrc/flash_attention_mma.cu``, ``csrc/flash_attention_bwd_mma.cu``);
+* "simt": everything else the kernels take, f32 above all, on the CUDA
+  cores in f32 (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``),
+  so that f32 never runs at the tensor cores' reduced precision.
+The dq backward has one kernel (``csrc/flash_attention_bwd.cu``).
 
 Every entry point dispatches on where its inputs lie: CPU tensors go to the
 plain versions, CUDA tensors to the kernels, and anything the kernels do not
-take raises.
+take raises. A failed build or launch raises; nothing gives way to another
+route.
 """
 
 from __future__ import annotations
@@ -21,13 +30,27 @@ import torch
 
 from . import _build
 
-# Kernel launches so far: the forward (both entry points), the dq kernel and
-# the dk/dv kernel. A run resets them to check what went through the kernels.
+# Kernel launches so far: the forward (both entry points, both routes), the
+# dq kernel and the dk/dv kernel (both routes), and of those the ones on the
+# "mma" route. A run resets them to check what went through the kernels.
 launches = 0
+mma_launches = 0
 dq_launches = 0
 dkv_launches = 0
+dkv_mma_launches = 0
 
 MAX_C = 512  # kMaxC of csrc/flash_attention.cu and flash_attention_bwd.cu
+MMA_MAX_C = 256  # kMaxC of csrc/flash_attention_mma.cu and _bwd_mma.cu
+
+
+def route(dtype: torch.dtype, C: int) -> str:
+    """The kernel pair a CUDA call takes: "mma" (tensor cores) for bf16 with
+    C % 16 == 0 and C <= 256, "simt" (CUDA cores, f32 arithmetic) for the
+    rest. Wider bf16 rows would need more accumulator registers than a
+    thread has."""
+    if dtype == torch.bfloat16 and C % 16 == 0 and C <= MMA_MAX_C:
+        return "mma"
+    return "simt"
 
 
 def _scores(q, k, scale):
@@ -79,22 +102,37 @@ def _check(q, k, v, *more):
                          f"got C={C}")
 
 
-def _flash(q, k, v, scale, emit_lse):
-    global launches
+def _launch_forward(q, k, v, scale, emit_lse, mma):
+    global launches, mma_launches
     _check(q, k, v)
     B, N, C = q.shape
     o = torch.empty_like(q)
     lse = (torch.empty((B, N), dtype=torch.float32, device=q.device)
            if emit_lse else None)
     kernels = _build.load()
+    entry = (kernels.lib.itsd_flash_attention_mma if mma
+             else kernels.lib.itsd_flash_attention)
     with torch.cuda.device(q.device):
-        rc = kernels.lib.itsd_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if emit_lse else None, B, N, C, scale,
-            _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
-    _build.check(kernels, rc, "flash_attention")
+        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   lse.data_ptr() if emit_lse else None, B, N, C, scale,
+                   _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
+    _build.check(kernels, rc, "flash_attention" + ("_mma" if mma else ""))
     launches += 1
+    mma_launches += mma
     return (o, lse) if emit_lse else o
+
+
+def _flash(q, k, v, scale, emit_lse):
+    """The forward through the kernel ``route`` names."""
+    mma = route(q.dtype, q.shape[-1]) == "mma"
+    return _launch_forward(q, k, v, scale, emit_lse, mma)
+
+
+def _flash_simt(q, k, v, scale, emit_lse):
+    """The forward through the CUDA-core kernel whatever the route, so that
+    both kernels can be held and timed on the same bf16 inputs. No path of
+    the program calls it."""
+    return _launch_forward(q, k, v, scale, emit_lse, False)
 
 
 def row_dd(o, do, dlse=None):
@@ -190,22 +228,38 @@ def flash_bwd_dq(q, k, v, do, lse, dd, scale):
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, dd, scale):
-    """(dk, dv) through the dk/dv kernel (CUDA tensors only)."""
-    global dkv_launches
+def _launch_dkv(q, k, v, do, lse, dd, scale, mma):
+    global dkv_launches, dkv_mma_launches
     _check(q, k, v, do)
     _check_rows(lse, q, "lse")
     _check_rows(dd, q, "dd")
     B, N, C = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     kernels = _build.load()
+    entry = (kernels.lib.itsd_flash_bwd_dkv_mma if mma
+             else kernels.lib.itsd_flash_bwd_dkv)
     with torch.cuda.device(q.device):
-        rc = kernels.lib.itsd_flash_bwd_dkv(
-            *(t.data_ptr() for t in (q, k, v, do, lse, dd, dk, dv)), B, N,
-            C, scale, _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
-    _build.check(kernels, rc, "flash_bwd_dkv")
+        rc = entry(*(t.data_ptr() for t in (q, k, v, do, lse, dd, dk, dv)),
+                   B, N, C, scale, _build.DTYPE_CODES[q.dtype],
+                   _build.stream_ptr(q))
+    _build.check(kernels, rc, "flash_bwd_dkv" + ("_mma" if mma else ""))
     dkv_launches += 1
+    dkv_mma_launches += mma
     return dk, dv
+
+
+def flash_bwd_dkv(q, k, v, do, lse, dd, scale):
+    """(dk, dv) through the dk/dv kernel ``route`` names (CUDA tensors
+    only)."""
+    mma = route(q.dtype, q.shape[-1]) == "mma"
+    return _launch_dkv(q, k, v, do, lse, dd, scale, mma)
+
+
+def _flash_bwd_dkv_simt(q, k, v, do, lse, dd, scale):
+    """(dk, dv) through the CUDA-core kernel whatever the route, so that
+    both kernels can be held and timed on the same bf16 inputs. No path of
+    the program calls it."""
+    return _launch_dkv(q, k, v, do, lse, dd, scale, False)
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

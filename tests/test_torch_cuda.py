@@ -14,6 +14,12 @@ relative, so the sums differ by at most 2^-8 * max|v|; then each side rounds
 its output to bf16 (one step, 2^-7 relative). The test allows twice the
 first term: atol 2^-7 * max|v|, rtol 2^-7.
 
+The forward and the dk/dv backward have two kernels each, the tensor-core
+("mma") and the CUDA-core ("simt") one; ``route`` picks one from the dtype
+and C. Both are held here on the same bf16 inputs, the "simt" one through
+the private ``_flash_simt`` and ``_flash_bwd_dkv_simt``. Run one route's
+tests with ``-k mma`` or ``-k simt``.
+
 The backward kernels against ``attention_bwd_plain`` (the same formula and
 roundings): f32 2e-5 absolute on values O(1), sums in another order
 (measured <= 3.8e-6 on an H100). bf16: both sides round ds (and p) to bf16,
@@ -119,6 +125,117 @@ def test_flash_bwd_kernels_match_plain(cuda_device, dtype, B, N, C):
                 torch.testing.assert_close(
                     g.float(), w.float(), rtol=BF16_RTOL,
                     atol=BF16_RTOL * w.float().abs().max().item())
+
+
+ROUTE_SHAPES = [(4, 256, 256), (4, 16, 256), (4, 17, 128), (3, 100, 64),
+                (2, 1, 16), (2, 4096, 256)]
+
+
+def _close_bf16(got, want, ref):
+    """bf16 outputs within the tolerances above: atol 2^-7 * max|ref|
+    (max|v| for the forward, max|plain| for the backward), rtol 2^-7."""
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=BF16_RTOL,
+        atol=BF16_RTOL * ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["mma", "simt"])
+@pytest.mark.parametrize("B,N,C", ROUTE_SHAPES)
+def test_flash_routes_match_plain_in_bf16(cuda_device, which, B, N, C):
+    """The forward (with and without lse) and dk/dv through the tensor-core
+    kernels ("mma", which ``route`` names for these shapes) and through the
+    CUDA-core kernels ("simt", forced), each against its plain version."""
+    assert attention.route(torch.bfloat16, C) == "mma"
+    gen = torch.Generator(device=cuda_device).manual_seed(B * N + C)
+    q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = C ** -0.5
+    want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
+    counts = (attention.launches, attention.mma_launches)
+    if which == "mma":
+        o, lse = attention.attention_with_lse(q, k, v, scale)
+        o2 = attention.spatial_attention(q, k, v)
+    else:
+        o, lse = attention._flash_simt(q, k, v, scale, emit_lse=True)
+        o2 = attention._flash_simt(q, k, v, scale, emit_lse=False)
+    torch.cuda.synchronize()
+    mma = int(which == "mma")
+    assert (attention.launches - counts[0],
+            attention.mma_launches - counts[1]) == (2, 2 * mma)
+    assert torch.equal(o, o2)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
+    _close_bf16(o, want_o, v)
+
+    dd = attention.row_dd(o, do).contiguous()
+    args = (q, k, v, do, lse, dd, scale)
+    counts = (attention.dkv_launches, attention.dkv_mma_launches)
+    dkv = (attention.flash_bwd_dkv if which == "mma"
+           else attention._flash_bwd_dkv_simt)
+    got = dkv(*args)
+    want = attention.flash_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    assert (attention.dkv_launches - counts[0],
+            attention.dkv_mma_launches - counts[1]) == (1, mma)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == (B, N, C)
+        _close_bf16(g, w, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flagship_attention_shape(cuda_device, dtype):
+    """The 256x256 flagship's attention, [1, 4096, 384], forward and
+    backward on the route it takes (C=384 is past the tensor-core kernels'
+    256: "simt" in both dtypes)."""
+    B, N, C = 1, 4096, 384
+    assert attention.route(dtype, C) == "simt"
+    gen = torch.Generator(device=cuda_device).manual_seed(384)
+    q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
+                   .to(dtype) for _ in range(4))
+    scale = C ** -0.5
+    counts = (attention.launches, attention.mma_launches,
+              attention.dq_launches, attention.dkv_launches,
+              attention.dkv_mma_launches)
+    o, lse = attention.attention_with_lse(q, k, v, scale)
+    got = attention.attention_bwd(q, k, v, o, lse, do, scale)
+    want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
+    want = attention.attention_bwd_plain(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert (attention.launches - counts[0], attention.mma_launches - counts[1],
+            attention.dq_launches - counts[2],
+            attention.dkv_launches - counts[3],
+            attention.dkv_mma_launches - counts[4]) == (1, 0, 1, 1, 0)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, want_o, atol=2e-5, rtol=0)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=BWD_F32_TOL, rtol=0)
+    else:
+        _close_bf16(o, want_o, v)
+        for g, w in zip(got, want):
+            _close_bf16(g, w, w)
+
+
+@pytest.mark.cuda
+def test_mma_entries_refuse_what_they_do_not_take(cuda_device):
+    """The tensor-core entry points take bf16 with C % 16 == 0 and C <= 256
+    only; anything else returns an error, which the wrapper raises."""
+    from itsd_tpu_torch.kernels import _build
+
+    lib = _build.load().lib
+    for dtype, C in ((torch.float32, 64), (torch.bfloat16, 24),
+                     (torch.bfloat16, 272)):
+        q = torch.zeros((1, 8, C), dtype=dtype, device=cuda_device)
+        lse = torch.zeros((1, 8), device=cuda_device)
+        code = _build.DTYPE_CODES[dtype]
+        stream = _build.stream_ptr(q)
+        p = q.data_ptr()
+        assert lib.itsd_flash_attention_mma(p, p, p, p, None, 1, 8, C, 0.5,
+                                            code, stream) != 0
+        assert lib.itsd_flash_bwd_dkv_mma(p, p, p, p, lse.data_ptr(),
+                                          lse.data_ptr(), p, p, 1, 8, C, 0.5,
+                                          code, stream) != 0
 
 
 @pytest.mark.cuda

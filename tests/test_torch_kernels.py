@@ -162,12 +162,46 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert (groupnorm.launches, attention.launches) == before
 
 
+@pytest.mark.parametrize("dtype,C,want", [
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 64, "mma"),
+    (torch.bfloat16, 128, "mma"), (torch.bfloat16, 256, "mma"),
+    (torch.bfloat16, 100, "simt"), (torch.bfloat16, 384, "simt"),
+    (torch.bfloat16, 512, "simt"), (torch.float32, 16, "simt"),
+    (torch.float32, 256, "simt"), (torch.float32, 384, "simt")])
+def test_route_is_chosen_by_dtype_and_width(dtype, C, want):
+    """bf16 rows of a multiple of 16 up to 256 take the tensor-core
+    kernels; f32 (kept off the tensor cores) and other widths the CUDA-core
+    ones."""
+    assert attention.route(dtype, C) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_tensors_launch_no_kernel_of_either_route(dtype):
+    names = ("launches", "mma_launches", "dq_launches", "dkv_launches",
+             "dkv_mma_launches")
+    before = [getattr(attention, n) for n in names]
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn((2, 16, 256), generator=gen).to(dtype)
+                   for _ in range(4))
+    scale = 256 ** -0.5
+    o, lse = attention.attention_with_lse(q, k, v, scale)
+    want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+    assert torch.equal(attention.spatial_attention(q, k, v),
+                       attention.attention_plain(q, k, v, scale))
+    got = attention.attention_bwd(q, k, v, o, lse, do, scale)
+    want = attention.attention_bwd_plain(q, k, v, o, lse, do, scale)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert [getattr(attention, n) for n in names] == before
+
+
 def test_build_command_is_one_nvcc_call_for_sm90a(tmp_path):
     cmd = _build.nvcc_command("nvcc", tmp_path / "lib.so")
     assert cmd[0] == "nvcc"
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     srcs = {p.name for p in _build.sources()}
-    assert {"groupnorm.cu", "flash_attention.cu"} <= srcs
+    assert {"groupnorm.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+            "flash_attention_mma.cu", "flash_attention_bwd_mma.cu"} <= srcs
     assert all(str(p) in cmd for p in _build.sources())
     for p in _build.CSRC.glob("*.cu*"):
         assert "torch/extension.h" not in p.read_text()
