@@ -17,7 +17,10 @@ Phases, each ending with one line that carries its elapsed seconds:
    plain version, one PyTorch library call and the least time the card
    could take. The flash forward has two kernels: the tensor-core one
    ("mma", the route of bf16 at C=256) and the CUDA-core one ("simt", the
-   route of f32); both are checked and timed on the same bf16 inputs;
+   route of f32); both are checked and timed on the same bf16 inputs.
+   GroupNorm also at the 256x256 flagship's largest spans (batch 1, spans
+   of up to 786,432 elements, split over a thread-block cluster): forward
+   and backward in f32 and bf16, two launches equal bit for bit, timed;
 3. eval path: ``runner.evaluate`` at the full width of the CIFAR-10 UNet
    (ch 128, ch_mult 1,2,2,2, attention at 16x16, batch 8, 32x32, bf16,
    T=1000) on seeded weights; the kernels' launch counts must be exactly
@@ -27,12 +30,12 @@ Phases, each ending with one line that carries its elapsed seconds:
    route) and in bf16 (the mma route): one full-width UNet forward (eps)
    at timesteps across the chain, and 20 denoising steps from one x_T with
    one fed noise sequence;
-5. backward: the dq and dk/dv kernels (dk/dv on both routes, as in phase
+5. backward: the dq and dk/dv kernels (each on both routes, as in phase
    2) against their plain versions at the train path's shapes and one more
    C, in bf16 and f32, with a nonzero dlse once, timed beside the plain
    versions, the backward of ``F.scaled_dot_product_attention`` and their
-   bound; the GroupNorm backward (autograd through the plain recompute)
-   checked and timed;
+   bound; every bf16 dq and dk/dv must take the mma route; the GroupNorm
+   backward (autograd through the plain recompute) checked and timed;
 6. train-step parity: 3 steps of the kernel path against the plain path at
    full width and batch 128 (dropout 0, the same params, batches, t and
    noise), in f32 (simt) and bf16 (mma): loss, pre-clip gradient norm, max
@@ -40,8 +43,8 @@ Phases, each ending with one line that carries its elapsed seconds:
 7. train path: ``runner.train`` at the configuration of
    ``configs/cifar10_uncond.yaml`` on the shapes dataset (batch 128, lr
    2e-4, dropout 0.1, bf16) for 320 steps; exactly 6/6/6/51 launches a step
-   of flash forward / dq / dk-dv / GroupNorm, the forwards and dk/dv all on
-   the mma route; a finite, falling loss; the checkpoint restored for one
+   of flash forward / dq / dk-dv / GroupNorm, the forwards, dq and dk/dv all
+   on the mma route; a finite, falling loss; the checkpoint restored for one
    more step and for an eval; ms per step, images/s, peak memory and the
    device's busy share (``torch.profiler``);
 8. CUDA tests: ``python -m pytest --noconftest -m cuda -q
@@ -55,7 +58,7 @@ when there is no CUDA device or no ``itsd_tpu_torch`` beside it.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after. The bf16 eval and train paths (phases 3 and 7) run the
-mma kernels, dq and GroupNorm; the simt kernels are the f32 route, driven
+mma kernels and GroupNorm; the simt kernels are the f32 route, driven
 by the float32 kernel path of phases 4 and 6, whose counts their entries
 in the kernels' JSON line carry.
 """
@@ -504,6 +507,75 @@ def check_flash_forward(attn_calls, dev, timer, n):
     return {k: (worst[k], rows[k]) for k in rows}
 
 
+# The 256x256 flagship's largest GroupNorm spans (configs/
+# imagenet256_uncond.yaml: ch 128, ch_mult 1,2,3,4), at batch 1: 12, 8 and 4
+# channels of 65,536 pixels a group, each span split over a cluster.
+FLAGSHIP_GN_SHAPES = ((1, 384, 256, 256), (1, 256, 256, 256),
+                      (1, 128, 256, 256))
+
+
+def check_flagship_groupnorm(dev, timer):
+    """GroupNorm+swish at FLAGSHIP_GN_SHAPES in bf16 and f32: the kernel
+    against its plain version, two launches equal bit for bit, and the
+    backward (the kernel path's autograd.Function) against autograd of the
+    plain version; times at bf16 (rows) and of the kernel in f32, whose
+    largest span is not held on chip. Returns (max error, rows)."""
+    from itsd_tpu_torch.kernels import groupnorm
+    from itsd_tpu_torch.models.unet import _groups
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst, rows = 0.0, []
+    log("groupnorm_swish, the flagship's spans (batch 1, act): shape | "
+        "max_abs_err bf16 f32; backward dx dw db bf16 f32 | kernel plain "
+        "library bound ms (bf16) | kernel bound ms (f32)")
+    for shape in FLAGSHIP_GN_SHAPES:
+        C = shape[1]
+        G = _groups(C)
+        w = 1 + 0.1 * torch.randn(C, generator=gen, device=dev)
+        b = 0.1 * torch.randn(C, generator=gen, device=dev)
+        errs, bwd, k_ms = [], [], {}
+        for dtype in (torch.bfloat16, torch.float32):
+            what = f"groupnorm_swish {shape} {dtype}"
+            x = _rand(shape, gen, dev, dtype, 0.5, 2.0)
+            got = groupnorm.groupnorm_swish(x, w, b, G)
+            again = groupnorm.groupnorm_swish(x, w, b, G)
+            want = groupnorm.groupnorm_swish_plain(x, w, b, G)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"{what}: two launches on the same input differ")
+            errs.append(check_close(what, got, want, *GN_TOL[dtype]))
+            xg, wg, bg = (t.detach().clone().requires_grad_()
+                          for t in (x, w, b))
+            gy = _rand(shape, gen, dev, dtype)
+            got = torch.autograd.grad(
+                groupnorm.groupnorm_swish(xg, wg, bg, G), (xg, wg, bg), gy)
+            want = torch.autograd.grad(
+                groupnorm.groupnorm_swish_plain(xg, wg, bg, G), (xg, wg, bg),
+                gy)
+            torch.cuda.synchronize()
+            bwd += [check_close(f"{what} backward {name}", g, w_,
+                                GN_BWD_TOL, 0.0)
+                    for name, g, w_ in zip(("dx", "dw", "db"), got, want)]
+            del xg, wg, bg, gy, got, want
+            k_ms[dtype], _ = timer(
+                lambda: groupnorm.groupnorm_swish(x, w, b, G), n=20)
+            if dtype == torch.bfloat16:
+                wl, bl = w.to(dtype), b.to(dtype)
+                p_ms, _ = timer(
+                    lambda: groupnorm.groupnorm_swish_plain(x, w, b, G), n=5)
+                l_ms, _ = timer(
+                    lambda: F.silu(F.group_norm(x, G, wl, bl, 1e-5)), n=20)
+        worst = max(worst, *errs)
+        by_bytes, by_ops = gn_bound_ms(shape, 2, True)
+        log(f"  {list(shape)} | {errs[0]:.3g} {errs[1]:.3g}; "
+            f"{' '.join(f'{e:.3g}' for e in bwd)} | "
+            f"{k_ms[torch.bfloat16]:.5f} {p_ms:.5f} {l_ms:.5f} "
+            f"{max(by_bytes, by_ops):.5f} | {k_ms[torch.float32]:.5f} "
+            f"{max(gn_bound_ms(shape, 4, True)):.5f}")
+        rows.append((1, k_ms[torch.bfloat16], p_ms, l_ms, by_bytes, by_ops))
+    return worst, rows
+
+
 def check_forward_kernels(eval_shapes, train_shapes, dev, timer):
     """Phase 2: both forward kernels at the eval path's and the train
     path's shapes. Returns {kernel: {"eval": (err, rows), "train": ...}}."""
@@ -520,6 +592,7 @@ def check_forward_kernels(eval_shapes, train_shapes, dev, timer):
         for name, res in check_flash_forward(attn_calls, dev, timer,
                                              n).items():
             out[name][tag] = res
+    out["groupnorm_swish"]["flagship"] = check_flagship_groupnorm(dev, timer)
     phase_done(2, "forward kernels against their plain versions", t0,
                "(all within tolerance)")
     return out
@@ -529,8 +602,8 @@ def check_backward_kernels(attn_calls, gn_calls, dev, timer):
     """Phase 5: the dq and dk/dv kernels against their plain versions at
     the train path's attention shapes and [8, 256, 128], in bf16 and f32
     (with a random dO, and a nonzero dlse at the first shape), and the simt
-    dk/dv kernel on the bf16 inputs too; times at bf16 of dq and of both
-    dk/dv kernels on the same inputs, beside the plain versions, the
+    dq and dk/dv kernels on the bf16 inputs too; times at bf16 of both
+    kernels of each on the same inputs, beside the plain versions, the
     backward of SDPA and the bound. Then the GroupNorm backward at the
     train path's shapes."""
     from itsd_tpu_torch.kernels import attention, groupnorm
@@ -540,13 +613,13 @@ def check_backward_kernels(attn_calls, gn_calls, dev, timer):
     gen = torch.Generator(device=dev).manual_seed(5)
     counts = collections.Counter(attn_calls)
     shapes = list(counts) + [(8, 256, 128)]
-    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv_mma": 0.0,
-             "flash_bwd_dkv_simt": 0.0}
+    worst = {"flash_bwd_dq_mma": 0.0, "flash_bwd_dq_simt": 0.0,
+             "flash_bwd_dkv_mma": 0.0, "flash_bwd_dkv_simt": 0.0}
     rows = {k: [] for k in worst}
     log("flash backward: [B,N,C] x calls/step | max_abs_err dq dk dv bf16 "
-        "(dk/dv mma), dk dv bf16 simt, dq dk dv f32 | ms (bf16): dq kernel "
-        "plain bound, dkv mma simt plain bound | sdpa bwd ms | host us/call "
-        "dq, dkv mma simt")
+        "(mma), dq dk dv bf16 simt, dq dk dv f32 (simt) | ms (bf16): dq mma "
+        "simt plain bound, dkv mma simt plain bound | sdpa bwd ms | host "
+        "us/call dq mma simt, dkv mma simt")
     log(f"  tolerance: f32 {BWD_F32_TOL}; bf16 2^-7*max|plain| + "
         f"2^-7*|plain|")
 
@@ -579,25 +652,30 @@ def check_backward_kernels(attn_calls, gn_calls, dev, timer):
             want = attention.attention_bwd_plain(q, k, v, o, lse, do, scale,
                                                  dlse)
             torch.cuda.synchronize()
-            if (n1["flash_bwd_dkv_mma"] - n0["flash_bwd_dkv_mma"]
-                    != (dtype == torch.bfloat16)):
-                fail(f"{what}: dk/dv not on the route of {dtype}")
+            which = "mma" if dtype == torch.bfloat16 else "simt"
+            for fn in ("flash_bwd_dq", "flash_bwd_dkv"):
+                if (n1[f"{fn}_{which}"] - n0[f"{fn}_{which}"] != 1
+                        or n1[fn] - n0[fn] != 1):
+                    fail(f"{what}: {fn} not on the {which} route")
             e = check_grads(f"{what} dlse={dlse is not None}", got, want,
                             dtype)
             errs[dtype] = e
-            worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e[0])
-            dkv = ("flash_bwd_dkv_mma" if dtype == torch.bfloat16
-                   else "flash_bwd_dkv_simt")
-            worst[dkv] = max(worst[dkv], *e[1:])
-            if dtype == torch.bfloat16:  # the simt dk/dv on the same inputs
+            worst[f"flash_bwd_dq_{which}"] = max(
+                worst[f"flash_bwd_dq_{which}"], e[0])
+            worst[f"flash_bwd_dkv_{which}"] = max(
+                worst[f"flash_bwd_dkv_{which}"], *e[1:])
+            if dtype == torch.bfloat16:  # the simt kernels, same inputs
                 dd = attention.row_dd(o, do, dlse).contiguous()
-                got = attention._flash_bwd_dkv_simt(q, k, v, do, lse, dd,
-                                                    scale)
+                got = (attention._flash_bwd_dq_simt(q, k, v, do, lse, dd,
+                                                    scale),
+                       *attention._flash_bwd_dkv_simt(q, k, v, do, lse, dd,
+                                                      scale))
                 torch.cuda.synchronize()
-                errs["simt"] = check_grads(f"{what} simt", got, want[1:],
-                                           dtype)
+                errs["simt"] = check_grads(f"{what} simt", got, want, dtype)
+                worst["flash_bwd_dq_simt"] = max(worst["flash_bwd_dq_simt"],
+                                                 errs["simt"][0])
                 worst["flash_bwd_dkv_simt"] = max(
-                    worst["flash_bwd_dkv_simt"], *errs["simt"])
+                    worst["flash_bwd_dkv_simt"], *errs["simt"][1:])
         q, k, v, do = (_rand((B, N, C), gen, dev, torch.bfloat16)
                        for _ in range(4))
         o, lse = attention.attention_with_lse(q, k, v, scale)
@@ -605,6 +683,8 @@ def check_backward_kernels(attn_calls, gn_calls, dev, timer):
         args = (q, k, v, do, lse, dd, scale)
         n = 10
         dq_ms, dq_host = timer(lambda: attention.flash_bwd_dq(*args), n=n)
+        dq_simt_ms, dq_simt_host = timer(
+            lambda: attention._flash_bwd_dq_simt(*args), n=n)
         dkv_ms, dkv_host = timer(lambda: attention.flash_bwd_dkv(*args), n=n)
         simt_ms, simt_host = timer(
             lambda: attention._flash_bwd_dkv_simt(*args), n=n)
@@ -623,12 +703,16 @@ def check_backward_kernels(attn_calls, gn_calls, dev, timer):
             f"{' '.join(f'{x:.3g}' for x in errs[torch.bfloat16])}, "
             f"{' '.join(f'{x:.3g}' for x in errs['simt'])}, "
             f"{' '.join(f'{x:.3g}' for x in errs[torch.float32])} | "
-            f"dq {dq_ms:.5f} {dq_plain:.5f} {max(b_dq):.5f}, dkv "
-            f"{dkv_ms:.5f} {simt_ms:.5f} {dkv_plain:.5f} {max(b_dkv):.5f} | "
-            f"{sdpa_ms:.5f} | {dq_host:.1f}, {dkv_host:.1f} {simt_host:.1f}")
+            f"dq {dq_ms:.5f} {dq_simt_ms:.5f} {dq_plain:.5f} "
+            f"{max(b_dq):.5f}, dkv {dkv_ms:.5f} {simt_ms:.5f} "
+            f"{dkv_plain:.5f} {max(b_dkv):.5f} | {sdpa_ms:.5f} | "
+            f"{dq_host:.1f} {dq_simt_host:.1f}, {dkv_host:.1f} "
+            f"{simt_host:.1f}")
         if calls:
-            rows["flash_bwd_dq"].append((calls, dq_ms, dq_plain, sdpa_ms,
-                                         *b_dq))
+            rows["flash_bwd_dq_mma"].append((calls, dq_ms, dq_plain, sdpa_ms,
+                                             *b_dq))
+            rows["flash_bwd_dq_simt"].append((calls, dq_simt_ms, dq_plain,
+                                              sdpa_ms, *b_dq))
             rows["flash_bwd_dkv_mma"].append((calls, dkv_ms, dkv_plain,
                                               sdpa_ms, *b_dkv))
             rows["flash_bwd_dkv_simt"].append((calls, simt_ms, dkv_plain,
@@ -704,13 +788,13 @@ def reset_launches():
 
     groupnorm.launches = 0
     attention.launches = attention.mma_launches = 0
-    attention.dq_launches = 0
+    attention.dq_launches = attention.dq_mma_launches = 0
     attention.dkv_launches = attention.dkv_mma_launches = 0
 
 
 def read_launches() -> dict:
     """Launches so far: the totals of each function (both routes) and, for
-    the flash forward and dk/dv, of each route's kernel."""
+    the flash forward, dq and dk/dv, of each route's kernel."""
     from itsd_tpu_torch.kernels import attention, groupnorm
 
     return {"groupnorm_swish": groupnorm.launches,
@@ -719,6 +803,9 @@ def read_launches() -> dict:
             "flash_attention_simt": attention.launches
             - attention.mma_launches,
             "flash_bwd_dq": attention.dq_launches,
+            "flash_bwd_dq_mma": attention.dq_mma_launches,
+            "flash_bwd_dq_simt": attention.dq_launches
+            - attention.dq_mma_launches,
             "flash_bwd_dkv": attention.dkv_launches,
             "flash_bwd_dkv_mma": attention.dkv_mma_launches,
             "flash_bwd_dkv_simt": attention.dkv_launches
@@ -726,11 +813,11 @@ def read_launches() -> dict:
 
 
 def per_route(totals: dict, mma: bool) -> dict:
-    """The launch counts ``read_launches`` gives when every flash forward
-    and dk/dv of ``totals`` (function -> count) took the mma route (or,
+    """The launch counts ``read_launches`` gives when every flash forward,
+    dq and dk/dv of ``totals`` (function -> count) took the mma route (or,
     with ``mma`` False, the simt route)."""
     out = dict(totals)
-    for fn in ("flash_attention", "flash_bwd_dkv"):
+    for fn in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv"):
         n = totals.get(fn, 0)
         out[fn + "_mma"], out[fn + "_simt"] = (n, 0) if mma else (0, n)
     return out
@@ -957,7 +1044,8 @@ def _category(name: str) -> str:
     for cat, keys in (
             ("flash_fwd mma (ours)", ("flash_fwd_mma_kernel",)),
             ("flash_fwd simt (ours)", ("flash_fwd_kernel",)),
-            ("flash_bwd_dq (ours)", ("flash_bwd_dq_kernel",)),
+            ("flash_bwd_dq mma (ours)", ("flash_bwd_dq_mma_kernel",)),
+            ("flash_bwd_dq simt (ours)", ("flash_bwd_dq_kernel",)),
             ("flash_bwd_dkv mma (ours)", ("flash_bwd_dkv_mma_kernel",)),
             ("flash_bwd_dkv simt (ours)", ("flash_bwd_dkv_kernel",)),
             ("groupnorm (ours)", ("groupnorm_swish_kernel",)),
@@ -1008,7 +1096,7 @@ def train_path(tmpdir, card_line):
                               "flash_bwd_dkv": 6, "groupnorm_swish": 51},
                              mma=True):
         fail(f"launches per train step {per_step}, want 6/6/6/51, the flash "
-             "forwards and dk/dv on the mma route")
+             "forwards, dq and dk/dv on the mma route")
     first, last = losses[:16].mean(), losses[-16:].mean()
     log(f"loss: first {losses[0]:.5f}, mean of the first 16 steps "
         f"{first:.5f}, of the last 16 {last:.5f}, final {losses[-1]:.5f}")
@@ -1115,7 +1203,7 @@ def kernel_json(fwd, bwd, eval_launches, train_launches, per_step,
     """The kernels' JSON entries, each route's kernel an entry of its own:
     times summed over one train step at bf16 (the path that runs every
     function), the forward kernels' eval-step times beside them. The mma
-    kernels, dq and GroupNorm carry their launches on the bf16 train path
+    kernels and GroupNorm carry their launches on the bf16 train path
     (``runner.train``, its T=1000 sample grid included); the simt kernels,
     the f32 route, carry theirs on the float32 kernel path of phases 4 and
     6 (20 eval steps and one forward, 3 train steps)."""
@@ -1126,8 +1214,11 @@ def kernel_json(fwd, bwd, eval_launches, train_launches, per_step,
                                 "itsd_tpu/kernels/attention.py:50"),
         "flash_attention_simt": ("itsd_tpu_torch/csrc/flash_attention.cu",
                                  "itsd_tpu/kernels/attention.py:50"),
-        "flash_bwd_dq": ("itsd_tpu_torch/csrc/flash_attention_bwd.cu",
-                         "itsd_tpu/kernels/attention.py:229"),
+        "flash_bwd_dq_mma": (
+            "itsd_tpu_torch/csrc/flash_attention_bwd_dq_mma.cu",
+            "itsd_tpu/kernels/attention.py:229"),
+        "flash_bwd_dq_simt": ("itsd_tpu_torch/csrc/flash_attention_bwd.cu",
+                              "itsd_tpu/kernels/attention.py:229"),
         "flash_bwd_dkv_mma": ("itsd_tpu_torch/csrc/flash_attention_bwd_mma.cu",
                               "itsd_tpu/kernels/attention.py:260"),
         "flash_bwd_dkv_simt": ("itsd_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -1136,7 +1227,7 @@ def kernel_json(fwd, bwd, eval_launches, train_launches, per_step,
     entries = []
     for name, (source, replaces) in meta.items():
         if name in fwd:
-            err = max(fwd[name]["eval"][0], fwd[name]["train"][0])
+            err = max(res[0] for res in fwd[name].values())
             rows = fwd[name]["train"][1]
         else:
             err, rows = bwd[name]
@@ -1155,6 +1246,8 @@ def kernel_json(fwd, bwd, eval_launches, train_launches, per_step,
             entry["launches_by_path"] = {"eval": eval_launches[name],
                                          "train": train_launches[name]}
         entry["work"] = "one train step (batch 128, bf16)"
+        if "flagship" in fwd.get(name, {}):
+            entry["flagship_batch1"] = rows_entry(fwd[name]["flagship"][1])
         if name in fwd:
             entry["eval_step"] = rows_entry(fwd[name]["eval"][1])
         else:

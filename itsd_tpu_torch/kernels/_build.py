@@ -48,6 +48,8 @@ SIGNATURES = {
     # q, k, v, dout, lse, dd, dq, B, N, C, scale, dtype, stream
     "itsd_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                           _P),
+    "itsd_flash_bwd_dq_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                              _I, _P),
     # q, k, v, dout, lse, dd, dk, dv, B, N, C, scale, dtype, stream
     "itsd_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                            _I, _P),

@@ -9,14 +9,14 @@ and the backward ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``.
 ``flash_attention`` ties them together as a ``torch.autograd.Function``, as
 ``_flash_attention_diff`` does with ``jax.custom_vjp``.
 
-The forward and the dk/dv backward each have two kernels, and ``route``
-picks one from the dtype and C alone:
+The forward, the dq backward and the dk/dv backward each have two kernels,
+and ``route`` picks one from the dtype and C alone:
 * "mma": bf16 with C % 16 == 0 and C <= 256, on the tensor cores
-  (``csrc/flash_attention_mma.cu``, ``csrc/flash_attention_bwd_mma.cu``);
+  (``csrc/flash_attention_mma.cu``, ``csrc/flash_attention_bwd_dq_mma.cu``,
+  ``csrc/flash_attention_bwd_mma.cu``);
 * "simt": everything else the kernels take, f32 above all, on the CUDA
   cores in f32 (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``),
   so that f32 never runs at the tensor cores' reduced precision.
-The dq backward has one kernel (``csrc/flash_attention_bwd.cu``).
 
 Every entry point dispatches on where its inputs lie: CPU tensors go to the
 plain versions, CUDA tensors to the kernels, and anything the kernels do not
@@ -36,18 +36,19 @@ from . import _build
 launches = 0
 mma_launches = 0
 dq_launches = 0
+dq_mma_launches = 0
 dkv_launches = 0
 dkv_mma_launches = 0
 
 MAX_C = 512  # kMaxC of csrc/flash_attention.cu and flash_attention_bwd.cu
-MMA_MAX_C = 256  # kMaxC of csrc/flash_attention_mma.cu and _bwd_mma.cu
+MMA_MAX_C = 256  # kMaxC of the csrc/flash_attention*_mma.cu kernels
 
 
 def route(dtype: torch.dtype, C: int) -> str:
-    """The kernel pair a CUDA call takes: "mma" (tensor cores) for bf16 with
-    C % 16 == 0 and C <= 256, "simt" (CUDA cores, f32 arithmetic) for the
-    rest. Wider bf16 rows would need more accumulator registers than a
-    thread has."""
+    """The kernels a CUDA call takes, for the forward, dq and dk/dv alike:
+    "mma" (tensor cores) for bf16 with C % 16 == 0 and C <= 256, "simt"
+    (CUDA cores, f32 arithmetic) for the rest. Wider bf16 rows would need
+    more accumulator registers than a thread has."""
     if dtype == torch.bfloat16 and C % 16 == 0 and C <= MMA_MAX_C:
         return "mma"
     return "simt"
@@ -210,22 +211,37 @@ def _check_rows(t, q, what):
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def flash_bwd_dq(q, k, v, do, lse, dd, scale):
-    """dq through the dq kernel (CUDA tensors only)."""
-    global dq_launches
+def _launch_dq(q, k, v, do, lse, dd, scale, mma):
+    global dq_launches, dq_mma_launches
     _check(q, k, v, do)
     _check_rows(lse, q, "lse")
     _check_rows(dd, q, "dd")
     B, N, C = q.shape
     dq = torch.empty_like(q)
     kernels = _build.load()
+    entry = (kernels.lib.itsd_flash_bwd_dq_mma if mma
+             else kernels.lib.itsd_flash_bwd_dq)
     with torch.cuda.device(q.device):
-        rc = kernels.lib.itsd_flash_bwd_dq(
-            *(t.data_ptr() for t in (q, k, v, do, lse, dd, dq)), B, N, C,
-            scale, _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
-    _build.check(kernels, rc, "flash_bwd_dq")
+        rc = entry(*(t.data_ptr() for t in (q, k, v, do, lse, dd, dq)), B, N,
+                   C, scale, _build.DTYPE_CODES[q.dtype],
+                   _build.stream_ptr(q))
+    _build.check(kernels, rc, "flash_bwd_dq" + ("_mma" if mma else ""))
     dq_launches += 1
+    dq_mma_launches += mma
     return dq
+
+
+def flash_bwd_dq(q, k, v, do, lse, dd, scale):
+    """dq through the dq kernel ``route`` names (CUDA tensors only)."""
+    mma = route(q.dtype, q.shape[-1]) == "mma"
+    return _launch_dq(q, k, v, do, lse, dd, scale, mma)
+
+
+def _flash_bwd_dq_simt(q, k, v, do, lse, dd, scale):
+    """dq through the CUDA-core kernel whatever the route, so that both
+    kernels can be held and timed on the same bf16 inputs. No path of the
+    program calls it."""
+    return _launch_dq(q, k, v, do, lse, dd, scale, False)
 
 
 def _launch_dkv(q, k, v, do, lse, dd, scale, mma):
@@ -266,7 +282,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                   scale: float, dlse=None):
     """(dq, dk, dv): ``attention_bwd_plain`` for CPU tensors; for CUDA
-    tensors dd in PyTorch, then the dq kernel and the dk/dv kernel."""
+    tensors dd in PyTorch, then the dq kernel and the dk/dv kernel that
+    ``route`` names."""
     if _on_cpu(q):
         return attention_bwd_plain(q, k, v, o, lse, do, scale, dlse)
     dd = row_dd(o, do, dlse).contiguous()

@@ -2,7 +2,9 @@
 
 Counterpart of ``itsd_tpu/kernels/groupnorm.py``. The port keeps activations
 in NCHW, where one (sample, group) pair is one contiguous span of memory:
-the CUDA kernel (``csrc/groupnorm.cu``) gives each span one block.
+the CUDA kernel (``csrc/groupnorm.cu``) reads each span once, gives small
+spans a few threads, mid-sized ones a block, and splits the largest over a
+thread-block cluster; it picks that plan from the shape alone.
 
 ``groupnorm_swish`` dispatches on where its input lies: a CPU tensor goes to
 ``groupnorm_swish_plain``, a CUDA tensor to the kernel, and anything the

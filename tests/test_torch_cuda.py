@@ -14,11 +14,13 @@ relative, so the sums differ by at most 2^-8 * max|v|; then each side rounds
 its output to bf16 (one step, 2^-7 relative). The test allows twice the
 first term: atol 2^-7 * max|v|, rtol 2^-7.
 
-The forward and the dk/dv backward have two kernels each, the tensor-core
-("mma") and the CUDA-core ("simt") one; ``route`` picks one from the dtype
-and C. Both are held here on the same bf16 inputs, the "simt" one through
-the private ``_flash_simt`` and ``_flash_bwd_dkv_simt``. Run one route's
-tests with ``-k mma`` or ``-k simt``.
+The forward, the dq backward and the dk/dv backward have two kernels each,
+the tensor-core ("mma") and the CUDA-core ("simt") one; ``route`` picks one
+from the dtype and C. Both are held here on the same bf16 inputs, the
+"simt" one through the private ``_flash_simt``, ``_flash_bwd_dq_simt`` and
+``_flash_bwd_dkv_simt``. Run one route's tests with ``-k mma`` or
+``-k simt``, the dq tests of one route with ``-k "dq and mma"`` or
+``-k "routes and simt"``.
 
 The backward kernels against ``attention_bwd_plain`` (the same formula and
 roundings): f32 2e-5 absolute on values O(1), sums in another order
@@ -48,28 +50,93 @@ def cuda_device():
 
 
 GN_SHAPES = [(8, 128, 32, 32), (8, 384, 32, 32), (8, 256, 16, 16),
-             (8, 512, 4, 4), (2, 96, 8, 8)]
+             (8, 512, 4, 4), (2, 96, 8, 8), (2, 8, 3, 3), (3, 24, 5, 5)]
+# The (C, H, W, act) of the 51 GroupNorm calls of the CIFAR-10 UNet (ch 128,
+# ch_mult 1,2,2,2, attention at 16x16): 13 pairs.
+CIFAR_GN = [(128, 32, 32, True), (128, 16, 16, True), (256, 16, 16, True),
+            (256, 16, 16, False), (256, 8, 8, True), (256, 4, 4, True),
+            (256, 4, 4, False), (512, 4, 4, True), (512, 8, 8, True),
+            (512, 16, 16, True), (384, 16, 16, True), (384, 32, 32, True),
+            (256, 32, 32, True)]
+# The 256x256 flagship's largest spans, at batch 1: each is split over a
+# thread-block cluster.
+FLAGSHIP_GN = [(1, 384, 256, 256), (1, 256, 256, 256), (1, 128, 256, 256)]
+
+
+def _gn_inputs(shape, dtype, gen, device):
+    C = shape[1]
+    x = (torch.randn(shape, generator=gen, device=device) * 2 + 0.5
+         ).to(dtype)
+    w = 1 + 0.1 * torch.randn(C, generator=gen, device=device)
+    b = 0.1 * torch.randn(C, generator=gen, device=device)
+    return x, w, b
+
+
+def _gn_close(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=BF16_RTOL, atol=1e-3)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_groupnorm_kernel_matches_plain(cuda_device, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    for B, C, H, W in GN_SHAPES:
-        x = (torch.randn((B, C, H, W), generator=gen, device=cuda_device)
-             * 2 + 0.5).to(dtype)
-        w = 1 + 0.1 * torch.randn(C, generator=gen, device=cuda_device)
-        b = 0.1 * torch.randn(C, generator=gen, device=cuda_device)
+    for shape in GN_SHAPES:
+        x, w, b = _gn_inputs(shape, dtype, gen, cuda_device)
         for act in (True, False):
-            got = groupnorm.groupnorm_swish(x, w, b, _groups(C), act=act)
-            want = groupnorm.groupnorm_swish_plain(x, w, b, _groups(C),
+            got = groupnorm.groupnorm_swish(x, w, b, _groups(shape[1]),
+                                            act=act)
+            want = groupnorm.groupnorm_swish_plain(x, w, b, _groups(shape[1]),
                                                    act=act)
             torch.cuda.synchronize()
-            if dtype == torch.float32:
-                torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
-            else:
-                torch.testing.assert_close(got.float(), want.float(),
-                                           rtol=BF16_RTOL, atol=1e-3)
+            _gn_close(got, want, dtype)
+
+
+def _gn_forward_and_backward(shape, act, dtype, seed, device):
+    """The kernel against the plain version, forward and backward (the
+    backward recomputes through the plain version, so its gradients equal
+    autograd of the plain version exactly), and two launches equal bit for
+    bit."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x, w, b = _gn_inputs(shape, dtype, gen, device)
+    G = _groups(shape[1])
+    before = groupnorm.launches
+    got = groupnorm.groupnorm_swish(x, w, b, G, act=act)
+    again = groupnorm.groupnorm_swish(x, w, b, G, act=act)
+    want = groupnorm.groupnorm_swish_plain(x, w, b, G, act=act)
+    torch.cuda.synchronize()
+    assert groupnorm.launches - before == 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    _gn_close(got, want, dtype)
+    xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, b))
+    gy = torch.randn(shape, generator=gen, device=device).to(dtype)
+    got = torch.autograd.grad(groupnorm.groupnorm_swish(xg, wg, bg, G,
+                                                        act=act),
+                              (xg, wg, bg), gy)
+    want = torch.autograd.grad(groupnorm.groupnorm_swish_plain(
+        xg, wg, bg, G, act=act), (xg, wg, bg), gy)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,H,W,act", CIFAR_GN)
+def test_groupnorm_at_the_cifar_shapes(cuda_device, dtype, C, H, W, act):
+    _gn_forward_and_backward((8, C, H, W), act, dtype, C + H, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLAGSHIP_GN)
+def test_groupnorm_at_the_flagship_spans(cuda_device, dtype, shape):
+    """Spans of up to 786,432 elements, each split over a cluster of blocks
+    (in f32 at the largest, not held on chip); the partial sums are added
+    in a fixed order, so two launches agree bit for bit."""
+    _gn_forward_and_backward(shape, True, dtype, shape[1], cuda_device)
 
 
 @pytest.mark.cuda
@@ -127,10 +194,6 @@ def test_flash_bwd_kernels_match_plain(cuda_device, dtype, B, N, C):
                     atol=BF16_RTOL * w.float().abs().max().item())
 
 
-ROUTE_SHAPES = [(4, 256, 256), (4, 16, 256), (4, 17, 128), (3, 100, 64),
-                (2, 1, 16), (2, 4096, 256)]
-
-
 def _close_bf16(got, want, ref):
     """bf16 outputs within the tolerances above: atol 2^-7 * max|ref|
     (max|v| for the forward, max|plain| for the backward), rtol 2^-7."""
@@ -139,13 +202,72 @@ def _close_bf16(got, want, ref):
         atol=BF16_RTOL * ref.float().abs().max().item())
 
 
+def _dq_order_bound(q, k, v, do, lse, scale):
+    """Elementwise bound on how far two f32 evaluations of dq may differ
+    through the order of the sums in dp = dO.v^T alone. The products of bf16
+    values are exact in f32, so two orders of a C-term sum differ by at most
+    C * 2^-23 * sum|terms|; p carries that into ds = p * (dp - dd), and
+    scale * |ds|.|k| into dq. Where dq cancels to ~0 (N = 1 without dlse:
+    there p = 1 and dp = dd, so ds = 0 in exact arithmetic) the outputs are
+    this rounding noise, not O(1) values rounded to bf16. Elsewhere the
+    bound is a few percent of the bf16 tolerance's atol."""
+    C = q.shape[-1]
+    p = torch.exp(attention._scores(q, k, scale) - lse[..., None])
+    terms = torch.einsum("bqc,bkc->bqk", do.float().abs(), v.float().abs())
+    return scale * C * 2.0 ** -23 * torch.einsum(
+        "bqk,bkc->bqc", p * terms, k.float().abs())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [64, 128, 256, 208])
+@pytest.mark.parametrize("N", [1, 16, 17, 100, 256, 4096])
+def test_flash_bwd_dq_mma_matches_plain(cuda_device, N, C):
+    """bf16 dq on the tensor-core kernel, which ``route`` names for these
+    widths, against ``flash_bwd_dq_plain``, with and without dlse; two
+    launches on the same inputs agree bit for bit. Tolerance: the bf16 one
+    above (atol 2^-7 * max|plain|, rtol 2^-7) plus, elementwise, the f32
+    summation-order bound of ``_dq_order_bound``."""
+    assert attention.route(torch.bfloat16, C) == "mma"
+    B = 2
+    gen = torch.Generator(device=cuda_device).manual_seed(N * C)
+    q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = C ** -0.5
+    o, lse = attention.attention_with_lse(q, k, v, scale)
+    for dlse in (None, torch.randn((B, N), generator=gen,
+                                   device=cuda_device)):
+        dd = attention.row_dd(o, do, dlse).contiguous()
+        args = (q, k, v, do, lse, dd, scale)
+        counts = (attention.dq_launches, attention.dq_mma_launches)
+        got = attention.flash_bwd_dq(*args)
+        again = attention.flash_bwd_dq(*args)
+        want = attention.flash_bwd_dq_plain(*args)
+        torch.cuda.synchronize()
+        assert (attention.dq_launches - counts[0],
+                attention.dq_mma_launches - counts[1]) == (2, 2)
+        assert got.dtype == torch.bfloat16 and got.shape == (B, N, C)
+        assert torch.equal(got, again)
+        err = (got.float() - want.float()).abs()
+        limit = (BF16_RTOL * want.float().abs().max()
+                 + BF16_RTOL * want.float().abs()
+                 + _dq_order_bound(q, k, v, do, lse, scale))
+        assert (err <= limit).all(), (
+            f"max err {err.max().item():.3g}, worst excess "
+            f"{(err - limit).max().item():.3g}")
+
+
+ROUTE_SHAPES = [(4, 256, 256), (4, 16, 256), (4, 17, 128), (3, 100, 64),
+                (2, 1, 16), (2, 4096, 256)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["mma", "simt"])
 @pytest.mark.parametrize("B,N,C", ROUTE_SHAPES)
 def test_flash_routes_match_plain_in_bf16(cuda_device, which, B, N, C):
-    """The forward (with and without lse) and dk/dv through the tensor-core
-    kernels ("mma", which ``route`` names for these shapes) and through the
-    CUDA-core kernels ("simt", forced), each against its plain version."""
+    """The forward (with and without lse), dq and dk/dv through the
+    tensor-core kernels ("mma", which ``route`` names for these shapes) and
+    through the CUDA-core kernels ("simt", forced), each against its plain
+    version."""
     assert attention.route(torch.bfloat16, C) == "mma"
     gen = torch.Generator(device=cuda_device).manual_seed(B * N + C)
     q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
@@ -169,6 +291,16 @@ def test_flash_routes_match_plain_in_bf16(cuda_device, which, B, N, C):
 
     dd = attention.row_dd(o, do).contiguous()
     args = (q, k, v, do, lse, dd, scale)
+    counts = (attention.dq_launches, attention.dq_mma_launches)
+    dq = (attention.flash_bwd_dq if which == "mma"
+          else attention._flash_bwd_dq_simt)(*args)
+    want = attention.flash_bwd_dq_plain(*args)
+    torch.cuda.synchronize()
+    assert (attention.dq_launches - counts[0],
+            attention.dq_mma_launches - counts[1]) == (1, mma)
+    assert dq.dtype == torch.bfloat16 and dq.shape == (B, N, C)
+    _close_bf16(dq, want, want)
+
     counts = (attention.dkv_launches, attention.dkv_mma_launches)
     dkv = (attention.flash_bwd_dkv if which == "mma"
            else attention._flash_bwd_dkv_simt)
@@ -195,8 +327,8 @@ def test_flagship_attention_shape(cuda_device, dtype):
                    .to(dtype) for _ in range(4))
     scale = C ** -0.5
     counts = (attention.launches, attention.mma_launches,
-              attention.dq_launches, attention.dkv_launches,
-              attention.dkv_mma_launches)
+              attention.dq_launches, attention.dq_mma_launches,
+              attention.dkv_launches, attention.dkv_mma_launches)
     o, lse = attention.attention_with_lse(q, k, v, scale)
     got = attention.attention_bwd(q, k, v, o, lse, do, scale)
     want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
@@ -204,8 +336,9 @@ def test_flagship_attention_shape(cuda_device, dtype):
     torch.cuda.synchronize()
     assert (attention.launches - counts[0], attention.mma_launches - counts[1],
             attention.dq_launches - counts[2],
-            attention.dkv_launches - counts[3],
-            attention.dkv_mma_launches - counts[4]) == (1, 0, 1, 1, 0)
+            attention.dq_mma_launches - counts[3],
+            attention.dkv_launches - counts[4],
+            attention.dkv_mma_launches - counts[5]) == (1, 0, 1, 0, 1, 0)
     torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
     if dtype == torch.float32:
         torch.testing.assert_close(o, want_o, atol=2e-5, rtol=0)
@@ -236,6 +369,9 @@ def test_mma_entries_refuse_what_they_do_not_take(cuda_device):
         assert lib.itsd_flash_bwd_dkv_mma(p, p, p, p, lse.data_ptr(),
                                           lse.data_ptr(), p, p, 1, 8, C, 0.5,
                                           code, stream) != 0
+        assert lib.itsd_flash_bwd_dq_mma(p, p, p, p, lse.data_ptr(),
+                                         lse.data_ptr(), p, 1, 8, C, 0.5,
+                                         code, stream) != 0
 
 
 @pytest.mark.cuda

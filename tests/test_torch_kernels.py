@@ -77,6 +77,24 @@ def test_groupnorm_plain_matches_pallas_interpret(C):
                                rtol=0)
 
 
+@pytest.mark.parametrize("act", [True, False])
+def test_groupnorm_plain_matches_xla_past_48kb_spans(act):
+    """[1, 384, 64, 64]: 12 channels of 4096 pixels a group, a span of
+    49,152 f32 values (192 KB), past what one block of the old kernel held
+    in L1; the plain version the CUDA kernel is held against on the card
+    still agrees with the XLA reference to 2e-5 (f32 sums in another
+    order)."""
+    x, scale, bias = _gn_inputs(11, 1, 64, 64, 384)
+    G = _groups(384)
+    assert 384 // G * 64 * 64 * 4 > 48 * 1024
+    want = groupnorm_swish_xla(jnp.asarray(x), jnp.asarray(scale),
+                               jnp.asarray(bias), groups=G, act=act)
+    got = groupnorm.groupnorm_swish(_nchw(x), torch.from_numpy(scale),
+                                    torch.from_numpy(bias), G, act=act)
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want), atol=2e-5,
+                               rtol=0)
+
+
 def test_groupnorm_plain_bf16_matches_xla():
     x, scale, bias = _gn_inputs(7, 2, 8, 8, 128)
     xb = jnp.asarray(x, jnp.bfloat16)
@@ -168,17 +186,31 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     (torch.bfloat16, 100, "simt"), (torch.bfloat16, 384, "simt"),
     (torch.bfloat16, 512, "simt"), (torch.float32, 16, "simt"),
     (torch.float32, 256, "simt"), (torch.float32, 384, "simt")])
-def test_route_is_chosen_by_dtype_and_width(dtype, C, want):
+def test_route_is_chosen_by_dtype_and_width(dtype, C, want, monkeypatch):
     """bf16 rows of a multiple of 16 up to 256 take the tensor-core
     kernels; f32 (kept off the tensor cores) and other widths the CUDA-core
-    ones."""
+    ones. The forward, dq and dk/dv wrappers each hand their launch the
+    route's kernel (the launches are recorded, not made)."""
     assert attention.route(dtype, C) == want
+    chosen = []
+    for name in ("_launch_forward", "_launch_dq", "_launch_dkv"):
+        monkeypatch.setattr(attention, name,
+                            lambda *a, name=name: chosen.append((name,
+                                                                 a[-1])))
+    q = torch.zeros((1, 4, C), dtype=dtype)
+    lse = torch.zeros((1, 4))
+    attention._flash(q, q, q, 0.5, emit_lse=True)
+    attention.flash_bwd_dq(q, q, q, q, lse, lse, 0.5)
+    attention.flash_bwd_dkv(q, q, q, q, lse, lse, 0.5)
+    mma = want == "mma"
+    assert chosen == [("_launch_forward", mma), ("_launch_dq", mma),
+                      ("_launch_dkv", mma)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cpu_tensors_launch_no_kernel_of_either_route(dtype):
-    names = ("launches", "mma_launches", "dq_launches", "dkv_launches",
-             "dkv_mma_launches")
+    names = ("launches", "mma_launches", "dq_launches", "dq_mma_launches",
+             "dkv_launches", "dkv_mma_launches")
     before = [getattr(attention, n) for n in names]
     gen = torch.Generator().manual_seed(0)
     q, k, v, do = (torch.randn((2, 16, 256), generator=gen).to(dtype)
@@ -201,7 +233,8 @@ def test_build_command_is_one_nvcc_call_for_sm90a(tmp_path):
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     srcs = {p.name for p in _build.sources()}
     assert {"groupnorm.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-            "flash_attention_mma.cu", "flash_attention_bwd_mma.cu"} <= srcs
+            "flash_attention_mma.cu", "flash_attention_bwd_mma.cu",
+            "flash_attention_bwd_dq_mma.cu"} <= srcs
     assert all(str(p) in cmd for p in _build.sources())
     for p in _build.CSRC.glob("*.cu*"):
         assert "torch/extension.h" not in p.read_text()
