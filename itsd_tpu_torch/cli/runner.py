@@ -3,12 +3,14 @@
 Counterpart of ``itsd_tpu/cli/runner.py`` (``build_model``,
 ``build_schedule``, ``load_dataset`` and ``init_params`` at 49-135,
 ``load_eval_params`` 137-160, ``run_sampler``'s ancestral branch 179-227,
-``make_eps_fn`` 277-284, ``make_train_key`` and ``resolve_track_metrics``
-322-350, ``train`` 389-600, ``_sample_grid_during_training`` 639-662 and
-``evaluate`` 668-712). Search, the fast samplers, guidance, segmented
-launches, spatial meshes, metric-tracked training, profiling,
-representation extraction and the T-extension fine-tune are not yet ported
-and raise.
+``make_eps_fn`` and ``load_weak_params`` 277-319, ``make_train_key`` and
+``resolve_track_metrics`` 322-350, ``train`` 389-600,
+``_sample_grid_during_training`` 639-662 and ``evaluate`` 668-712), with
+the conditional model, classifier-free guidance and autoguidance. Search,
+the fast samplers, segmented launches, spatial meshes, metric-tracked
+training, profiling, representation extraction, the cross-T surgery of a
+table time embedding and the T-extension fine-tune are not yet ported and
+raise.
 
 Entry points run on ``device="cuda"`` unless the caller passes another.
 """
@@ -16,6 +18,7 @@ Entry points run on ``device="cuda"`` unless the caller passes another.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import os
 import time
 from typing import Optional
@@ -23,10 +26,11 @@ from typing import Optional
 import torch
 
 from ..core import linear_schedule, sample
+from ..core.process import make_autoguidance_eps_fn, make_cfg_eps_fn
 from ..data import (BatchIterator, load_cifar10, load_image_folder,
                     prefetch_to_device, shapes_dataset, synthetic_dataset,
                     threaded_prefetch)
-from ..models import UNet, uncond_unet_config
+from ..models import UNet, cond_unet_config, uncond_unet_config
 from ..train import (OptimizerConfig, create_train_state, make_optimizer,
                      make_train_step)
 from ..train.checkpoint import (AsyncCheckpointManager, is_full_checkpoint,
@@ -39,20 +43,33 @@ def _not_ported(what: str):
 
 
 def build_model(cfg: Config):
-    """(model, conditional) for ``cfg.model``: the unconditional UNet."""
-    m = cfg.model
+    """(model, conditional) for ``cfg.model``: the unconditional UNet, or
+    the conditional one when ``model.num_labels`` is set (its table time
+    embedding has ``diffusion.T`` rows, unless ``model.time_embed`` is
+    "functional"). Sampling a table embedding at another ``inference_T``
+    needs the cross-T surgery, which is not yet ported: that raises here,
+    from the config alone."""
+    m, d = cfg.model, cfg.diffusion
     if m.backbone != "unet":
         raise _not_ported(f"model.backbone={m.backbone!r}")
-    if m.num_labels is not None:
-        raise _not_ported("the conditional UNet (model.num_labels)")
     if m.remat:
         raise _not_ported("model.remat")
-    ucfg = uncond_unet_config(
-        ch=m.channel, ch_mult=tuple(m.channel_mult), attn=tuple(m.attn),
-        num_res_blocks=m.num_res_blocks, dropout=m.dropout,
-        time_embed=m.time_embed,
-        dtype=m.dtype, attention_impl=m.attention_impl)
-    return UNet(ucfg), False
+    if m.time_embed == "table" and d.inference_T and d.inference_T != d.T:
+        raise _not_ported(
+            f"diffusion.inference_T={d.inference_T} with the table time "
+            f"embedding of T={d.T} rows (the cross-T surgery)")
+    kw = dict(ch=m.channel, ch_mult=tuple(m.channel_mult),
+              num_res_blocks=m.num_res_blocks, dropout=m.dropout, T=d.T,
+              dtype=m.dtype, attention_impl=m.attention_impl)
+    conditional = m.num_labels is not None
+    if conditional:
+        ucfg = cond_unet_config(num_labels=m.num_labels, **kw)
+        if m.time_embed == "functional":
+            ucfg = dataclasses.replace(ucfg, time_embed="functional")
+    else:
+        ucfg = uncond_unet_config(attn=tuple(m.attn),
+                                  time_embed=m.time_embed, **kw)
+    return UNet(ucfg), conditional
 
 
 def build_schedule(cfg: Config, inference: bool = False, device="cuda"):
@@ -109,11 +126,68 @@ def load_eval_params(cfg: Config, name: Optional[str] = None) -> dict:
     return obj
 
 
-def make_eps_fn(model: UNet, conditional: bool = False):
-    """eps_fn(x, t) for the sampler."""
-    if conditional:
-        raise _not_ported("guided sampling (CFG and autoguidance)")
-    return lambda x, t: model(x, t)
+def make_eps_fn(model: UNet, conditional: bool = False, labels=None,
+                w: float = 0.0, cfg_interval=None, weak_model=None):
+    """eps_fn for the sampler: the model's forward when unconditional;
+    for the conditional model the dual-batched classifier-free-guidance
+    mix (``core.process.make_cfg_eps_fn``) on ``labels``, or with
+    ``weak_model`` (diffusion.guidance=auto) autoguidance against it
+    (``make_autoguidance_eps_fn``). ``cfg_interval=(lo, hi)`` restricts
+    guidance to lo <= t < hi."""
+    if not conditional:
+        return lambda x, t: model(x, t)
+    if labels is None:
+        raise ValueError("the conditional model samples with labels")
+    strong = lambda x, t, lab: model(x, t, lab)  # noqa: E731
+    if weak_model is not None:
+        return make_autoguidance_eps_fn(
+            strong, lambda x, t, lab: weak_model(x, t, lab), labels, w,
+            interval=cfg_interval)
+    return make_cfg_eps_fn(strong, labels, w, interval=cfg_interval)
+
+
+def load_weak_params(cfg: Config, conditional: bool):
+    """The weak model's weights for diffusion.guidance=auto, or None for
+    "cfg"; any other value raises. Loaded as the eval weights are."""
+    d = cfg.diffusion
+    if d.guidance not in ("cfg", "auto"):
+        raise ValueError(f"unknown diffusion.guidance {d.guidance!r}; "
+                         "expected cfg | auto")
+    if d.guidance != "auto":
+        return None
+    if not d.weak_load_weight:
+        raise ValueError(
+            "diffusion.guidance=auto needs diffusion.weak_load_weight "
+            "(an under-trained checkpoint of the same architecture)")
+    if not conditional:
+        raise ValueError(
+            "diffusion.guidance=auto requires a conditional model "
+            "(autoguidance mixes two label-conditioned forwards)")
+    return load_eval_params(cfg, d.weak_load_weight)
+
+
+def sampling_eps_fn(cfg: Config, model: UNet, conditional: bool,
+                    batch: int, weak_params=None, labels=None):
+    """The eps_fn that ``evaluate``, the training grids and the Trainer
+    sample ``batch`` images with: plain, or (conditional) guided by
+    ``diffusion.w`` over ``diffusion.cfg_interval`` on ``labels``, by
+    default ``(arange(batch) % num_labels) + 1``, against the weak model
+    built from ``weak_params`` when given (autoguidance). ``model`` is in
+    eval mode on its device."""
+    if not conditional:
+        return make_eps_fn(model)
+    device = next(model.parameters()).device
+    if labels is None:
+        labels = torch.arange(batch, device=device) % cfg.model.num_labels + 1
+    weak = None
+    if weak_params is not None:
+        weak, _ = build_model(cfg)
+        weak.load_state_dict(weak_params)
+        weak.to(device).eval()
+    d = cfg.diffusion
+    interval = tuple(d.cfg_interval) if d.cfg_interval else None
+    return make_eps_fn(model, True, labels.to(device), d.w,
+                       cfg_interval=interval, weak_model=weak)
 
 
 def run_sampler(cfg: Config, sched, eps_fn, x_T: torch.Tensor,
@@ -141,6 +215,7 @@ def evaluate(cfg: Config, params=None, device="cuda") -> dict:
     if cfg.train.spatial_shard > 1:
         raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
     model, conditional = build_model(cfg)
+    weak = load_weak_params(cfg, conditional) if conditional else None
     if params is None:
         params = load_eval_params(cfg)
     model.load_state_dict(params)
@@ -155,9 +230,9 @@ def evaluate(cfg: Config, params=None, device="cuda") -> dict:
     save_image_grid((x_T * 0.5).clamp(-1, 1).cpu().numpy(),
                     os.path.join(cfg.sampled_dir, cfg.sampled_noisy_img_name),
                     nrow=cfg.nrow)
+    eps_fn = sampling_eps_fn(cfg, model, conditional, eval_bs, weak)
     with torch.inference_mode():
-        imgs = run_sampler(cfg, sched, make_eps_fn(model, conditional), x_T,
-                           gen)
+        imgs = run_sampler(cfg, sched, eps_fn, x_T, gen)
     images = imgs.cpu().numpy()
     out_path = os.path.join(cfg.sampled_dir, cfg.sampled_img_name)
     save_image_grid(images, out_path, nrow=cfg.nrow)
@@ -170,7 +245,8 @@ def evaluate(cfg: Config, params=None, device="cuda") -> dict:
 
 def make_train_key(cfg: Config, device="cuda") -> torch.Generator:
     """The training run's generator, seeded from ``cfg.seed``: it draws t,
-    the noise and the dropout masks of every step, in that order. It is
+    the noise, the label-dropout uniforms (conditional model) and the
+    dropout masks of every step, in that order. It is
     torch's own (Philox on a GPU); ``train.prng_impl`` names JAX's
     generators and is not read."""
     return torch.Generator(device=device).manual_seed(cfg.seed)
@@ -221,9 +297,11 @@ def train(cfg: Config, max_steps: Optional[int] = None,
     checkpoint paths, the per-step losses and the ``TrainState``."""
     _check_train_options(cfg)
     model, conditional = build_model(cfg)
+    weak = load_weak_params(cfg, conditional) if conditional else None
     sched = build_schedule(cfg, device=device)
-    images, _ = load_dataset(cfg)
-    it = BatchIterator(images, None, cfg.train.batch_size, seed=cfg.data.seed)
+    images, labels = load_dataset(cfg)
+    it = BatchIterator(images, labels if conditional else None,
+                       cfg.train.batch_size, seed=cfg.data.seed)
     if len(it) == 0:
         raise ValueError(
             f"train.batch_size={cfg.train.batch_size} exceeds the dataset "
@@ -245,7 +323,8 @@ def train(cfg: Config, max_steps: Optional[int] = None,
         sched, conditional=conditional,
         loss_reduction=cfg.train.loss_reduction,
         loss_weighting=cfg.train.loss_weighting,
-        snr_gamma=cfg.train.snr_gamma, ema_decay=cfg.train.ema_decay)
+        snr_gamma=cfg.train.snr_gamma, label_dropout=cfg.train.label_dropout,
+        ema_decay=cfg.train.ema_decay)
 
     logger = MetricsLogger(
         os.path.join(cfg.metrics_save_dir, "train_metrics.jsonl"))
@@ -256,8 +335,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
     losses, ckpts, step, t0 = [], [], 0, time.time()
     for epoch in range(cfg.train.epoch):
         metrics = []  # device scalars: synced once an epoch, not a step
-        for batch in prefetch(({"image": b["image"]} for b in it), size=2,
-                              device=device):
+        for batch in prefetch(it, size=2, device=device):
             metrics.append(step_fn(state, batch, generator))
             step += 1
             if max_steps is not None and step >= max_steps:
@@ -283,7 +361,8 @@ def train(cfg: Config, max_steps: Optional[int] = None,
                 save_checkpoint(path, state)
             ckpts.append(path)
         if (epoch + 1) % cfg.train.eval_freq == 0:
-            _sample_grid_during_training(cfg, state, epoch, device)
+            _sample_grid_during_training(cfg, state, epoch, device,
+                                         conditional, weak)
         if max_steps is not None and step >= max_steps:
             break
     if ckpt_mgr is not None:
@@ -294,9 +373,11 @@ def train(cfg: Config, max_steps: Optional[int] = None,
 
 
 def _sample_grid_during_training(cfg: Config, state, epoch: int,
-                                 device="cuda") -> str:
-    """A grid of ``eval_batch_size`` samples from the EMA weights, written
-    to ``sampled_dir/epoch_{epoch}_sampled.png``."""
+                                 device="cuda", conditional: bool = False,
+                                 weak_params=None) -> str:
+    """A grid of ``eval_batch_size`` samples from the EMA weights (guided
+    as ``evaluate`` guides, for the conditional model), written to
+    ``sampled_dir/epoch_{epoch}_sampled.png``."""
     sched = build_schedule(cfg, inference=True, device=device)
     eval_bs = cfg.train.eval_batch_size or min(cfg.train.batch_size, 64)
     model = copy.deepcopy(state.model)
@@ -306,8 +387,9 @@ def _sample_grid_during_training(cfg: Config, state, epoch: int,
         cfg.seed * 1_000_003 + epoch + 1)
     size = cfg.data.img_size
     x_T = torch.randn((eval_bs, size, size, 3), generator=gen, device=device)
+    eps_fn = sampling_eps_fn(cfg, model, conditional, eval_bs, weak_params)
     with torch.inference_mode():
-        imgs = run_sampler(cfg, sched, make_eps_fn(model), x_T, gen)
+        imgs = run_sampler(cfg, sched, eps_fn, x_T, gen)
     path = os.path.join(cfg.sampled_dir, f"epoch_{epoch}_sampled.png")
     os.makedirs(cfg.sampled_dir, exist_ok=True)
     save_image_grid(imgs.cpu().numpy(), path, nrow=cfg.nrow)

@@ -1,7 +1,8 @@
 """Gaussian diffusion forward and reverse process: tensor functions.
 
-Counterpart of ``itsd_tpu/core/process.py:31-171``: the training terms and
-the sampling half (guidance comes with a later part of the port).
+Counterpart of ``itsd_tpu/core/process.py:31-309``: the training terms,
+the sampling half and guidance (classifier-free guidance and
+autoguidance).
 
 Images are NHWC float32 in [-1, 1]; ``t`` is an integer ``[B]`` tensor of
 timestep indices on the images' device, so no step waits on the host.
@@ -15,8 +16,13 @@ import torch
 
 from .schedules import DiffusionSchedule
 
-# eps_fn(x_t [B,...], t [B]) -> predicted noise [B,...]
-EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+# eps_fn(x_t [B,...], t [B]) -> predicted noise [B,...]. A guided eps_fn
+# also takes ``step=``, the step's timestep as a Python int, which the
+# sampler passes to eps_fns that set ``takes_step`` (see make_cfg_eps_fn).
+EpsFn = Callable[..., torch.Tensor]
+# model_eps_fn(x_t, t, labels [B]) -> eps: a conditional model's forward
+CondEpsFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                     torch.Tensor]
 
 
 def extract(v: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -124,3 +130,109 @@ def predict_x0_from_eps(sched: DiffusionSchedule, x_t: torch.Tensor,
     nd = x_t.dim()
     return ((x_t - extract(sched.sqrt_one_minus_alphas_bar, t, nd) * eps)
             / extract(sched.sqrt_alphas_bar, t, nd))
+
+
+def cfg_combine(eps_cond: torch.Tensor, eps_uncond: torch.Tensor,
+                w: float) -> torch.Tensor:
+    """Classifier-free-guidance mix: (1+w)*eps_cond - w*eps_uncond."""
+    return (1.0 + w) * eps_cond - w * eps_uncond
+
+
+def _validate_interval(interval) -> None:
+    """Raise on a guidance interval that would silently disable guidance:
+    reversed (lo > hi) or with a fractional endpoint (the timesteps are
+    integers). An empty interval (lo == hi) stays legal: it is the
+    explicit "guidance off" arm of a sweep (see cfg_nfes)."""
+    if interval is None:
+        return
+    lo, hi = interval
+    for v in (lo, hi):
+        if isinstance(v, bool) or float(v) != int(v):
+            raise ValueError(f"cfg interval ({lo}, {hi}): endpoints must be "
+                             "integral timesteps")
+    if lo > hi:
+        raise ValueError(
+            f"cfg interval (lo={lo}, hi={hi}) is reversed: guidance would "
+            "never activate; want lo <= hi (lo == hi means guidance off)")
+
+
+def _tile_labels(labels: torch.Tensor, batch: int) -> torch.Tensor:
+    """Labels [B] for a batch that folds several candidates of each
+    position (N*B rows): tiled across the fold."""
+    n = labels.shape[0]
+    if batch == n:
+        return labels
+    if batch % n:
+        raise ValueError(f"batch {batch} is not a multiple of the "
+                         f"{n} labels")
+    return labels.repeat(batch // n)
+
+
+def _guided_now(interval, step: Optional[int]) -> bool:
+    """Whether the step at timestep ``step`` is guided. The decision is
+    made on the host from the Python int the sampler passes, never from
+    the device tensor t, so a step does not wait on the device."""
+    if interval is None:
+        return True
+    if step is None:
+        raise ValueError("a guided eps_fn with a cfg interval needs the "
+                         "step's timestep as a Python int (step=...)")
+    return interval[0] <= step < interval[1]
+
+
+def make_cfg_eps_fn(model_eps_fn: CondEpsFn, labels: torch.Tensor, w: float,
+                    interval: Optional[Tuple[int, int]] = None) -> EpsFn:
+    """A guided eps_fn from a conditional model: ONE dual-batched forward,
+    ``cat([x, x])`` with ``[labels, 0]`` (0 is the null class), mixed by
+    ``cfg_combine``.
+
+    ``interval=(lo, hi)`` restricts guidance to timesteps lo <= t < hi;
+    outside it the step runs one conditional forward at batch B, and the
+    dual forward is not spent there (``cfg_nfes`` counts it so). The step
+    is read from ``step``, the Python int the sampler passes (``t`` is
+    constant across the batch within a step)."""
+    _validate_interval(interval)
+
+    def eps_fn(x_t: torch.Tensor, t: torch.Tensor,
+               step: Optional[int] = None) -> torch.Tensor:
+        lab = _tile_labels(labels, x_t.shape[0])
+        if not _guided_now(interval, step):
+            return model_eps_fn(x_t, t, lab)
+        eps2 = model_eps_fn(torch.cat([x_t, x_t]), torch.cat([t, t]),
+                            torch.cat([lab, torch.zeros_like(lab)]))
+        eps_c, eps_u = eps2.chunk(2)
+        return cfg_combine(eps_c, eps_u, w)
+
+    eps_fn.takes_step = True
+    return eps_fn
+
+
+def make_autoguidance_eps_fn(strong_eps_fn: CondEpsFn, weak_eps_fn: CondEpsFn,
+                             labels: torch.Tensor, w: float,
+                             interval: Optional[Tuple[int, int]] = None
+                             ) -> EpsFn:
+    """Autoguidance (Karras et al. 2024): ``(1+w)*eps_strong - w*eps_weak``,
+    both forwards conditioned on the same labels. The two carry different
+    weights, so they run as two forwards at batch B. ``interval`` restricts
+    guidance as in ``make_cfg_eps_fn`` (one strong forward outside it)."""
+    _validate_interval(interval)
+
+    def eps_fn(x_t: torch.Tensor, t: torch.Tensor,
+               step: Optional[int] = None) -> torch.Tensor:
+        lab = _tile_labels(labels, x_t.shape[0])
+        if not _guided_now(interval, step):
+            return strong_eps_fn(x_t, t, lab)
+        return cfg_combine(strong_eps_fn(x_t, t, lab),
+                           weak_eps_fn(x_t, t, lab), w)
+
+    eps_fn.takes_step = True
+    return eps_fn
+
+
+def cfg_nfes(T: int, interval: Optional[Tuple[int, int]] = None) -> int:
+    """Model evals per image for a T-step guided chain: 2 per step inside
+    the guidance interval, 1 outside (2T for full-range guidance)."""
+    if interval is None:
+        return 2 * T
+    lo, hi = int(interval[0]), int(interval[1])
+    return T + max(0, min(hi, T) - max(lo, 0))

@@ -3,7 +3,9 @@
 Counterpart of ``itsd_tpu/core/sampling.py:36-115``. The loop runs on the
 host but never waits on the device: timesteps are built on the device, the
 t=0 step is noiseless by a mask, and there is no per-step ``.item()`` or
-NaN check.
+NaN check. An eps_fn that sets ``takes_step`` (a guided one) gets the
+step's timestep as a Python int, ``step=t``, so that a guidance interval
+is decided on the host without reading a device value.
 
 JAX draws each step's noise from a split threefry key, which torch cannot
 reproduce. So the noise comes from ``noise_fn(step_index, t)`` when one is
@@ -30,9 +32,10 @@ def _scan_steps(sched: DiffusionSchedule, eps_fn: EpsFn, x: torch.Tensor,
                 clip_x0: bool = False) -> torch.Tensor:
     """Run reverse steps for t = t_hi-1, ..., t_lo (inclusive)."""
     B = x.shape[0]
+    takes_step = getattr(eps_fn, "takes_step", False)
     for i, t in enumerate(range(t_hi - 1, t_lo - 1, -1)):
         tb = torch.full((B,), t, dtype=torch.int64, device=x.device)
-        eps = eps_fn(x, tb)
+        eps = eps_fn(x, tb, step=t) if takes_step else eps_fn(x, tb)
         if noise_fn is not None:
             noise = noise_fn(i, t)
         else:

@@ -24,24 +24,30 @@
 //
 // Design (the forward's layout, csrc/flash_attention.cu): blocks of 8 warps.
 // * dq: one block per (sample, 16-row query tile). q and dO of the tile
-//   stay in shared memory; the block walks the keys in tiles of 32, staging
-//   K and V with rows padded to C + 4 floats. Each warp owns 2 query rows;
-//   lane j computes s and dp of key j against both rows (the q and dO reads
-//   are broadcasts), so ds never leaves registers; ds reaches the ds.k loop
-//   by shuffle. Lane l accumulates columns l, l+32, ... of dq for its
-//   warp's 2 rows (16 floats at C=256).
+//   stay in shared memory; the block walks the keys in tiles of 32 (8 at
+//   C > 512), staging K and V with rows padded to C + 4 floats. Each warp
+//   owns 2 query rows; with 32 keys a tile, lane j computes s and dp of key
+//   j against both rows (the q and dO reads are broadcasts), so ds never
+//   leaves registers; with 8, the 4 lanes j, j+8, j+16, j+24 each take
+//   every fourth 4-channel group of key j and add their shares by shuffle.
+//   ds reaches the ds.k loop by shuffle. Lane l accumulates columns l,
+//   l+32, ... of dq for its warp's 2 rows (16 floats at C=256, 64 at
+//   C=1024).
 // * dk/dv: one block per (sample, 16-key tile). K and V of the tile stay in
-//   shared memory; the block walks the queries in tiles of 32, staging q
-//   and dO with padded rows. Each warp owns 2 keys; lane j computes s and
-//   dp of query j against both keys, with query j's lse and dd, and p and
-//   ds reach the accumulation loop by shuffle. Lane l accumulates columns
-//   l, l+32, ... of dk and dv for its warp's 2 keys (32 floats at C=256).
-// Both take f32 or bf16, C % 4 == 0 up to 512, and any N >= 1: rows past N
-// are staged as zeros and masked (p = 0 for keys or queries past N), and
-// only rows below N are written. C=256, the UNet's width at attention, has
-// an instantiation of its own; one more takes any C <= 512. Shared memory
-// is (2*16*C + 2*32*(C+4))*4 bytes, 197 KB at C=512, so the wrapper raises
-// the dynamic shared-memory limit.
+//   shared memory; the block walks the queries in tiles of 32 (8 at
+//   C > 512), staging q and dO with padded rows. Each warp owns 2 keys;
+//   lane j (or the lanes that share query j) computes s and dp of query j
+//   against both keys, with query j's lse and dd, and p and ds reach the
+//   accumulation loop by shuffle. Lane l accumulates columns l, l+32, ...
+//   of dk and dv for its warp's 2 keys (32 floats at C=256, 128 at C=1024).
+// Both take f32 or bf16, C % 4 == 0 up to 1024, and any N >= 1: rows past
+// N are staged as zeros and masked (p = 0 for keys or queries past N), and
+// only rows below N are written. C=256, the unconditional UNet's width at
+// attention, has an instantiation of its own; one more takes any C <= 512
+// and a third ("wide") any C <= 1024. Shared memory is
+// (2*16*C + 2*W*(C+4))*4 bytes with W the rows walked a tile: 197 KB at
+// C=512 (W=32), 192 KB at C=1024 (W=8), within the 227 KB a block may
+// have; the wrapper raises the dynamic shared-memory limit.
 
 #include <math.h>
 
@@ -53,46 +59,64 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 2;
 constexpr int kOwn = kWarps * kRowsPerWarp;  // rows a block owns: 16
-constexpr int kWalk = 32;  // rows of the other side per tile: one per lane
 constexpr int kPad = 4;    // walked rows padded to C + 4 floats, so that the
                            // float4 reads of 8 lanes (8 rows) hit 32 banks
-constexpr int kMaxC = 512;
+constexpr int kMaxC = 1024;
+constexpr int kMaxNarrowC = 512;  // widest C of 32 rows walked a tile
 
+// Rows of the other side walked a tile: one a lane up to C=512; 8 above,
+// so that the tiles fit.
+template <bool kWide>
+__host__ __device__ constexpr int walk_rows() {
+  return kWide ? 8 : 32;
+}
+
+template <bool kWide>
 size_t smem_bytes(int C) {
-  return (size_t)(2 * kOwn * C + 2 * kWalk * (C + kPad)) * sizeof(float);
+  return (size_t)(2 * kOwn * C + 2 * walk_rows<kWide>() * (C + kPad)) *
+         sizeof(float);
 }
 
 // Two dot products of the lane's walked rows (a_row, b_row, padded) with
 // the warp's owned rows r of the shared arrays ao, bo ([kOwn][C], rows
-// broadcast to the warp): sa[r] = ao_r . a_row and sb[r] = bo_r . b_row,
-// each in two partial sums (channel groups c..c+3 and c+4..c+7 of every 8),
-// so that four FMA chains run side by side.
+// broadcast to the warp): sa[r] = ao_r . a_row and sb[r] = bo_r . b_row.
+// kSplit lanes (part 0..kSplit-1, lanes 32/kSplit apart) share a walked
+// row: each takes the channel groups c, c + 4*kSplit, ... from 4*part, in
+// two partial sums (so that four FMA chains run side by side), and the
+// shares are added by shuffle, so every lane of the row gets the sums.
+template <int kSplit>
 __device__ __forceinline__ void dots(const float* ao, const float* bo,
                                      const float* a_row, const float* b_row,
-                                     int C, float (&sa)[kRowsPerWarp],
+                                     int C, int part,
+                                     float (&sa)[kRowsPerWarp],
                                      float (&sb)[kRowsPerWarp]) {
+  constexpr int kStep = 4 * kSplit;
   float pa[kRowsPerWarp][2], pb[kRowsPerWarp][2];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r)
     pa[r][0] = pa[r][1] = pb[r][0] = pb[r][1] = 0.f;
-  int c = 0;
+  // with one lane a row: the loop of the C=256 kernels as it was before the
+  // lanes were split, which holds them at their 128-register cap unspilled
+  int c = kSplit > 1 ? 4 * part : 0;
 #pragma unroll 2
-  for (; c + 8 <= C; c += 8) {
+  for (; c + kStep + 4 <= C; c += 2 * kStep) {
     const float4 a0 = *reinterpret_cast<const float4*>(a_row + c);
-    const float4 a1 = *reinterpret_cast<const float4*>(a_row + c + 4);
+    const float4 a1 = *reinterpret_cast<const float4*>(a_row + c + kStep);
     const float4 b0 = *reinterpret_cast<const float4*>(b_row + c);
-    const float4 b1 = *reinterpret_cast<const float4*>(b_row + c + 4);
+    const float4 b1 = *reinterpret_cast<const float4*>(b_row + c + kStep);
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const float* ar = ao + r * C + c;
       const float* br = bo + r * C + c;
       pa[r][0] = dot4(*reinterpret_cast<const float4*>(ar), a0, pa[r][0]);
-      pa[r][1] = dot4(*reinterpret_cast<const float4*>(ar + 4), a1, pa[r][1]);
+      pa[r][1] = dot4(*reinterpret_cast<const float4*>(ar + kStep), a1,
+                      pa[r][1]);
       pb[r][0] = dot4(*reinterpret_cast<const float4*>(br), b0, pb[r][0]);
-      pb[r][1] = dot4(*reinterpret_cast<const float4*>(br + 4), b1, pb[r][1]);
+      pb[r][1] = dot4(*reinterpret_cast<const float4*>(br + kStep), b1,
+                      pb[r][1]);
     }
   }
-  if (c < C) {  // C % 8 == 4: one group left
+  if (c < C) {  // one group of this lane's share left
     const float4 a0 = *reinterpret_cast<const float4*>(a_row + c);
     const float4 b0 = *reinterpret_cast<const float4*>(b_row + c);
 #pragma unroll
@@ -107,22 +131,31 @@ __device__ __forceinline__ void dots(const float* ao, const float* bo,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     sa[r] = pa[r][0] + pa[r][1];
     sb[r] = pb[r][0] + pb[r][1];
+#pragma unroll
+    for (int o = 32 / kSplit; o < 32; o <<= 1) {
+      sa[r] += __shfl_xor_sync(0xffffffffu, sa[r], o);
+      sb[r] += __shfl_xor_sync(0xffffffffu, sb[r], o);
+    }
   }
 }
 
 // kC: the channel count fixed at compile time (256), so that index
-// arithmetic folds and loops unroll; 0 takes any C <= kMaxC from `c_arg`.
-// 2 blocks fit an SM at C=256 (99 KB of shared memory each), so that
-// instantiation is held to 128 registers a thread.
-template <typename T, int kC>
+// arithmetic folds and loops unroll; 0 takes any C up to 512 (kWide false)
+// or 1024 (kWide true) from `c_arg`. 2 blocks fit an SM at C=256 (99 KB of
+// shared memory each), so that instantiation is held to 128 registers a
+// thread.
+template <typename T, int kC, bool kWide>
 __global__ void __launch_bounds__(kThreads, kC == 256 ? 2 : 1)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ dd, T* __restrict__ dq,
                         int N, int c_arg, float scale) {
-  static_assert(kC % 32 == 0 && kC <= kMaxC, "kC: a multiple of 32");
-  constexpr int kChunks = (kC ? kC : kMaxC) / 32;
+  constexpr int kWidest = kWide ? kMaxC : kMaxNarrowC;
+  static_assert(kC % 32 == 0 && kC <= kWidest, "kC: a multiple of 32");
+  constexpr int kWalk = walk_rows<kWide>();
+  constexpr int kSplit = 32 / kWalk;
+  constexpr int kChunks = (kC ? kC : kWidest) / 32;
   constexpr int kBatch = kChunks > 8 ? 2 : 4;  // loads in flight: 2*kBatch
   const int C = kC ? kC : c_arg;
   const int ld = C + kPad;
@@ -158,8 +191,10 @@ __global__ void __launch_bounds__(kThreads, kC == 256 ? 2 : 1)
     __syncthreads();
 
     float s[kRowsPerWarp], dp[kRowsPerWarp];
-    dots(qw, dow, ks + lane * ld, vs + lane * ld, C, s, dp);
-    const bool valid = k0 + lane < N;
+    const int key = kSplit > 1 ? lane % kWalk : lane;  // key k0 + key
+    dots<kSplit>(qw, dow, ks + key * ld, vs + key * ld, C, lane / kWalk, s,
+                 dp);
+    const bool valid = (kSplit == 1 || lane < kWalk) && k0 + lane < N;
     float ds[kRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -201,15 +236,18 @@ __global__ void __launch_bounds__(kThreads, kC == 256 ? 2 : 1)
   }
 }
 
-template <typename T, int kC>
+template <typename T, int kC, bool kWide>
 __global__ void __launch_bounds__(kThreads, kC == 256 ? 2 : 1)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ dd, T* __restrict__ dk,
                          T* __restrict__ dv, int N, int c_arg, float scale) {
-  static_assert(kC % 32 == 0 && kC <= kMaxC, "kC: a multiple of 32");
-  constexpr int kChunks = (kC ? kC : kMaxC) / 32;
+  constexpr int kWidest = kWide ? kMaxC : kMaxNarrowC;
+  static_assert(kC % 32 == 0 && kC <= kWidest, "kC: a multiple of 32");
+  constexpr int kWalk = walk_rows<kWide>();
+  constexpr int kSplit = 32 / kWalk;
+  constexpr int kChunks = (kC ? kC : kWidest) / 32;
   // 2 groups of q and of dO in flight a thread: with 4, the C=256
   // instantiation spills at its 128 registers (ptxas, H100)
   constexpr int kBatch = 2;
@@ -236,8 +274,8 @@ __global__ void __launch_bounds__(kThreads, kC == 256 ? 2 : 1)
   const float* vw = vs + warp * kRowsPerWarp * C;
 
   for (int q0 = 0; q0 < N; q0 += kWalk) {
-    const int row = q0 + lane;  // this lane's query
-    const bool valid = row < N;
+    const int row = q0 + lane;  // this lane's query, for lanes < kWalk
+    const bool valid = (kSplit == 1 || lane < kWalk) && row < N;
     const float lse_j = valid ? lse[(size_t)b * N + row] : 0.f;
     const float dd_j = valid ? dd[(size_t)b * N + row] : 0.f;
     __syncthreads();  // the previous tile is consumed (and K, V staged)
@@ -246,7 +284,10 @@ __global__ void __launch_bounds__(kThreads, kC == 256 ? 2 : 1)
     __syncthreads();
 
     float s[kRowsPerWarp], dp[kRowsPerWarp];
-    dots(kw, vw, qs + lane * ld, dos + lane * ld, C, s, dp);
+    // the query whose sums this lane takes: q0 + query
+    const int query = kSplit > 1 ? lane % kWalk : lane;
+    dots<kSplit>(kw, vw, qs + query * ld, dos + query * ld, C, lane / kWalk,
+                 s, dp);
     float p[kRowsPerWarp], ds[kRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -303,20 +344,21 @@ bool bad_shape(int B, int N, int C) {
 }
 
 template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int C) {
+cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(C));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int kC>
+template <typename T, int kC, bool kWide>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* dd,
                       void* dq, int B, int N, int C, float scale,
                       cudaStream_t stream) {
-  cudaError_t e = prepare(flash_bwd_dq_kernel<T, kC>, C);
+  const size_t smem = smem_bytes<kWide>(C);
+  cudaError_t e = prepare(flash_bwd_dq_kernel<T, kC, kWide>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((N + kOwn - 1) / kOwn, B);
-  flash_bwd_dq_kernel<T, kC><<<grid, kThreads, smem_bytes(C), stream>>>(
+  flash_bwd_dq_kernel<T, kC, kWide><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dd),
@@ -324,15 +366,16 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int kC>
+template <typename T, int kC, bool kWide>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* dd,
                        void* dk, void* dv, int B, int N, int C, float scale,
                        cudaStream_t stream) {
-  cudaError_t e = prepare(flash_bwd_dkv_kernel<T, kC>, C);
+  const size_t smem = smem_bytes<kWide>(C);
+  cudaError_t e = prepare(flash_bwd_dkv_kernel<T, kC, kWide>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((N + kOwn - 1) / kOwn, B);
-  flash_bwd_dkv_kernel<T, kC><<<grid, kThreads, smem_bytes(C), stream>>>(
+  flash_bwd_dkv_kernel<T, kC, kWide><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dd),
@@ -345,9 +388,14 @@ cudaError_t dq_by_c(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* dd,
                     void* dq, int B, int N, int C, float scale,
                     cudaStream_t s) {
-  return C == 256
-             ? launch_dq<T, 256>(q, k, v, dout, lse, dd, dq, B, N, C, scale, s)
-             : launch_dq<T, 0>(q, k, v, dout, lse, dd, dq, B, N, C, scale, s);
+  if (C == 256)
+    return launch_dq<T, 256, false>(q, k, v, dout, lse, dd, dq, B, N, C,
+                                    scale, s);
+  if (C <= kMaxNarrowC)
+    return launch_dq<T, 0, false>(q, k, v, dout, lse, dd, dq, B, N, C, scale,
+                                  s);
+  return launch_dq<T, 0, true>(q, k, v, dout, lse, dd, dq, B, N, C, scale,
+                               s);
 }
 
 template <typename T>
@@ -355,17 +403,21 @@ cudaError_t dkv_by_c(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dd,
                      void* dk, void* dv, int B, int N, int C, float scale,
                      cudaStream_t s) {
-  return C == 256 ? launch_dkv<T, 256>(q, k, v, dout, lse, dd, dk, dv, B, N,
-                                       C, scale, s)
-                  : launch_dkv<T, 0>(q, k, v, dout, lse, dd, dk, dv, B, N, C,
+  if (C == 256)
+    return launch_dkv<T, 256, false>(q, k, v, dout, lse, dd, dk, dv, B, N, C,
                                      scale, s);
+  if (C <= kMaxNarrowC)
+    return launch_dkv<T, 0, false>(q, k, v, dout, lse, dd, dk, dv, B, N, C,
+                                   scale, s);
+  return launch_dkv<T, 0, true>(q, k, v, dout, lse, dd, dk, dv, B, N, C,
+                                scale, s);
 }
 
 }  // namespace
 
 // q, k, v, dout, dq: [B, N, C] contiguous (f32 or bf16, per `dtype`); lse,
 // dd: [B, N] f32 (dd = rowsum(dout * o) - dlse). Needs C % 4 == 0,
-// C <= 512 and 16-byte aligned q, k, v, dout.
+// C <= 1024 and 16-byte aligned q, k, v, dout.
 // Returns the first CUDA error of the launch, or 0.
 extern "C" int itsd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,

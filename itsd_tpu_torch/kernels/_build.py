@@ -1,12 +1,14 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-All of ``itsd_tpu_torch/csrc/*.cu`` go through ONE ``nvcc`` call into a
+Each of ``itsd_tpu_torch/csrc/*.cu`` is compiled by an ``nvcc -c`` of its
+own, all started together, and one more ``nvcc`` links the objects into a
 shared library with a plain C interface (no PyTorch headers, so the build
 takes seconds, not minutes). The library lands in ``build/`` at the root of
 the checkout (listed in ``.gitignore``), in a directory named by a hash of
 the sources and the flags, so an edited source builds anew and an unchanged
-one loads what is there. The library is written under a temporary name and
-renamed into place: there is no lock file to leave behind.
+one loads what is there. Objects and library are written in a temporary
+directory and the library is renamed into place: there is no lock file to
+leave behind.
 
 A failed build raises with nvcc's own error output. Nothing falls back to the
 plain PyTorch versions.
@@ -30,8 +32,9 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build"
 LIB_NAME = "libitsd_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -64,7 +67,7 @@ class Kernels:
     lib: ctypes.CDLL
     path: Path
     built: bool            # False when an earlier build was loaded
-    nvcc_seconds: float    # 0.0 when nothing was built
+    nvcc_seconds: float    # wall time of the build; 0.0 when none ran
     ptxas: tuple           # (function, registers, spill stores, spill loads)
 
 
@@ -73,7 +76,7 @@ def sources() -> list:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -93,8 +96,16 @@ def find_nvcc() -> str:
     return found
 
 
-def nvcc_command(nvcc: str, out: Path) -> list:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def compile_commands(nvcc: str, obj_dir: Path) -> list:
+    """One ``nvcc -c`` per source, writing ``<stem>.o`` under ``obj_dir``."""
+    return [[nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj_dir / f"{p.stem}.o"),
+             str(p)] for p in sources()]
+
+
+def link_command(nvcc: str, obj_dir: Path, out: Path) -> list:
+    """The ``nvcc -shared`` that links the objects into ``out``."""
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out),
+            *(str(obj_dir / f"{p.stem}.o") for p in sources())]
 
 
 _PTXAS_FN = re.compile(r"Compiling entry function '([^']+)'")
@@ -128,6 +139,21 @@ def _bind(path: Path) -> ctypes.CDLL:
     return lib
 
 
+def _run_all(cmds: list) -> str:
+    """Run ``cmds`` side by side; return their joined output, or raise with
+    the output of the first that failed. Every process is waited for."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"{out}")
+    return "".join(outs)
+
+
 @functools.cache
 def load() -> Kernels:
     """Build (if needed) and load the kernels' shared library, once per
@@ -137,19 +163,18 @@ def load() -> Kernels:
     if path.is_file():
         return Kernels(_bind(path), path, False, 0.0, ())
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"tmp-{os.getpid()}-{LIB_NAME}"
-    cmd = nvcc_command(find_nvcc(), tmp)
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}")
-    os.replace(tmp, path)
-    return Kernels(_bind(path), path, True, seconds,
-                   parse_ptxas(proc.stderr + proc.stdout))
+    tmp = out_dir / f"tmp-{os.getpid()}"
+    tmp.mkdir()
+    nvcc = find_nvcc()
+    try:
+        t0 = time.perf_counter()
+        report = _run_all(compile_commands(nvcc, tmp))
+        _run_all([link_command(nvcc, tmp, tmp / LIB_NAME)])
+        seconds = time.perf_counter() - t0
+        os.replace(tmp / LIB_NAME, path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return Kernels(_bind(path), path, True, seconds, parse_ptxas(report))
 
 
 def check(kernels: Kernels, rc: int, what: str) -> None:

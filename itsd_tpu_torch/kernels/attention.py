@@ -14,9 +14,11 @@ and ``route`` picks one from the dtype and C alone:
 * "mma": bf16 with C % 16 == 0 and C <= 256, on the tensor cores
   (``csrc/flash_attention_mma.cu``, ``csrc/flash_attention_bwd_dq_mma.cu``,
   ``csrc/flash_attention_bwd_mma.cu``);
-* "simt": everything else the kernels take, f32 above all, on the CUDA
-  cores in f32 (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``),
-  so that f32 never runs at the tensor cores' reduced precision.
+* "simt": everything else the kernels take (C % 4 == 0 up to 1024), f32
+  above all, on the CUDA cores in f32 (``csrc/flash_attention.cu``,
+  ``csrc/flash_attention_bwd.cu``), so that f32 never runs at the tensor
+  cores' reduced precision; bf16 at C=512 and C=1024 (the CFG UNet's 16x16
+  and 8x8 stages) takes it too.
 
 Every entry point dispatches on where its inputs lie: CPU tensors go to the
 plain versions, CUDA tensors to the kernels, and anything the kernels do not
@@ -40,7 +42,7 @@ dq_mma_launches = 0
 dkv_launches = 0
 dkv_mma_launches = 0
 
-MAX_C = 512  # kMaxC of csrc/flash_attention.cu and flash_attention_bwd.cu
+MAX_C = 1024  # kMaxC of csrc/flash_attention.cu and flash_attention_bwd.cu
 MMA_MAX_C = 256  # kMaxC of the csrc/flash_attention*_mma.cu kernels
 
 

@@ -1,7 +1,9 @@
 from .convert import params_from_jax
-from .embeddings import FunctionalTimeEmbedding, sinusoidal_features
+from .embeddings import (ConditionalEmbedding, FunctionalTimeEmbedding,
+                         TableTimeEmbedding, sinusoidal_features)
 from .unet import UNet, UNetConfig, cond_unet_config, uncond_unet_config
 
 __all__ = ["UNet", "UNetConfig", "uncond_unet_config", "cond_unet_config",
-           "FunctionalTimeEmbedding", "sinusoidal_features",
+           "FunctionalTimeEmbedding", "TableTimeEmbedding",
+           "ConditionalEmbedding", "sinusoidal_features",
            "params_from_jax"]

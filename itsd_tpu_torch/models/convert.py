@@ -4,8 +4,14 @@ The inverse of the layout maps in ``itsd_tpu/models/torch_convert.py``,
 written for the port's module names (which follow the Flax names):
 
 * conv kernels HWIO -> OIHW;
+* the transpose-conv kernel ``up_*_us/t/kernel`` ``(kh, kw, in, out)`` ->
+  torch's ``(in, out, kh, kw)``, with no flip: the Flax module flips the
+  kernel itself to compute ``ConvTranspose2d`` (``itsd_tpu/models/
+  unet.py:TorchConvTranspose2d``);
 * Dense kernels ``(in, out)`` -> ``(out, in)``;
-* GroupNorm ``scale``/``bias`` -> ``weight``/``bias``.
+* GroupNorm ``scale``/``bias`` -> ``weight``/``bias``;
+* the embedding tables ``time_embedding/table`` and ``cond_embedding/table``
+  as they are.
 
 Takes the Flax tree as nested dicts of numpy arrays (optionally under a
 top-level ``"params"``), so it needs no JAX. Raises on a missing key, an
@@ -36,6 +42,8 @@ def _torch_entry(path, arr):
     *mod, leaf = path
     base = ".".join(mod)
     if leaf == "kernel":
+        if arr.ndim == 4 and mod[-1] == "t":    # transpose conv -> IOHW
+            return f"{base}.weight", arr.transpose(2, 3, 0, 1)
         if arr.ndim == 4:                       # conv HWIO -> OIHW
             return f"{base}.weight", arr.transpose(3, 2, 0, 1)
         if arr.ndim == 2:                       # Dense (in, out) -> (out, in)
@@ -43,8 +51,8 @@ def _torch_entry(path, arr):
         raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
     if leaf == "scale":                         # GroupNorm scale
         return f"{base}.weight", arr
-    if leaf == "bias":
-        return f"{base}.bias", arr
+    if leaf in ("bias", "table"):
+        return f"{base}.{leaf}", arr
     raise ValueError(f"{'/'.join(path)}: unknown parameter {leaf!r}")
 
 

@@ -1,9 +1,9 @@
-"""Time embedding and the layers shared by the UNet.
+"""Time and label embeddings and the layers shared by the UNet.
 
-Counterpart of ``itsd_tpu/models/embeddings.py:34-76``: the functional
-sinusoidal time embedding (any integer t) and its two-layer MLP. The
-trainable table embedding and the label embedding belong to the conditional
-UNet, which is not yet ported.
+Counterpart of ``itsd_tpu/models/embeddings.py:34-116``: the functional
+sinusoidal time embedding (any integer t), the trainable ``[T, ch]``
+sinusoid table of the conditional UNet (t < T only), the label embedding
+with its null class 0, and their two-layer MLP.
 
 Parameters are float32; each layer computes in its input's dtype (bfloat16
 on the card), as the Flax modules do with ``dtype=bfloat16``.
@@ -68,10 +68,38 @@ class FunctionalTimeEmbedding(nn.Module):
 
 
 class TableTimeEmbedding(nn.Module):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("TableTimeEmbedding is not yet ported")
+    """A trainable ``[T, d_model]`` table (sinusoid features at init, set by
+    ``reset_table``), looked up at t, then the MLP. T is baked into the
+    weights."""
+
+    def __init__(self, T: int, d_model: int, dim: int):
+        super().__init__()
+        self.table = nn.Parameter(torch.empty(T, d_model))
+        self.mlp = _EmbedMLP(d_model, dim)
+
+    @torch.no_grad()
+    def reset_table(self) -> None:
+        T, d_model = self.table.shape
+        self.table.copy_(sinusoidal_features(
+            torch.arange(T, device=self.table.device), d_model))
+
+    def forward(self, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return self.mlp(self.table[t.reshape(-1)].to(dtype))
 
 
 class ConditionalEmbedding(nn.Module):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("ConditionalEmbedding is not yet ported")
+    """Labels (0 = the null class) -> ``[B, dim]``: a ``[num_labels + 1,
+    d_model]`` table, the looked-up row multiplied by ``labels != 0`` (so
+    the null class embeds to zero and gives its row no gradient, whatever
+    the row holds), then the MLP."""
+
+    def __init__(self, num_labels: int, d_model: int, dim: int):
+        super().__init__()
+        self.table = nn.Parameter(torch.empty(num_labels + 1, d_model))
+        self.mlp = _EmbedMLP(d_model, dim)
+
+    def forward(self, labels: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+        labels = labels.reshape(-1)
+        emb = self.table[labels] * (labels != 0).to(self.table.dtype)[:, None]
+        return self.mlp(emb.to(dtype))

@@ -1,4 +1,6 @@
-"""The DDPM UNet, unconditional path.
+"""The DDPM UNet: the unconditional model and the classifier-free-guidance
+conditional one (label embedding, table time embedding, attention in every
+down block, dual-conv downsampling, transpose-conv upsampling).
 
 Counterpart of ``itsd_tpu/models/unet.py:40-333``. The public layout is
 NHWC, as in JAX; inside, activations are NCHW, so that a GroupNorm group is
@@ -28,7 +30,8 @@ from torch import nn
 
 from ..kernels.attention import spatial_attention
 from ..kernels.groupnorm import groupnorm_swish
-from .embeddings import TINY_GAIN, Dense, FunctionalTimeEmbedding
+from .embeddings import (TINY_GAIN, ConditionalEmbedding, Dense,
+                         FunctionalTimeEmbedding, TableTimeEmbedding)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -42,11 +45,12 @@ class UNetConfig:
     dropout: float = 0.1
     in_ch: int = 3
     num_labels: Optional[int] = None      # None => unconditional
-    time_embed: str = "functional"
-    down_attn_all: bool = False
+    time_embed: str = "functional"        # "functional" | "table"
+    T: int = 1000                          # rows of the table embedding
+    down_attn_all: bool = False           # attention in every down block
     up_attn: bool = True
-    down_type: str = "conv"
-    up_type: str = "nearest_conv"
+    down_type: str = "conv"               # "conv" | "dual_conv"
+    up_type: str = "nearest_conv"         # "nearest_conv" | "transpose_conv"
     attention_impl: str = "auto"
     dtype: str = "float32"                # compute dtype
 
@@ -68,8 +72,16 @@ def uncond_unet_config(**kw) -> UNetConfig:
 
 
 def cond_unet_config(num_labels: int = 10, **kw) -> UNetConfig:
-    raise NotImplementedError("cond_unet_config: the conditional UNet is not "
-                              "yet ported")
+    """The conditional UNet's defaults: table time embedding, attention in
+    every down block and the middle, none on the way up, dual-conv
+    downsampling and transpose-conv upsampling."""
+    kw.setdefault("time_embed", "table")
+    kw.setdefault("down_attn_all", True)
+    kw.setdefault("up_attn", False)
+    kw.setdefault("down_type", "dual_conv")
+    kw.setdefault("up_type", "transpose_conv")
+    kw.setdefault("attn", ())
+    return UNetConfig(num_labels=num_labels, **kw)
 
 
 def _groups(ch: int) -> int:
@@ -86,6 +98,15 @@ class Conv(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, self.weight.to(x.dtype),
                                   self.bias.to(x.dtype))
+
+
+class ConvT(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` that computes in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(
+            x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride,
+            self.padding, self.output_padding)
 
 
 class Dense1x1(Dense):
@@ -146,26 +167,30 @@ def dropout(h: torch.Tensor, rate: float,
 
 
 class ResBlock(nn.Module):
-    """GN -> swish -> conv3 -> +temb -> GN -> swish -> dropout -> conv3
-    -> +shortcut -> [attn]."""
+    """GN -> swish -> conv3 -> +temb (+cemb) -> GN -> swish -> dropout ->
+    conv3 -> +shortcut -> [attn]."""
 
     def __init__(self, in_ch: int, out_ch: int, tdim: int, attn: bool,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, conditional: bool = False):
         super().__init__()
         self.dropout_rate = dropout
         self.norm1 = GNAct(in_ch, act=True)
         self.conv1 = Conv(in_ch, out_ch, 3, padding=1)
         self.temb_proj = Dense(tdim, out_ch)
+        self.cond_proj = Dense(tdim, out_ch) if conditional else None
         self.norm2 = GNAct(out_ch, act=True)
         self.conv2 = Conv(out_ch, out_ch, 3, padding=1)
         self.shortcut = Dense1x1(in_ch, out_ch) if in_ch != out_ch else None
         self.attn = AttnBlock(out_ch) if attn else None
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor,
+                cemb: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.conv1(self.norm1(x))
         h = h + self.temb_proj(F.silu(temb))[:, :, None, None]
+        if self.cond_proj is not None:
+            h = h + self.cond_proj(F.silu(cemb))[:, :, None, None]
         h = self.norm2(h)
         if not deterministic:
             h = dropout(h, self.dropout_rate, generator)
@@ -179,31 +204,39 @@ class ResBlock(nn.Module):
 
 
 class DownSample(nn.Module):
-    """conv3x3 stride 2 with symmetric (1, 1) padding."""
+    """Stride-2 downsampling with symmetric padding. "conv": conv3x3;
+    "dual_conv": conv3x3 plus conv5x5, summed."""
 
     def __init__(self, ch: int, kind: str):
         super().__init__()
-        if kind != "conv":
-            raise NotImplementedError(f"DownSample kind {kind!r} is not yet "
-                                      "ported")
+        if kind not in ("conv", "dual_conv"):
+            raise ValueError(f"unknown DownSample kind {kind!r}")
         self.c1 = Conv(ch, ch, 3, stride=2, padding=1)
+        self.c2 = (Conv(ch, ch, 5, stride=2, padding=2)
+                   if kind == "dual_conv" else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c1(x)
+        y = self.c1(x)
+        return y if self.c2 is None else y + self.c2(x)
 
 
 class UpSample(nn.Module):
-    """Nearest-neighbour 2x then conv3x3."""
+    """2x upsampling then conv3x3. "nearest_conv": nearest neighbour;
+    "transpose_conv": ``ConvTranspose2d(C, C, 5, 2, 2, output_padding=1)``
+    (the Flax module ``t`` flips its kernel to compute the same)."""
 
     def __init__(self, ch: int, kind: str):
         super().__init__()
-        if kind != "nearest_conv":
-            raise NotImplementedError(f"UpSample kind {kind!r} is not yet "
-                                      "ported")
+        if kind not in ("nearest_conv", "transpose_conv"):
+            raise ValueError(f"unknown UpSample kind {kind!r}")
+        self.t = (ConvT(ch, ch, 5, stride=2, padding=2, output_padding=1)
+                  if kind == "transpose_conv" else None)
         self.c = Conv(ch, ch, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c(F.interpolate(x, scale_factor=2, mode="nearest"))
+        if self.t is None:
+            return self.c(F.interpolate(x, scale_factor=2, mode="nearest"))
+        return self.c(self.t(x))
 
 
 # Layers whose init is Xavier with gain TINY_GAIN (the net starts near the
@@ -212,22 +245,30 @@ _TINY_INIT = ("conv2", "proj", "tail_conv")
 
 
 class UNet(nn.Module):
-    """The denoiser: ``forward(x [B,H,W,C] f32, t [B])`` -> eps, float32
-    NHWC."""
+    """The denoiser: ``forward(x [B,H,W,C] f32, t [B], labels [B])`` ->
+    eps, float32 NHWC; ``labels`` only for the conditional model (0 is the
+    null class)."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if cfg.conditional or cfg.time_embed != "functional":
-            raise NotImplementedError("the conditional UNet and the table "
-                                      "time embedding are not yet ported")
+        if cfg.time_embed not in ("functional", "table"):
+            raise ValueError(f"unknown time_embed {cfg.time_embed!r}")
         if cfg.attention_impl != "auto":
             raise NotImplementedError(
                 f"attention_impl={cfg.attention_impl!r} is not yet ported "
                 "(the port picks the kernel from the tensors' device)")
         self.cfg = cfg
         ch = cfg.ch
-        self.time_embedding = FunctionalTimeEmbedding(ch, cfg.tdim)
+        self.time_embedding = (
+            FunctionalTimeEmbedding(ch, cfg.tdim)
+            if cfg.time_embed == "functional"
+            else TableTimeEmbedding(cfg.T, ch, cfg.tdim))
+        self.cond_embedding = (
+            ConditionalEmbedding(cfg.num_labels, ch, cfg.tdim)
+            if cfg.conditional else None)
         self.head = Conv(cfg.in_ch, ch, 3, padding=1)
+        res = lambda cin, cout, attn: ResBlock(  # noqa: E731
+            cin, cout, cfg.tdim, attn, cfg.dropout, cfg.conditional)
 
         # The same walk as the JAX UNet: ``plan`` lists the forward's steps.
         self.plan = []
@@ -236,26 +277,20 @@ class UNet(nn.Module):
             out = ch * mult
             for j in range(cfg.num_res_blocks):
                 attn = cfg.down_attn_all or i in cfg.attn
-                self._add(f"down_{i}_{j}",
-                          ResBlock(now, out, cfg.tdim, attn, cfg.dropout),
-                          "down")
+                self._add(f"down_{i}_{j}", res(now, out, attn), "down")
                 now = out
                 skips.append(now)
             if i != len(cfg.ch_mult) - 1:
                 self._add(f"down_{i}_ds", DownSample(now, cfg.down_type),
                           "ds")
                 skips.append(now)
-        self._add("mid_0", ResBlock(now, now, cfg.tdim, True, cfg.dropout),
-                  "mid")
-        self._add("mid_1", ResBlock(now, now, cfg.tdim, False, cfg.dropout),
-                  "mid")
+        self._add("mid_0", res(now, now, True), "mid")
+        self._add("mid_1", res(now, now, False), "mid")
         for i, mult in reversed(list(enumerate(cfg.ch_mult))):
             out = ch * mult
             for j in range(cfg.num_res_blocks + 1):
                 attn = cfg.up_attn and i in cfg.attn
-                self._add(f"up_{i}_{j}",
-                          ResBlock(now + skips.pop(), out, cfg.tdim, attn,
-                                   cfg.dropout),
+                self._add(f"up_{i}_{j}", res(now + skips.pop(), out, attn),
                           "up")
                 now = out
             if i != 0:
@@ -272,9 +307,15 @@ class UNet(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         """Xavier-uniform weights (gain TINY_GAIN on the output layers of
         the residual, attention and tail branches), zero biases, unit
-        GroupNorm scales, drawn from ``generator`` in module order."""
+        GroupNorm scales, the time table's sinusoid features and a
+        normal(0, 1) label table, drawn from ``generator`` in module
+        order."""
         for name, mod in self.named_modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+            if isinstance(mod, TableTimeEmbedding):
+                mod.reset_table()
+            elif isinstance(mod, ConditionalEmbedding):
+                nn.init.normal_(mod.table, generator=generator)
+            elif isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
                 tiny = name.rsplit(".", 1)[-1] in _TINY_INIT
                 nn.init.xavier_uniform_(mod.weight,
                                         gain=TINY_GAIN if tiny else 1.0,
@@ -285,25 +326,31 @@ class UNet(nn.Module):
                 nn.init.zeros_(mod.bias)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
-                return_representation: bool = False, *,
+                labels: Optional[torch.Tensor] = None, *,
+                return_representation: bool = False,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
-        """eps for ``x`` at ``t``. Dropout runs only with
-        ``deterministic=False`` in training mode; ``generator`` draws its
-        masks."""
+        """eps for ``x`` at ``t`` (and ``labels``, for the conditional
+        model). Dropout runs only with ``deterministic=False`` in training
+        mode; ``generator`` draws its masks."""
         deterministic = deterministic or not self.training
         dtype = self.cfg.torch_dtype
         h = x.to(dtype).permute(0, 3, 1, 2).contiguous()
         temb = self.time_embedding(t, dtype)
+        cemb = None
+        if self.cond_embedding is not None:
+            if labels is None:
+                raise ValueError("the conditional UNet needs labels")
+            cemb = self.cond_embedding(labels, dtype)
         h = self.head(h)
         hs = [h]
         for name, kind in self.plan:
             block = getattr(self, name)
             if kind == "up":
-                h = block(torch.cat([h, hs.pop()], dim=1), temb,
+                h = block(torch.cat([h, hs.pop()], dim=1), temb, cemb,
                           deterministic, generator)
             elif kind in ("down", "mid"):
-                h = block(h, temb, deterministic, generator)
+                h = block(h, temb, cemb, deterministic, generator)
             else:
                 h = block(h)
             if kind in ("down", "ds"):

@@ -108,23 +108,33 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 def make_train_step(sched: DiffusionSchedule, *, conditional: bool = False,
                     loss_reduction: str = "mean",
                     loss_weighting: str = "none", snr_gamma: float = 5.0,
+                    label_dropout: float = 0.1,
                     ema_decay: Optional[float] = 0.999):
-    """``step_fn(state, batch, generator, t=None, noise=None) -> metrics``.
+    """``step_fn(state, batch, generator, t=None, noise=None, drop=None)
+    -> metrics``.
 
-    ``batch`` is ``{"image": [B, H, W, C]}`` on the model's device. t, the
-    noise and the dropout masks are drawn from ``generator`` in that
-    order, unless t and noise are passed in (the tests pass JAX's).
-    ``metrics`` holds the loss and the pre-clip gradient norm as device
-    tensors."""
-    if conditional:
-        raise NotImplementedError("the conditional train step (label "
-                                  "dropout) is not yet ported")
+    ``batch`` is ``{"image": [B, H, W, C]}`` on the model's device, plus
+    ``"label": [B]`` (the dataset's 0..num_labels-1) when ``conditional``:
+    the model then sees ``label + 1``, or the null class 0 where ``drop``
+    is true, each label with probability ``label_dropout``. t, the noise,
+    the label-dropout uniforms and the dropout masks are drawn from
+    ``generator`` in that order, unless t, the noise and the drop mask
+    ``drop`` [B] bool are passed in (the tests pass JAX's). ``metrics``
+    holds the loss and the pre-clip gradient norm as device tensors."""
     if loss_weighting not in ("none", "min_snr"):
         raise ValueError(f"unknown loss weighting: {loss_weighting!r}")
 
-    def loss_fn(model, x0, generator, t, noise):
-        t, noise, x_t = diffusion_train_terms(sched, generator, x0, t, noise)
-        eps = model(x_t, t, deterministic=False, generator=generator)
+    def loss_fn(model, batch, generator, t, noise, drop):
+        t, noise, x_t = diffusion_train_terms(sched, generator,
+                                              batch["image"], t, noise)
+        labels = None
+        if conditional:
+            labels = batch["label"].long() + 1
+            if drop is None:
+                drop = torch.rand(labels.shape, generator=generator,
+                                  device=labels.device) < label_dropout
+            labels = torch.where(drop, torch.zeros_like(labels), labels)
+        eps = model(x_t, t, labels, deterministic=False, generator=generator)
         per_elem = mse_elementwise(eps, noise)
         if loss_weighting == "min_snr":
             w = min_snr_weight(sched, t, snr_gamma)
@@ -133,13 +143,13 @@ def make_train_step(sched: DiffusionSchedule, *, conditional: bool = False,
         return loss_reduce(per_elem, loss_reduction)
 
     def step_fn(state: TrainState, batch, generator=None, t=None,
-                noise=None) -> dict:
+                noise=None, drop=None) -> dict:
         model, tx = state.model, state.tx
         model.train()
         params = [p for p in model.parameters()]
         for p in params:
             p.grad = None
-        loss = loss_fn(model, batch["image"], generator, t, noise)
+        loss = loss_fn(model, batch, generator, t, noise, drop)
         loss.backward()
         for p in params:  # optax sees a zero gradient for an unused leaf
             if p.grad is None:

@@ -55,10 +55,12 @@ class Trainer:
         model.load_state_dict(self.params)
         return model.to(self.device).eval()
 
-    def sample(self, n: int,
-               generator: Optional[torch.Generator] = None) -> np.ndarray:
+    def sample(self, n: int, generator: Optional[torch.Generator] = None,
+               labels: Optional[torch.Tensor] = None) -> np.ndarray:
         """``n`` images [n, H, W, 3] in [-1, 1], through the sampler
-        ``cfg.diffusion.sampler`` names."""
+        ``cfg.diffusion.sampler`` names; the conditional model is guided
+        as ``runner.evaluate`` guides it, on ``labels`` (1..num_labels) or
+        ``(arange(n) % num_labels) + 1``."""
         cfg = self.cfg
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(
@@ -68,8 +70,11 @@ class Trainer:
         size = cfg.data.img_size
         x_T = torch.randn((n, size, size, 3), generator=generator,
                           device=self.device)
-        eps_fn = self._runner.make_eps_fn(self._eval_model(),
-                                          self.conditional)
+        weak = (self._runner.load_weak_params(cfg, True)
+                if self.conditional else None)
+        eps_fn = self._runner.sampling_eps_fn(cfg, self._eval_model(),
+                                              self.conditional, n, weak,
+                                              labels)
         with torch.inference_mode():
             imgs = self._runner.run_sampler(cfg, sched, eps_fn, x_T,
                                             generator)

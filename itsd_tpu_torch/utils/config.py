@@ -1,8 +1,10 @@
 """One dataclass config tree + YAML + dotted-key CLI overrides.
 
 A copy of ``itsd_tpu/utils/config.py`` for the port, which imports nothing of
-the JAX package. PyYAML is imported only when a YAML file is read, so the
-config tree and its overrides work where PyYAML is not installed.
+the JAX package. YAML files are read by ``read_yaml``, a reader of the
+subset of YAML the configs use (nested mappings, scalars, flow lists), which
+resolves scalars as ``yaml.safe_load`` does, so configs load where PyYAML
+is not installed (the card's machine).
 
 Key names match the reference DDPM code's config.yaml: T, inference_T,
 beta_1, beta_T, channel, channel_mult, attn, num_res_blocks, dropout, w,
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 from typing import Any, Optional, Sequence, Tuple
 
 
@@ -429,14 +432,97 @@ def _update_dataclass(obj: Any, data: dict, prefix: str = "",
             setattr(obj, k, v)
 
 
+# Scalars as PyYAML's resolver (YAML 1.1) reads them: a float needs a dot
+# (so "1e-4" stays a string, as under yaml.safe_load), and yes/no/on/off
+# are booleans.
+_YAML_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_YAML_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|"
+                        r"False|FALSE|on|On|ON|off|Off|OFF)$")
+_YAML_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
+_YAML_FLOAT = re.compile(r"^[-+]?(?:[0-9][0-9_]*)?\.[0-9_]*"
+                         r"(?:[eE][-+][0-9]+)?$")
+
+
+def _yaml_scalar(text: str, where: str) -> Any:
+    if text[:1] in "\"'":
+        if len(text) < 2 or text[-1] != text[0]:
+            raise ValueError(f"{where}: unterminated string {text!r}")
+        return text[1:-1]
+    if text.startswith("["):
+        if not text.endswith("]"):
+            raise ValueError(f"{where}: unterminated list {text!r}")
+        body = text[1:-1].strip()
+        return [_yaml_scalar(v.strip(), where)
+                for v in body.split(",")] if body else []
+    if text[0] in "{&*!|>%@`" or text[:2] in ("- ", "? "):
+        raise ValueError(f"{where}: YAML construct {text!r} is not read")
+    if _YAML_NULL.match(text):
+        return None
+    if _YAML_BOOL.match(text):
+        return text.lower() in ("yes", "true", "on")
+    if _YAML_INT.match(text):
+        return int(text.replace("_", ""))
+    if _YAML_FLOAT.match(text) and text not in (".", "+.", "-."):
+        return float(text.replace("_", ""))
+    return text
+
+
+def _strip_comment(line: str) -> str:
+    """The line without a trailing ``# comment`` (a ``#`` outside quotes,
+    at the start or after a space)."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def read_yaml(text: str) -> dict:
+    """The mapping a config file holds: nested ``key: value`` mappings by
+    indentation (the top level at column 0), with null, bool, int, float
+    and string scalars, quoted strings and one-line flow lists. Anything
+    else raises."""
+    root: dict = {}
+    stack = [(0, root)]  # (indent of a mapping's keys, the mapping)
+    pending = None       # (mapping, key) of a "key:" line with no value
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw).rstrip()
+        if not line.strip() or line.strip() == "---":
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        if line[indent] == "\t":
+            raise ValueError(f"line {n}: tabs are not read")
+        if pending is not None and indent > stack[-1][0]:
+            parent, key = pending  # the key's value is the mapping below
+            parent[key] = {}
+            stack.append((indent, parent[key]))
+        pending = None
+        while indent < stack[-1][0]:
+            stack.pop()
+        if indent != stack[-1][0]:
+            raise ValueError(f"line {n}: unexpected indentation")
+        key, sep, value = line.strip().partition(":")
+        if not sep or not key or (value and value[0] not in " \t"):
+            raise ValueError(f"line {n}: want 'key: value', got "
+                             f"{line.strip()!r}")
+        key, value = key.strip(), value.strip()
+        mapping = stack[-1][1]
+        mapping[key] = _yaml_scalar(value, f"line {n}") if value else None
+        if not value:
+            pending = (mapping, key)
+    return root
+
+
 def load_config(yaml_path: Optional[str] = None,
                 overrides: Sequence[str] = ()) -> Config:
     cfg = Config()
     if yaml_path:
-        import yaml
-
         with open(yaml_path) as f:
-            data = yaml.safe_load(f) or {}
+            data = read_yaml(f.read())
         _update_dataclass(cfg, data)
     apply_overrides(cfg, overrides)
     return cfg

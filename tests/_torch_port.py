@@ -17,12 +17,15 @@ def one_torch_thread():
     torch.set_num_threads(prev)
 
 
-def flax_params(model, x, t, seed):
+def flax_params(model, x, t, seed, labels=None):
     """A Flax parameter tree for ``model`` (structure from ``eval_shape`` of
-    its init) with seeded numpy values: O(1/sqrt(fan_in)) kernels, GroupNorm
-    scales near 1, biases O(0.1)."""
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
-                            jnp.asarray(x), jnp.asarray(t))
+    its init, with ``labels`` for a conditional model) with seeded numpy
+    values: O(1/sqrt(fan_in)) kernels, GroupNorm scales near 1, biases and
+    embedding tables O(0.1)."""
+    args = (jnp.asarray(x), jnp.asarray(t))
+    if labels is not None:
+        args += (jnp.asarray(labels),)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), *args)
     rng = np.random.default_rng(seed)
 
     def draw(path, s):

@@ -20,7 +20,8 @@ from the dtype and C. Both are held here on the same bf16 inputs, the
 "simt" one through the private ``_flash_simt``, ``_flash_bwd_dq_simt`` and
 ``_flash_bwd_dkv_simt``. Run one route's tests with ``-k mma`` or
 ``-k simt``, the dq tests of one route with ``-k "dq and mma"`` or
-``-k "routes and simt"``.
+``-k "routes and simt"``, the tests at the CFG UNet's widths and maps with
+``-k cfg``.
 
 The backward kernels against ``attention_bwd_plain`` (the same formula and
 roundings): f32 2e-5 absolute on values O(1), sums in another order
@@ -351,6 +352,66 @@ def test_flagship_attention_shape(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [512, 768, 1024])
+@pytest.mark.parametrize("N", [1, 4, 16, 64, 256])
+def test_simt_kernels_at_the_cfg_widths(cuda_device, dtype, C, N):
+    """The CUDA-core forward (with and without lse), dq and dk/dv at the
+    widths of the CFG UNet's 16x16 (C=512) and 8x8 and 4x4 (C=1024)
+    stages, and C=768, each against its plain version (f32: 2e-5; bf16:
+    the tolerances above), with dlse; two launches of each agree bit for
+    bit. bf16 takes this route at these widths, f32 always."""
+    assert attention.route(dtype, C) == "simt"
+    B = 3
+    gen = torch.Generator(device=cuda_device).manual_seed(N * 7 + C)
+    q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
+                   .to(dtype) for _ in range(4))
+    dlse = torch.randn((B, N), generator=gen, device=cuda_device)
+    scale = C ** -0.5
+    counts = (attention.launches, attention.dq_launches,
+              attention.dkv_launches, attention.mma_launches)
+    o, lse = attention.attention_with_lse(q, k, v, scale)
+    o2 = attention.spatial_attention(q, k, v)
+    dd = attention.row_dd(o, do, dlse).contiguous()
+    args = (q, k, v, do, lse, dd, scale)
+    got = (attention.flash_bwd_dq(*args), *attention.flash_bwd_dkv(*args))
+    again = (attention.flash_bwd_dq(*args), *attention.flash_bwd_dkv(*args))
+    want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
+    want = (attention.flash_bwd_dq_plain(*args),
+            *attention.flash_bwd_dkv_plain(*args))
+    torch.cuda.synchronize()
+    assert (attention.launches - counts[0], attention.dq_launches - counts[1],
+            attention.dkv_launches - counts[2],
+            attention.mma_launches - counts[3]) == (2, 2, 2, 0)
+    assert torch.equal(o, o2)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, want_o, atol=2e-5, rtol=0)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=BWD_F32_TOL, rtol=0)
+    else:
+        _close_bf16(o, want_o, v)
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == (B, N, C)
+            _close_bf16(g, w, w)
+
+
+# GroupNorm at the CFG UNet's smallest maps: 1x1 and 2x2 take the scalar
+# path (HW is not a multiple of a 16-byte vector), [B, 256, 1, 1] has spans
+# of 8 elements, and the up path's skip concatenations reach 2048
+# channels.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("C", [256, 512, 768, 1536, 2048])
+def test_groupnorm_at_the_cfg_small_maps(cuda_device, dtype, S, C):
+    for act in (True, False):
+        _gn_forward_and_backward((8, C, S, S), act, dtype, C + S,
+                                 cuda_device)
+
+
+@pytest.mark.cuda
 def test_mma_entries_refuse_what_they_do_not_take(cuda_device):
     """The tensor-core entry points take bf16 with C % 16 == 0 and C <= 256
     only; anything else returns an error, which the wrapper raises."""
@@ -415,7 +476,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="16-byte aligned"):
         attention.spatial_attention(shifted.view(2, 16, 32), q, q)
     lse = torch.zeros((2, 16), device=cuda_device)
-    for C in (6, 516):
+    for C in (6, 1028):
         q = torch.randn((2, 16, C), device=cuda_device)
         with pytest.raises(ValueError, match="C % 4"):
             attention.attention_bwd(q, q, q, q, lse, q, 0.5)

@@ -227,15 +227,22 @@ def test_cpu_tensors_launch_no_kernel_of_either_route(dtype):
     assert [getattr(attention, n) for n in names] == before
 
 
-def test_build_command_is_one_nvcc_call_for_sm90a(tmp_path):
-    cmd = _build.nvcc_command("nvcc", tmp_path / "lib.so")
-    assert cmd[0] == "nvcc"
-    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
-    srcs = {p.name for p in _build.sources()}
+def test_build_commands_are_one_nvcc_per_source_for_sm90a(tmp_path):
+    cmds = _build.compile_commands("nvcc", tmp_path)
+    srcs = _build.sources()
     assert {"groupnorm.cu", "flash_attention.cu", "flash_attention_bwd.cu",
             "flash_attention_mma.cu", "flash_attention_bwd_mma.cu",
-            "flash_attention_bwd_dq_mma.cu"} <= srcs
-    assert all(str(p) in cmd for p in _build.sources())
+            "flash_attention_bwd_dq_mma.cu"} <= {p.name for p in srcs}
+    assert len(cmds) == len(srcs)
+    for cmd, src in zip(cmds, srcs):
+        assert cmd[0] == "nvcc" and cmd[-1] == str(src)
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
+        assert cmd[cmd.index("-o") + 1] == str(tmp_path / f"{src.stem}.o")
+    link = _build.link_command("nvcc", tmp_path, tmp_path / "lib.so")
+    assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
+    assert link[link.index("-o") + 1] == str(tmp_path / "lib.so")
+    assert [a for a in link if a.endswith(".o")] == [
+        cmd[cmd.index("-o") + 1] for cmd in cmds]
     for p in _build.CSRC.glob("*.cu*"):
         assert "torch/extension.h" not in p.read_text()
 

@@ -136,14 +136,114 @@ def test_evaluate_needs_weights():
 @pytest.mark.parametrize("override", [
     "diffusion.sampler=ddim", "diffusion.sampler=dpm",
     "diffusion.sampler=picard", "diffusion.launch_segments=2",
-    "train.spatial_shard=2", "model.num_labels=10", "model.backbone=vit",
-    "model.time_embed=table", "model.remat=true",
+    "train.spatial_shard=2", "model.backbone=vit", "model.remat=true",
     "diffusion.restart_intervals=[[10,5,1]]"])
 def test_unported_eval_options_raise(tmp_path, override):
     cfg = load_config(None, TINY + [f"sampled_dir={tmp_path}", override])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         model, _ = runner.build_model(cfg)
         runner.evaluate(cfg, runner.init_params(cfg, model), device="cpu")
+
+
+COND = TINY + ["model.num_labels=10", "w=1.8"]
+
+
+@pytest.mark.parametrize("time_embed", ["table", "functional"])
+def test_cond_evaluate_on_cpu_is_the_guided_chain(tmp_path, time_embed):
+    """The conditional evaluate samples with CFG (w=1.8) on the labels
+    (arange(B) % 10) + 1, from the seed's x_T and noise."""
+    from itsd_tpu_torch.core import linear_schedule, sample
+
+    cfg = load_config(None, COND + [f"model.time_embed={time_embed}",
+                                    f"sampled_dir={tmp_path}"])
+    model, conditional = runner.build_model(cfg)
+    assert conditional and model.cfg.time_embed == time_embed
+    params = runner.init_params(cfg, model)
+    out = runner.evaluate(cfg, params, device="cpu")
+    assert out["images"].shape == (2, 8, 8, 3)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    x_T = torch.randn((2, 8, 8, 3), generator=gen)
+    model.eval()
+    eps_fn = runner.make_eps_fn(model, True, torch.tensor([1, 2]), 1.8)
+    with torch.inference_mode():
+        want = sample(linear_schedule(1e-4, 0.02, 4, device="cpu"), eps_fn,
+                      x_T, generator=gen)
+    np.testing.assert_array_equal(out["images"], want.numpy())
+
+
+def _lively_params(cfg, model):
+    """Seeded weights with the near-zero output layers scaled up to Xavier
+    size, so that the labels and the weights move the samples."""
+    from itsd_tpu_torch.models.embeddings import TINY_GAIN
+
+    params = runner.init_params(cfg, model)
+    for k, v in params.items():
+        if k.endswith(("conv2.weight", "proj.weight", "tail_conv.weight")):
+            v.mul_(1 / TINY_GAIN)
+    return params
+
+
+def test_cond_evaluate_with_an_interval_and_autoguidance(tmp_path):
+    cfg = load_config(None, COND + [f"sampled_dir={tmp_path}"])
+    model, _ = runner.build_model(cfg)
+    torch.save(_lively_params(cfg, model), tmp_path / "strong.pt")
+    weak_cfg = load_config(None, COND + ["seed=1"])
+    torch.save(_lively_params(weak_cfg, model), tmp_path / "weak.pt")
+    base = COND + [f"sampled_dir={tmp_path}", f"save_weight_dir={tmp_path}",
+                   "test_load_weight=strong.pt"]
+    runs = {}
+    for name, extra in (("cfg", []), ("interval", [
+            "diffusion.cfg_interval=[1,3]"]), ("auto", [
+                "diffusion.guidance=auto",
+                "diffusion.weak_load_weight=weak.pt"])):
+        imgs = runner.evaluate(load_config(None, base + extra),
+                               device="cpu")["images"]
+        assert np.isfinite(imgs).all()
+        runs[name] = imgs
+    assert not np.array_equal(runs["cfg"], runs["interval"])
+    assert not np.array_equal(runs["cfg"], runs["auto"])
+
+
+@pytest.mark.parametrize("override,error,match", [
+    ("diffusion.guidance=autoguidance", ValueError, "unknown diffusion"),
+    ("diffusion.guidance=auto", ValueError, "weak_load_weight"),
+    ("diffusion.cfg_interval=[3,1]", ValueError, "reversed"),
+    ("diffusion.inference_T=3", NotImplementedError, "not yet ported")])
+def test_guided_eval_options_raise_before_sampling(tmp_path, override, error,
+                                                  match):
+    """A guidance value other than cfg | auto (which the JAX package reads
+    as cfg), autoguidance without a weak checkpoint, a reversed interval,
+    and another inference_T for a table time embedding (the cross-T
+    surgery, not yet ported) all raise."""
+    cfg = load_config(None, COND + ["model.time_embed=table",
+                                    f"sampled_dir={tmp_path}"])
+    model, _ = runner.build_model(cfg)
+    params = runner.init_params(cfg, model)
+    with pytest.raises(error, match=match):
+        runner.evaluate(load_config(None, COND + [
+            "model.time_embed=table", f"sampled_dir={tmp_path}", override]),
+            params, device="cpu")
+
+
+def test_yaml_reader_matches_pyyaml_on_every_config():
+    yaml = pytest.importorskip("yaml")
+    from itsd_tpu_torch.utils.config import read_yaml
+
+    for path in sorted((ROOT / "configs").glob("*.yaml")):
+        text = path.read_text()
+        assert read_yaml(text) == (yaml.safe_load(text) or {}), path.name
+    text = ("a: 1e-4\nb:\n  c: [1, 2.5, x]  # note\n  d: 'q: r'\n"
+            "e: ~\nf: yes\n")
+    assert read_yaml(text) == yaml.safe_load(text)
+
+
+@pytest.mark.parametrize("text", ["a:\n  - 1\n", "a: {b: 1}\n",
+                                  "  a: 1\n", "a\n", "a:\n  b: 1\n c: 2\n"])
+def test_yaml_reader_rejects_what_it_does_not_read(text):
+    from itsd_tpu_torch.utils.config import read_yaml
+
+    with pytest.raises(ValueError):
+        read_yaml(text)
 
 
 def test_unknown_sampler_raises(tmp_path):

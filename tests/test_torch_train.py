@@ -514,9 +514,44 @@ def test_train_on_cpu_writes_checkpoints_metrics_and_grids(tmp_path):
     assert np.isfinite(ev["images"]).all()
 
 
+@pytest.mark.parametrize("time_embed", ["table", "functional"])
+def test_cond_train_on_cpu_carries_labels_and_samples_guided_grids(
+        tmp_path, time_embed, monkeypatch):
+    """The conditional train loop: the dataset's labels reach the step with
+    the images (through the producer thread), the loss is the sum / B^2
+    reduction, a guided grid is sampled, and the checkpoint restores for a
+    guided eval."""
+    seen = []
+    real = make_train_step
+
+    def spy(*a, **kw):
+        step = real(*a, **kw)
+
+        def wrapped(state, batch, *rest):
+            seen.append(batch["label"].clone())
+            return step(state, batch, *rest)
+        return wrapped
+
+    monkeypatch.setattr(runner, "make_train_step", spy)
+    cfg = _cfg(tmp_path, "model.num_labels=10", f"model.time_embed={time_embed}",
+               "train.loss_reduction=sum_div_b2", "w=1.8", "train.epoch=1",
+               "train.eval_freq=1", "train.async_checkpoint=false")
+    out = runner.train(cfg, max_steps=2, device="cpu")
+    assert out["steps"] == 2 and np.isfinite(out["losses"]).all()
+    assert len(seen) == 2 and all(s.shape == (4,) and int(s.max()) < 10
+                                  for s in seen)
+    assert out["losses"][0] > 1.0  # sum / B^2 = 8*8*3/4 times the mean
+    assert (tmp_path / "s" / "epoch_0_sampled.png").is_file()
+    ev = runner.evaluate(_cfg(tmp_path, "model.num_labels=10",
+                              f"model.time_embed={time_embed}", "w=1.8",
+                              "test_load_weight=ckpt_0",
+                              f"sampled_dir={tmp_path}/ev"), device="cpu")
+    assert np.isfinite(ev["images"]).all()
+
+
 @pytest.mark.parametrize("override", [
     "train.track_metrics=none", "train.spatial_shard=2",
-    "train.profile_steps=1", "model.num_labels=10",
+    "train.profile_steps=1",
     "train.extract_representation_freq=1", "data.dataset=cifar10",
     "data.dataset=imagefolder"])
 def test_unported_train_options_raise(tmp_path, override):

@@ -17,6 +17,8 @@ Tolerances:
   neighbouring bf16 values; measured ~2 steps.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,7 @@ import pytest
 import torch
 
 from itsd_tpu.models import UNet as JaxUNet
+from itsd_tpu.models import cond_unet_config as jax_cond_config
 from itsd_tpu.models import uncond_unet_config as jax_uncond_config
 from itsd_tpu.models.embeddings import \
     sinusoidal_features as jax_sinusoidal_features
@@ -140,17 +143,19 @@ def test_conv_and_dense_layouts():
     assert np.array_equal(sd["tail_norm.weight"].numpy(), np.arange(32))
 
 
-@pytest.mark.parametrize("kw", [dict(num_labels=10), dict(time_embed="table"),
-                                dict(down_type="dual_conv"),
-                                dict(up_type="transpose_conv")])
+@pytest.mark.parametrize("kw", [dict(attention_impl="xla"),
+                                dict(attention_impl="flash"),
+                                dict(attention_impl="ring")])
 def test_unported_variants_raise(kw):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         UNet(uncond_unet_config(**SMALL, **kw))
 
 
-def test_cond_config_raises():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cond_unet_config(num_labels=10)
+def test_cond_config_matches_jax():
+    want = dataclasses.asdict(jax_cond_config(num_labels=7, ch=32, T=50))
+    got = dataclasses.asdict(cond_unet_config(num_labels=7, ch=32, T=50))
+    del want["remat"]  # a JAX memory option the port does not have
+    assert got == want
 
 
 def test_init_weights_is_seeded_and_tiny_on_output_layers():
