@@ -17,10 +17,12 @@ Phases, each ending with one line that carries its elapsed seconds:
    (batch 16 inside the guidance interval, 8 outside) and train path
    (batch 256), in bf16 and f32, timed beside the plain version, one
    PyTorch library call and the least time the card could take. The flash
-   forward has two kernels: the tensor-core one ("mma", the route of bf16
-   at C <= 256) and the CUDA-core one ("simt", the route of f32, and of
-   bf16 at the CFG model's C=512 and C=1024); both are checked and timed
-   on the same bf16 inputs where bf16 takes mma.
+   forward has three kernels: two on the tensor cores ("mma", the route of
+   bf16 at C <= 256, and "wide", of bf16 at 256 < C <= 1024: the CFG
+   model's C=512 and C=1024) and the CUDA-core one ("simt", the route of
+   f32); the simt kernel is checked and timed on the same bf16 inputs as
+   the tensor-core one at every shape. The flash forward also at the
+   256x256 flagship's attention, [1, 4096, 384] (bf16: wide).
    GroupNorm also at the 256x256 flagship's largest spans (batch 1, spans
    of up to 786,432 elements, split over a thread-block cluster): forward
    and backward in f32 and bf16, two launches equal bit for bit, timed;
@@ -33,13 +35,14 @@ Phases, each ending with one line that carries its elapsed seconds:
    route) and in bf16 (the mma route): one full-width UNet forward (eps)
    at timesteps across the chain, and 20 denoising steps from one x_T with
    one fed noise sequence;
-5. backward: the dq and dk/dv kernels (each on both routes, as in phase
-   2) against their plain versions at both train paths' shapes and one
-   more C, in bf16 and f32, with a nonzero dlse once, timed beside the
-   plain versions, the backward of ``F.scaled_dot_product_attention`` and
-   their bound; every dq and dk/dv must take the route ``route`` names;
-   the GroupNorm backward (autograd through the plain recompute) checked
-   and timed;
+5. backward: the dq and dk/dv kernels (each on its bf16 route and on
+   simt, as in phase 2; dk/dv on the wide route at C=512 and C=1024, dq on
+   simt there) against their plain versions at both train paths' shapes,
+   one more C and the flagship's [1, 4096, 384], in bf16 and f32, with a
+   nonzero dlse once, timed beside the plain versions, the backward of
+   ``F.scaled_dot_product_attention`` and their bound; every dq and dk/dv
+   must take the route ``route`` names; the GroupNorm backward (autograd
+   through the plain recompute) checked and timed;
 6. train-step parity: 3 steps of the kernel path against the plain path at
    full width and batch 128 (dropout 0, the same params, batches, t and
    noise), in f32 (simt) and bf16 (mma): loss, pre-clip gradient norm, max
@@ -61,7 +64,7 @@ Phases, each ending with one line that carries its elapsed seconds:
    w=1.8 over the config's whole T=3000 chain, CFG on 30 <= t < 70 and
    autoguidance (a second seeded weight file) over a chain cut to T=100;
    exact launches a step (78 GroupNorm and 13 flash forwards, 5 on mma
-   and 8 on simt, at batch 16 inside the interval and 8 outside;
+   and 8 on wide, at batch 16 inside the interval and 8 outside;
    autoguidance twice that at batch 8), no synchronizing CUDA operation
    in the sampler (PyTorch's sync debug mode), finite images, ms a step
    and images/s;
@@ -75,8 +78,9 @@ Phases, each ending with one line that carries its elapsed seconds:
 12. conditional train path: ``runner.train`` at the configuration of
     ``configs/cifar10_cfg.yaml`` on the shapes dataset with 10 labels
     (batch 256, bf16, no tracked metrics or representation extraction) for
-    200 steps; exactly 78/13/13/13 launches a step (each attention kernel
-    5 on mma, 8 on simt); a finite, falling loss; the checkpoint restored
+    200 steps; exactly 78/13/13/13 launches a step (the forward and dk/dv
+    5 on mma and 8 on wide, dq 5 on mma and 8 on simt); a finite, falling
+    loss; the checkpoint restored
     for one more step and, through the eval loader, for 100 guided steps
     of its T=3000 chain; ms per step, images/s, peak memory and the
     device's busy share.
@@ -89,8 +93,10 @@ when there is no CUDA device or no ``itsd_tpu_torch`` beside it.
 Launch counts: every count is set to 0 just before a path is driven and
 read just after. The bf16 eval and train paths of the unconditional UNet
 (phases 3 and 7) run the mma kernels and GroupNorm; those of the CFG UNet
-(phases 9 and 12) run both routes' kernels. The kernels' JSON line
-carries each kernel's launches summed over these paths, and per path.
+(phases 9 and 12) the mma and wide kernels, and the simt dq. The kernels'
+JSON line carries each kernel's launches summed over these paths, and per
+path; the simt forward and dk/dv, which no bf16 path runs, carry their
+launches on the f32 kernel paths of phases 4, 6, 10 and 11.
 """
 
 from __future__ import annotations
@@ -128,10 +134,11 @@ TRAIN_SAVE_FREQ = 5
 TRAIN_GRID_BATCH = 8        # the epoch grid: T=1000 steps at batch 8
 TRAIN_PARITY_STEPS = 3
 # The guided path (configs/cifar10_cfg.yaml). One forward of its UNet makes
-# 78 GroupNorm calls and 13 attention calls, of which 5 take the mma route
-# in bf16 (C=128 at 32x32, C=256 at 1x1) and 8 the simt route (C=512 at
-# 16x16 and 2x2, C=1024 at 8x8 and 4x4).
-CFG_PER_FORWARD = (78, 13, 5)
+# 78 GroupNorm calls and 13 attention calls, all on the tensor cores in
+# bf16: 5 on the mma route (C=128 at 32x32, C=256 at 1x1) and 8 on the wide
+# route (C=512 at 16x16 and 2x2, C=1024 at 8x8 and 4x4). A train step's dq
+# takes mma at the first 5 and simt at the other 8.
+CFG_PER_FORWARD = (78, 13, 5, 8)
 CFG_BATCH = 8               # train.eval_batch_size of the guided evals
 CFG_SHORT_T = 100           # the interval-CFG and autoguidance chains
 CFG_INTERVAL = (30, 70)     # 40 of their 100 steps guided
@@ -493,18 +500,22 @@ def check_groupnorm(gn_calls, dev, timer, n):
 def check_flash_forward(attn_calls, dev, timer, n, with_lse):
     """The flash forward kernels (with and without lse) against their plain
     version at every [B, N, C] of ``attn_calls``: the route's kernel in
-    bf16 and f32, and, where bf16 routes to mma, the simt kernel on the
-    bf16 inputs too. Times at bf16 of the kernels that take the shape, on
-    the same inputs (the variant with lse when ``with_lse``, as on a train
-    path). Returns {kernel: (max error, rows)}."""
+    bf16 (mma or wide) and in f32 (simt), and the simt kernel on the bf16
+    inputs too. Times at bf16 of the route's kernel and of the simt kernel
+    on the same inputs (the variant with lse when ``with_lse``, as on a
+    train path). Rows: the route's kernel at each shape, and the simt
+    kernel's forced calls where bf16 takes wide (the calls bf16 sent to
+    simt before the wide kernels). Returns {kernel: (max error, rows)}."""
     from itsd_tpu_torch.kernels import attention
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    worst = {"flash_attention_mma": 0.0, "flash_attention_simt": 0.0}
-    rows = {"flash_attention_mma": [], "flash_attention_simt": []}
-    log("flash_attention: [B,N,C] x calls/step route | max_abs_err o: mma "
-        "bf16, simt bf16 f32; lse | ms (bf16): mma simt plain sdpa bound | "
-        "host us/call mma simt")
+    names = ("flash_attention_mma", "flash_attention_wide",
+             "flash_attention_simt")
+    worst = dict.fromkeys(names, 0.0)
+    rows = {k: [] for k in names}
+    log("flash_attention: [B,N,C] x calls/step route | max_abs_err o: route "
+        "bf16, simt bf16 f32; lse | ms (bf16): route simt plain sdpa bound | "
+        "host us/call route simt")
 
     def forward(fn_lse, fn, q, k, v, scale, what):
         o, lse = fn_lse(q, k, v, scale)
@@ -514,17 +525,19 @@ def check_flash_forward(attn_calls, dev, timer, n, with_lse):
             fail(f"{what}: the lse variant and the plain forward disagree")
         return o, lse
 
+    nan = float("nan")
     for (B, N, C), calls in collections.Counter(attn_calls).items():
         scale = C ** -0.5
-        bf16_route = attention.route(torch.bfloat16, C)
-        errs, lse_err = {("mma", torch.bfloat16): float("nan")}, 0.0
-        cases = ([(torch.bfloat16, "mma")] if bf16_route == "mma" else [])
+        bf16_route = attention.route(torch.bfloat16, C, "forward")
+        errs, lse_err = {(bf16_route, torch.bfloat16): nan}, 0.0
+        cases = ([(torch.bfloat16, bf16_route)] if bf16_route != "simt"
+                 else [])
         for dtype, which in cases + [(torch.bfloat16, "simt"),
                                      (torch.float32, "simt")]:
             what = f"flash_attention {which} {(B, N, C)} {dtype}"
             q, k, v = (_rand((B, N, C), gen, dev, dtype) for _ in range(3))
             n0 = read_launches()
-            if which == attention.route(dtype, C):
+            if which == attention.route(dtype, C, "forward"):
                 o, lse = forward(
                     attention.attention_with_lse,
                     lambda q, k, v, s: attention.spatial_attention(q, k, v),
@@ -553,9 +566,9 @@ def check_flash_forward(attn_calls, dev, timer, n, with_lse):
             worst[name] = max(worst[name], errs[which, dtype], lse_e)
         q, k, v = (_rand((B, N, C), gen, dev, torch.bfloat16)
                    for _ in range(3))
-        m_ms = m_host = float("nan")
-        if bf16_route == "mma":
-            m_ms, m_host = timer(
+        r_ms = r_host = nan
+        if bf16_route != "simt":
+            r_ms, r_host = timer(
                 (lambda: attention.attention_with_lse(q, k, v, scale))
                 if with_lse else (lambda: attention.spatial_attention(q, k,
                                                                       v)),
@@ -572,17 +585,24 @@ def check_flash_forward(attn_calls, dev, timer, n, with_lse):
         by_bytes, by_ops = attn_bound_ms(B, N, C, 2)
         log(f"  {[B, N, C]} x{calls} {bf16_route}"
             f"{' (with lse)' if with_lse else ''} | "
-            f"{errs['mma', torch.bfloat16]:.3g}, "
+            f"{errs[bf16_route, torch.bfloat16]:.3g}, "
             f"{errs['simt', torch.bfloat16]:.3g} "
             f"{errs['simt', torch.float32]:.3g}; {lse_err:.3g} | "
-            f"{m_ms:.5f} {s_ms:.5f} {p_ms:.5f} {l_ms:.5f} "
-            f"{max(by_bytes, by_ops):.5f} | {m_host:.1f} {s_host:.1f}")
+            f"{r_ms:.5f} {s_ms:.5f} {p_ms:.5f} {l_ms:.5f} "
+            f"{max(by_bytes, by_ops):.5f} | {r_host:.1f} {s_host:.1f}")
         rows[f"flash_attention_{bf16_route}"].append(
-            (calls, m_ms if bf16_route == "mma" else s_ms, p_ms, l_ms,
+            (calls, r_ms if bf16_route != "simt" else s_ms, p_ms, l_ms,
              by_bytes, by_ops))
+        if bf16_route == "wide":
+            rows["flash_attention_simt"].append(
+                (calls, s_ms, p_ms, l_ms, by_bytes, by_ops))
     return {k: (worst[k], rows[k]) for k in rows}
 
 
+# The 256x256 flagship's attention at its 64x64 stage (configs/
+# imagenet256_uncond.yaml, batch 1): one call, no GroupNorm, in the layout
+# of path_shapes.
+FLAGSHIP_ATTENTION = ([], [(1, 4096, 384)])
 # The 256x256 flagship's largest GroupNorm spans (configs/
 # imagenet256_uncond.yaml: ch 128, ch_mult 1,2,3,4), at batch 1: 12, 8 and 4
 # channels of 65,536 pixels a group, each span split over a cluster.
@@ -685,7 +705,9 @@ def check_forward_kernels(paths, dev, timer):
     out = collections.defaultdict(dict)
     for tag, ((gn_calls, attn_calls), n, with_lse) in paths.items():
         log(f"-- shapes of one {tag} step")
-        out["groupnorm_swish"][tag] = check_groupnorm(gn_calls, dev, timer, n)
+        if gn_calls:
+            out["groupnorm_swish"][tag] = check_groupnorm(gn_calls, dev,
+                                                          timer, n)
         for name, res in check_flash_forward(attn_calls, dev, timer, n,
                                              with_lse).items():
             out[name][tag] = res
@@ -700,23 +722,23 @@ def check_backward_kernels(paths, dev, timer):
     the attention shapes of each train path of ``paths`` (tag ->
     ((gn_calls, attn_calls), more shapes)), in bf16 and f32 (with a random
     dO, and a nonzero dlse at a path's first shape), and, where bf16 routes
-    to mma, the simt dq and dk/dv kernels on the bf16 inputs too; times at
-    bf16 of the kernels that take each shape, on the same inputs, beside
-    the plain versions, the backward of SDPA and the bound. Then the
-    GroupNorm backward at each path's shapes. Returns {kernel: {tag: (max
-    error, rows)}}."""
-    from itsd_tpu_torch.kernels import attention, groupnorm
-    from itsd_tpu_torch.models.unet import _groups
+    either to a tensor-core kernel, the simt dq and dk/dv kernels on the
+    bf16 inputs too; times at bf16 of the route's kernels and the simt
+    ones, on the same inputs, beside the plain versions, the backward of
+    SDPA and the bound (rows: the route's kernels, and the simt dk/dv's
+    forced calls where bf16 takes wide). Then the GroupNorm backward at
+    each path's shapes. Returns {kernel: {tag: (max error, rows)}}."""
+    from itsd_tpu_torch.kernels import attention
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(5)
     kernels = ("flash_bwd_dq_mma", "flash_bwd_dq_simt", "flash_bwd_dkv_mma",
-               "flash_bwd_dkv_simt")
+               "flash_bwd_dkv_wide", "flash_bwd_dkv_simt")
     out = {k: {} for k in kernels}
-    log("flash backward: [B,N,C] x calls/step route | max_abs_err dq dk dv "
-        "bf16 (route), dq dk dv bf16 simt, dq dk dv f32 (simt) | ms (bf16): "
-        "dq mma simt plain bound, dkv mma simt plain bound | sdpa bwd ms | "
-        "host us/call dq mma simt, dkv mma simt")
+    log("flash backward: [B,N,C] x calls/step routes | max_abs_err dq dk dv "
+        "bf16 (routes), dq dk dv bf16 simt, dq dk dv f32 (simt) | ms (bf16): "
+        "dq route simt plain bound, dkv route simt plain bound | sdpa bwd ms "
+        "| host us/call dq route simt, dkv route simt")
     log(f"  tolerance: f32 {BWD_F32_TOL}; bf16 2^-7*max|plain| + "
         f"2^-7*|plain| + the f32 summation-order bound of dq and dk")
 
@@ -731,6 +753,13 @@ def check_backward_kernels(paths, dev, timer):
             e.append(check_close(f"{what} {name}", g, w, atol, rtol, bound))
         return e
 
+    def note(e, routes):
+        worst[f"flash_bwd_dq_{routes[0]}"] = max(
+            worst[f"flash_bwd_dq_{routes[0]}"], e[0])
+        worst[f"flash_bwd_dkv_{routes[1]}"] = max(
+            worst[f"flash_bwd_dkv_{routes[1]}"], *e[1:])
+
+    nan = (float("nan"), float("nan"))
     for tag, ((gn_calls, attn_calls), more) in paths.items():
         log(f"-- shapes of one {tag} step")
         worst = dict.fromkeys(kernels, 0.0)
@@ -738,7 +767,8 @@ def check_backward_kernels(paths, dev, timer):
         counts = collections.Counter(attn_calls)
         for i, (B, N, C) in enumerate(list(counts) + list(more)):
             scale = C ** -0.5
-            bf16_route = attention.route(torch.bfloat16, C)
+            bf16_routes = (attention.route(torch.bfloat16, C, "dq"),
+                           attention.route(torch.bfloat16, C, "dkv"))
             errs = {}
             for dtype in (torch.bfloat16, torch.float32):
                 what = f"flash backward {(B, N, C)} {dtype}"
@@ -754,8 +784,10 @@ def check_backward_kernels(paths, dev, timer):
                 want = attention.attention_bwd_plain(q, k, v, o, lse, do,
                                                      scale, dlse)
                 torch.cuda.synchronize()
-                which = attention.route(dtype, C)
-                for fn in ("flash_bwd_dq", "flash_bwd_dkv"):
+                routes = (attention.route(dtype, C, "dq"),
+                          attention.route(dtype, C, "dkv"))
+                for fn, which in zip(("flash_bwd_dq", "flash_bwd_dkv"),
+                                     routes):
                     if (n1[f"{fn}_{which}"] - n0[f"{fn}_{which}"] != 1
                             or n1[fn] - n0[fn] != 1):
                         fail(f"{what}: {fn} not on the {which} route")
@@ -763,11 +795,8 @@ def check_backward_kernels(paths, dev, timer):
                 e = check_grads(f"{what} dlse={dlse is not None}", got, want,
                                 dtype, bounds)
                 errs[dtype] = e
-                worst[f"flash_bwd_dq_{which}"] = max(
-                    worst[f"flash_bwd_dq_{which}"], e[0])
-                worst[f"flash_bwd_dkv_{which}"] = max(
-                    worst[f"flash_bwd_dkv_{which}"], *e[1:])
-                if dtype == torch.bfloat16 and which == "mma":
+                note(e, routes)
+                if routes != ("simt", "simt"):
                     # the simt kernels, same inputs
                     dd = attention.row_dd(o, do, dlse).contiguous()
                     got = (attention._flash_bwd_dq_simt(q, k, v, do, lse, dd,
@@ -777,11 +806,8 @@ def check_backward_kernels(paths, dev, timer):
                     torch.cuda.synchronize()
                     errs["simt"] = check_grads(f"{what} simt", got, want,
                                                dtype, bounds)
-                    worst["flash_bwd_dq_simt"] = max(
-                        worst["flash_bwd_dq_simt"], errs["simt"][0])
-                    worst["flash_bwd_dkv_simt"] = max(
-                        worst["flash_bwd_dkv_simt"], *errs["simt"][1:])
-            if bf16_route == "simt":
+                    note(errs["simt"], ("simt", "simt"))
+            if bf16_routes == ("simt", "simt"):
                 errs["simt"] = errs[torch.bfloat16]
             q, k, v, do = (_rand((B, N, C), gen, dev, torch.bfloat16)
                            for _ in range(4))
@@ -789,15 +815,14 @@ def check_backward_kernels(paths, dev, timer):
             dd = attention.row_dd(o, do).contiguous()
             args = (q, k, v, do, lse, dd, scale)
             n = 10
-            nan = (float("nan"), float("nan"))
             dq_ms, dq_host = (timer(lambda: attention.flash_bwd_dq(*args),
                                     n=n)
-                              if bf16_route == "mma" else nan)
+                              if bf16_routes[0] != "simt" else nan)
             dq_simt_ms, dq_simt_host = timer(
                 lambda: attention._flash_bwd_dq_simt(*args), n=n)
             dkv_ms, dkv_host = (timer(lambda: attention.flash_bwd_dkv(*args),
                                       n=n)
-                                if bf16_route == "mma" else nan)
+                                if bf16_routes[1] != "simt" else nan)
             simt_ms, simt_host = timer(
                 lambda: attention._flash_bwd_dkv_simt(*args), n=n)
             dq_plain, _ = timer(lambda: attention.flash_bwd_dq_plain(*args),
@@ -813,7 +838,8 @@ def check_backward_kernels(paths, dev, timer):
             b_dq = attn_bound_ms(B, N, C, 2, tensors=5, products=3)
             b_dkv = attn_bound_ms(B, N, C, 2, tensors=6, products=4)
             calls = counts.get((B, N, C), 0)
-            log(f"  {[B, N, C]} x{calls} {bf16_route} | "
+            log(f"  {[B, N, C]} x{calls} dq {bf16_routes[0]} dkv "
+                f"{bf16_routes[1]} | "
                 f"{' '.join(f'{x:.3g}' for x in errs[torch.bfloat16])}, "
                 f"{' '.join(f'{x:.3g}' for x in errs['simt'])}, "
                 f"{' '.join(f'{x:.3g}' for x in errs[torch.float32])} | "
@@ -824,16 +850,20 @@ def check_backward_kernels(paths, dev, timer):
                 f"{simt_host:.1f}")
             if not calls:
                 continue
-            mma = bf16_route == "mma"
-            rows[f"flash_bwd_dq_{bf16_route}"].append(
-                (calls, dq_ms if mma else dq_simt_ms, dq_plain, sdpa_ms,
-                 *b_dq))
-            rows[f"flash_bwd_dkv_{bf16_route}"].append(
-                (calls, dkv_ms if mma else simt_ms, dkv_plain, sdpa_ms,
-                 *b_dkv))
+            dq_route, dkv_route = bf16_routes
+            rows[f"flash_bwd_dq_{dq_route}"].append(
+                (calls, dq_ms if dq_route != "simt" else dq_simt_ms,
+                 dq_plain, sdpa_ms, *b_dq))
+            rows[f"flash_bwd_dkv_{dkv_route}"].append(
+                (calls, dkv_ms if dkv_route != "simt" else simt_ms,
+                 dkv_plain, sdpa_ms, *b_dkv))
+            if dkv_route == "wide":
+                rows["flash_bwd_dkv_simt"].append(
+                    (calls, simt_ms, dkv_plain, sdpa_ms, *b_dkv))
         for k in kernels:
             out[k][tag] = (worst[k], rows[k])
-        check_groupnorm_backward(tag, gn_calls, gen, dev, timer)
+        if gn_calls:
+            check_groupnorm_backward(tag, gn_calls, gen, dev, timer)
     phase_done(5, "backward kernels against their plain versions", t0,
                "(all within tolerance)")
     return out
@@ -910,38 +940,47 @@ def reset_launches():
 
     groupnorm.launches = 0
     attention.launches = attention.mma_launches = 0
+    attention.wide_launches = 0
     attention.dq_launches = attention.dq_mma_launches = 0
     attention.dkv_launches = attention.dkv_mma_launches = 0
+    attention.dkv_wide_launches = 0
 
 
 def read_launches() -> dict:
-    """Launches so far: the totals of each function (both routes) and, for
+    """Launches so far: the totals of each function (every route) and, for
     the flash forward, dq and dk/dv, of each route's kernel."""
     from itsd_tpu_torch.kernels import attention, groupnorm
 
-    return {"groupnorm_swish": groupnorm.launches,
-            "flash_attention": attention.launches,
-            "flash_attention_mma": attention.mma_launches,
-            "flash_attention_simt": attention.launches
-            - attention.mma_launches,
-            "flash_bwd_dq": attention.dq_launches,
-            "flash_bwd_dq_mma": attention.dq_mma_launches,
-            "flash_bwd_dq_simt": attention.dq_launches
-            - attention.dq_mma_launches,
-            "flash_bwd_dkv": attention.dkv_launches,
-            "flash_bwd_dkv_mma": attention.dkv_mma_launches,
-            "flash_bwd_dkv_simt": attention.dkv_launches
-            - attention.dkv_mma_launches}
+    a = attention
+    return route_counts(
+        gn=groupnorm.launches, fwd=a.launches, fwd_mma=a.mma_launches,
+        fwd_wide=a.wide_launches, dq=a.dq_launches,
+        dq_mma=a.dq_mma_launches, dkv=a.dkv_launches,
+        dkv_mma=a.dkv_mma_launches, dkv_wide=a.dkv_wide_launches)
 
 
-def route_counts(gn=0, fwd=0, fwd_mma=0, dq=0, dq_mma=0, dkv=0, dkv_mma=0):
-    """Launch counts in the layout of ``read_launches``."""
+def route_counts(gn=0, fwd=0, fwd_mma=0, fwd_wide=0, dq=0, dq_mma=0,
+                 dkv=0, dkv_mma=0, dkv_wide=0):
+    """Launch counts in the layout of ``read_launches``: each function's
+    total and each route's kernel (simt: what the others leave)."""
     return {"groupnorm_swish": gn, "flash_attention": fwd,
             "flash_attention_mma": fwd_mma,
-            "flash_attention_simt": fwd - fwd_mma, "flash_bwd_dq": dq,
-            "flash_bwd_dq_mma": dq_mma, "flash_bwd_dq_simt": dq - dq_mma,
-            "flash_bwd_dkv": dkv, "flash_bwd_dkv_mma": dkv_mma,
-            "flash_bwd_dkv_simt": dkv - dkv_mma}
+            "flash_attention_wide": fwd_wide,
+            "flash_attention_simt": fwd - fwd_mma - fwd_wide,
+            "flash_bwd_dq": dq, "flash_bwd_dq_mma": dq_mma,
+            "flash_bwd_dq_simt": dq - dq_mma, "flash_bwd_dkv": dkv,
+            "flash_bwd_dkv_mma": dkv_mma, "flash_bwd_dkv_wide": dkv_wide,
+            "flash_bwd_dkv_simt": dkv - dkv_mma - dkv_wide}
+
+
+def step_counts(gn, attn, mma=0, wide=0):
+    """Launches of one train step whose forward makes ``gn`` GroupNorm and
+    ``attn`` attention calls: as many dq and dk/dv as forwards, ``mma`` of
+    each on the mma route, ``wide`` of the forwards and dk/dv on the wide
+    route (their dq on simt)."""
+    return route_counts(gn=gn, fwd=attn, fwd_mma=mma, fwd_wide=wide,
+                        dq=attn, dq_mma=mma, dkv=attn, dkv_mma=mma,
+                        dkv_wide=wide)
 
 
 def scaled(counts: dict, k: float) -> dict:
@@ -1104,7 +1143,7 @@ def train_parity(tmpdir):
         n1 = read_launches()
         per = {k: n / TRAIN_PARITY_STEPS for k, n in n1.items()}
         mma = 6 if dtype == torch.bfloat16 else 0
-        if per != route_counts(51, 6, mma, 6, mma, 6, mma):
+        if per != step_counts(51, 6, mma):
             fail(f"train parity {name}: the kernel path launched {per} a "
                  "step")
         if dtype == torch.float32:
@@ -1165,10 +1204,12 @@ def _category(name: str) -> str:
     n = name.lower()
     for cat, keys in (
             ("flash_fwd mma (ours)", ("flash_fwd_mma_kernel",)),
+            ("flash_fwd wide (ours)", ("flash_fwd_wide_kernel",)),
             ("flash_fwd simt (ours)", ("flash_fwd_kernel",)),
             ("flash_bwd_dq mma (ours)", ("flash_bwd_dq_mma_kernel",)),
             ("flash_bwd_dq simt (ours)", ("flash_bwd_dq_kernel",)),
             ("flash_bwd_dkv mma (ours)", ("flash_bwd_dkv_mma_kernel",)),
+            ("flash_bwd_dkv wide (ours)", ("flash_bwd_dkv_wide_kernel",)),
             ("flash_bwd_dkv simt (ours)", ("flash_bwd_dkv_kernel",)),
             ("groupnorm (ours)", ("groupnorm_swish_kernel",)),
             ("optimizer (foreach)", ("multi_tensor", "foreach")),
@@ -1214,7 +1255,7 @@ def train_path(tmpdir, card_line):
         f"(dataset, checkpoints and {grids} sample grid(s) of T={T_STEPS} at "
         f"batch {TRAIN_GRID_BATCH} included); launches {launches}; per train "
         f"step {per_step}")
-    if per_step != route_counts(51, 6, 6, 6, 6, 6, 6):
+    if per_step != step_counts(51, 6, 6):
         fail(f"launches per train step {per_step}, want 6/6/6/51, the flash "
              "forwards, dq and dk/dv on the mma route")
     first, last = losses[:16].mean(), losses[-16:].mean()
@@ -1424,8 +1465,8 @@ def guided_eval_path(cparams, tmpdir, card_line):
     from itsd_tpu_torch.cli import runner
 
     t0 = time.perf_counter()
-    gn, fwd, mma = CFG_PER_FORWARD
-    one = route_counts(gn=gn, fwd=fwd, fwd_mma=mma)
+    gn, fwd, mma, wide = CFG_PER_FORWARD
+    one = route_counts(gn=gn, fwd=fwd, fwd_mma=mma, fwd_wide=wide)
     launches, results = {}, {}
     B = CFG_BATCH
 
@@ -1484,7 +1525,7 @@ def guided_parity(cparams, tmpdir):
              for _ in range(PARITY_STEPS)]
     labels = torch.arange(B, device=dev) % 10 + 1
     f32_launches, errs = {}, {}
-    gn, fwd, mma = CFG_PER_FORWARD
+    gn, fwd, mma, wide = CFG_PER_FORWARD
 
     def check(what, name, got, want, tol):
         err = (got - want).abs().max().item()
@@ -1521,9 +1562,9 @@ def guided_parity(cparams, tmpdir):
         got = run()
         n1 = read_launches()
         forwards = 2 + PARITY_STEPS
+        tc = forwards if dtype == torch.bfloat16 else 0  # tensor cores
         want_n = route_counts(gn=gn * forwards, fwd=fwd * forwards,
-                              fwd_mma=(mma * forwards
-                                       if dtype == torch.bfloat16 else 0))
+                              fwd_mma=mma * tc, fwd_wide=wide * tc)
         if n1 != want_n:
             fail(f"guided parity {name}: the kernel path launched {n1}, "
                  f"want {want_n}")
@@ -1602,10 +1643,10 @@ def cond_train_parity(cparams, tmpdir):
         got, got_params = run()
         n1 = read_launches()
         per = {k: n / TRAIN_PARITY_STEPS for k, n in n1.items()}
-        gn, fwd, mma = CFG_PER_FORWARD
+        gn, fwd, mma, wide = CFG_PER_FORWARD
         if dtype == torch.float32:
-            mma = 0
-        if per != route_counts(gn, fwd, mma, fwd, mma, fwd, mma):
+            mma = wide = 0
+        if per != step_counts(gn, fwd, mma, wide):
             fail(f"cond train parity {name}: the kernel path launched {per} "
                  "a step")
         if dtype == torch.float32:
@@ -1645,8 +1686,9 @@ def cond_train_path(tmpdir, card_line):
     configs/cifar10_cfg.yaml on the shapes dataset (batch 256, bf16) for
     COND_TRAIN_EPOCHS epochs (8 steps each), no sample grid, one checkpoint at
     the end; exactly 78/13/13/13 launches a step of GroupNorm / flash
-    forward / dq / dk-dv, 5 of each attention kernel's 13 on the mma route
-    and 8 on simt; a finite, falling loss; the checkpoint restored for one
+    forward / dq / dk-dv, 5 of each attention kernel's 13 on the mma route,
+    the other 8 on wide (forward, dk/dv) and simt (dq); a finite, falling
+    loss; the checkpoint restored for one
     more step and, through the eval loader, for RESTORED_EVAL_STEPS guided
     steps; ms per step, images/s, peak memory and the device's busy
     share."""
@@ -1674,13 +1716,14 @@ def cond_train_path(tmpdir, card_line):
     steps = out["steps"]
     losses = np.asarray(out["losses"])
     per_step = {k: n / steps for k, n in launches.items()}
-    gn, fwd, mma = CFG_PER_FORWARD
+    gn, fwd, mma, wide = CFG_PER_FORWARD
     log(f"cond train: {steps} steps of batch {B} in {seconds:.2f} s "
         f"(dataset, model set-up and checkpoint included); launches "
         f"{launches}; per step {per_step}")
-    if per_step != route_counts(gn, fwd, mma, fwd, mma, fwd, mma):
+    if per_step != step_counts(gn, fwd, mma, wide):
         fail(f"launches per cond train step {per_step}, want 78/13/13/13, 5 "
-             "of each attention kernel's on mma and 8 on simt")
+             "of each attention kernel's on mma, the forward's and dk/dv's "
+             "other 8 on wide and dq's on simt")
     first, last = losses[:per_epoch].mean(), losses[-per_epoch:].mean()
     log(f"loss (sum/B^2): first {losses[0]:.5f}, mean of the first epoch "
         f"({per_epoch} steps) {first:.5f}, of the last {last:.5f}, final "
@@ -1801,47 +1844,62 @@ WORK = {"train": "one train step of configs/cifar10_uncond.yaml (batch 128, "
                  "bf16)",
         "cond_train": "one train step of configs/cifar10_cfg.yaml (batch "
                       "256, bf16)"}
+# name -> (source, the TPU kernel it replaces, the step its times sum over)
+KERNELS = {
+    "groupnorm_swish": ("itsd_tpu_torch/csrc/groupnorm.cu",
+                        "itsd_tpu/kernels/groupnorm.py:47", "train"),
+    "flash_attention_mma": ("itsd_tpu_torch/csrc/flash_attention_mma.cu",
+                            "itsd_tpu/kernels/attention.py:50", "train"),
+    "flash_attention_wide": ("itsd_tpu_torch/csrc/flash_attention_wide.cu",
+                             "itsd_tpu/kernels/attention.py:50",
+                             "cond_train"),
+    "flash_attention_simt": ("itsd_tpu_torch/csrc/flash_attention.cu",
+                             "itsd_tpu/kernels/attention.py:50",
+                             "cond_train"),
+    "flash_bwd_dq_mma": ("itsd_tpu_torch/csrc/flash_attention_bwd_dq_mma.cu",
+                         "itsd_tpu/kernels/attention.py:229", "train"),
+    "flash_bwd_dq_simt": ("itsd_tpu_torch/csrc/flash_attention_bwd.cu",
+                          "itsd_tpu/kernels/attention.py:229", "cond_train"),
+    "flash_bwd_dkv_mma": ("itsd_tpu_torch/csrc/flash_attention_bwd_mma.cu",
+                          "itsd_tpu/kernels/attention.py:260", "train"),
+    "flash_bwd_dkv_wide": ("itsd_tpu_torch/csrc/flash_attention_bwd_wide.cu",
+                           "itsd_tpu/kernels/attention.py:260",
+                           "cond_train"),
+    "flash_bwd_dkv_simt": ("itsd_tpu_torch/csrc/flash_attention_bwd.cu",
+                           "itsd_tpu/kernels/attention.py:260",
+                           "cond_train"),
+}
 
 
 def kernel_json(fwd, bwd, path_launches, f32_launches):
     """The kernels' JSON entries, each route's kernel an entry of its own.
     Times are summed over one train step at bf16 (the paths that run every
     function): the unconditional one for GroupNorm and the mma kernels,
-    the conditional one for the simt kernels, which bf16 takes there at
-    C=512 and C=1024; the sums over the other paths' steps stand beside
-    them. ``launches`` sums the kernel's launches over the bf16 runs of
-    runner.evaluate and runner.train (``launches_by_path``); the float32
-    kernel paths of the parity phases 4, 6, 10 and 11 are counted apart."""
-    meta = {
-        "groupnorm_swish": ("itsd_tpu_torch/csrc/groupnorm.cu",
-                            "itsd_tpu/kernels/groupnorm.py:47"),
-        "flash_attention_mma": ("itsd_tpu_torch/csrc/flash_attention_mma.cu",
-                                "itsd_tpu/kernels/attention.py:50"),
-        "flash_attention_simt": ("itsd_tpu_torch/csrc/flash_attention.cu",
-                                 "itsd_tpu/kernels/attention.py:50"),
-        "flash_bwd_dq_mma": (
-            "itsd_tpu_torch/csrc/flash_attention_bwd_dq_mma.cu",
-            "itsd_tpu/kernels/attention.py:229"),
-        "flash_bwd_dq_simt": ("itsd_tpu_torch/csrc/flash_attention_bwd.cu",
-                              "itsd_tpu/kernels/attention.py:229"),
-        "flash_bwd_dkv_mma": ("itsd_tpu_torch/csrc/flash_attention_bwd_mma.cu",
-                              "itsd_tpu/kernels/attention.py:260"),
-        "flash_bwd_dkv_simt": ("itsd_tpu_torch/csrc/flash_attention_bwd.cu",
-                               "itsd_tpu/kernels/attention.py:260"),
-    }
+    the conditional one for the wide and simt kernels at the CFG UNet's
+    C=512 and C=1024 (the simt forward and dk/dv there through forced
+    calls on the same inputs); the sums over the other paths' steps stand
+    beside them. ``launches`` sums the kernel's launches over the bf16
+    runs of runner.evaluate and runner.train (``launches_by_path``); the
+    simt forward and dk/dv, which no bf16 path sends there, count their
+    launches on the f32 kernel paths of the parity phases 4, 6, 10 and 11
+    (``launches_f32_parity``, kept for every kernel)."""
     entries = []
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces, work) in KERNELS.items():
         by_tag = fwd[name] if name in fwd else bwd[name]
         err = max(res[0] for res in by_tag.values())
-        work = "cond_train" if name.endswith("_simt") else "train"
         by_path = {p: path_launches[p][name] for p in MAIN_PATHS}
-        launches = sum(by_path.values())
+        launches, counted_on = sum(by_path.values()), "bf16 runner paths"
+        if not launches and name in ("flash_attention_simt",
+                                     "flash_bwd_dkv_simt"):
+            launches = f32_launches[name]
+            counted_on = "f32 kernel paths of phases 4, 6, 10 and 11"
         if not launches:
             fail(f"{name} was not launched on its paths")
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=launches,
                      max_abs_err=err, **rows_entry(by_tag[work][1]))
         entry["work"] = WORK[work]
+        entry["launches_counted_on"] = counted_on
         entry["launches_by_path"] = by_path
         entry["launches_f32_parity"] = f32_launches[name]
         for tag, (_, rows) in by_tag.items():
@@ -1878,12 +1936,14 @@ def main() -> int:
             ccfg, cparams, dev,
             (2 * CFG_BATCH, CFG_BATCH, ccfg.train.batch_size))
         from itsd_tpu_torch.kernels import attention
+        fwd_routes = collections.Counter(
+            attention.route(torch.bfloat16, C, "forward")
+            for _, _, C in cfg_shapes[1])
         per_forward = (len(cfg_shapes[0]), len(cfg_shapes[1]),
-                       sum(attention.route(torch.bfloat16, C) == "mma"
-                           for _, _, C in cfg_shapes[1]))
+                       fwd_routes["mma"], fwd_routes["wide"])
         if per_forward != CFG_PER_FORWARD:
             fail(f"one forward of the CFG UNet makes {per_forward} GroupNorm "
-                 f"calls, attention calls and mma ones, want "
+                 f"calls, attention calls, mma ones and wide ones, want "
                  f"{CFG_PER_FORWARD}")
         timer = DeviceTimer()
         fwd = check_forward_kernels({
@@ -1891,14 +1951,16 @@ def main() -> int:
             "train": (train_shapes, 10, True),
             "cfg_eval": (cfg_shapes, 50, False),
             "cfg_eval_b8": (cfg_b8_shapes, 50, False),
-            "cond_train": (cond_shapes, 10, True)}, dev, timer)
+            "cond_train": (cond_shapes, 10, True),
+            "flagship": (FLAGSHIP_ATTENTION, 10, True)}, dev, timer)
         paths = {"eval": eval_path(params, tmpdir, smi_line,
                                    len(eval_shapes[0]),
                                    len(eval_shapes[1]), timer)}
         f32 = [eval_parity(params, tmpdir)]
         bwd = check_backward_kernels({
             "train": (train_shapes, [(8, 256, 128)]),
-            "cond_train": (cond_shapes, [])}, dev, timer)
+            "cond_train": (cond_shapes, []),
+            "flagship": (FLAGSHIP_ATTENTION, [])}, dev, timer)
         f32.append(train_parity(tmpdir)[1])
         paths["train"], _ = train_path(tmpdir, smi_line)
         del params

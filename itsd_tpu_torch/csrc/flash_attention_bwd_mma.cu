@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel itsd_tpu/kernels/attention.py:_flash_bwd_dkv_kernel
 // (launched by _attention_flash_bwd) for bf16 inputs with C % 16 == 0 and
-// C <= 256; f32 inputs and other widths take the CUDA-core kernel of
+// C <= 256; wider bf16 rows take csrc/flash_attention_bwd_wide.cu, f32
+// inputs and other widths the CUDA-core kernel of
 // csrc/flash_attention_bwd.cu, so that f32 never runs on the tensor cores.
 // Same arithmetic as the Pallas kernel: s = (q.k^T summed in f32) * scale,
 // p = exp(s - lse) from the forward's per-row log-sum-exp, dp = dO.v^T in

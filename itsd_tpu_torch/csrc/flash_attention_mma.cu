@@ -5,9 +5,10 @@
 // Replaces the TPU kernel itsd_tpu/kernels/attention.py:_flash_fwd_kernel
 // (launched by _flash_forward for _attention_flash and
 // _attention_flash_stats) for bf16 inputs with C % 16 == 0 and C <= 256;
-// f32 inputs and other widths take csrc/flash_attention.cu (the CUDA-core
-// kernel), so that f32 never runs on the tensor cores. Same arithmetic as
-// the Pallas kernel: s = (q.k^T summed in f32) * scale, an online softmax
+// wider bf16 rows take csrc/flash_attention_wide.cu, f32 inputs and other
+// widths csrc/flash_attention.cu (the CUDA-core kernel), so that f32 never
+// runs on the tensor cores. Same arithmetic as the Pallas kernel:
+// s = (q.k^T summed in f32) * scale, an online softmax
 // with f32 running max m, denominator l and accumulator, p = exp(s - m)
 // rounded to bf16 for the p.v product only (l sums the unrounded p),
 // o = acc / l and lse = m + log(l).

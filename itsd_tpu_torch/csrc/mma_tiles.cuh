@@ -1,5 +1,5 @@
 // PTX building blocks of the tensor-core attention kernels
-// (flash_attention_mma.cu, flash_attention_bwd_mma.cu): 16-byte cp.async
+// (flash_attention_*mma.cu, flash_attention*_wide.cu): 16-byte cp.async
 // copies with zero-fill, ldmatrix (plain and transposed) and the bf16
 // mma.sync m16n8k16 with f32 accumulation.
 //
@@ -79,6 +79,13 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Barrier over the `threads` threads (a multiple of 32, whole warps) that
+// use hardware barrier `id` (1-15; __syncthreads takes 0). Like
+// __syncthreads, it orders their shared-memory accesses.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Two f32 values rounded to bf16 (round to nearest even) in one register,

@@ -48,6 +48,8 @@ SIGNATURES = {
     "itsd_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "itsd_flash_attention_mma": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                                  _P),
+    "itsd_flash_attention_wide": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                                  _P),
     # q, k, v, dout, lse, dd, dq, B, N, C, scale, dtype, stream
     "itsd_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                           _P),
@@ -58,6 +60,8 @@ SIGNATURES = {
                            _I, _P),
     "itsd_flash_bwd_dkv_mma": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _F, _I, _P),
+    "itsd_flash_bwd_dkv_wide": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _F, _I, _P),
 }
 
 

@@ -9,16 +9,20 @@ and the backward ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``.
 ``flash_attention`` ties them together as a ``torch.autograd.Function``, as
 ``_flash_attention_diff`` does with ``jax.custom_vjp``.
 
-The forward, the dq backward and the dk/dv backward each have two kernels,
-and ``route`` picks one from the dtype and C alone:
+The forward and the dk/dv backward have three kernels each, the dq backward
+two, and ``route`` picks one from the function, the dtype and C:
 * "mma": bf16 with C % 16 == 0 and C <= 256, on the tensor cores
   (``csrc/flash_attention_mma.cu``, ``csrc/flash_attention_bwd_dq_mma.cu``,
   ``csrc/flash_attention_bwd_mma.cu``);
+* "wide": the forward and dk/dv in bf16 with C % 16 == 0 and
+  256 < C <= 1024, on the tensor cores with the head dimension split
+  across warps (``csrc/flash_attention_wide.cu``,
+  ``csrc/flash_attention_bwd_wide.cu``): the CFG UNet's C=512 and C=1024
+  and the flagship's C=384;
 * "simt": everything else the kernels take (C % 4 == 0 up to 1024), f32
   above all, on the CUDA cores in f32 (``csrc/flash_attention.cu``,
   ``csrc/flash_attention_bwd.cu``), so that f32 never runs at the tensor
-  cores' reduced precision; bf16 at C=512 and C=1024 (the CFG UNet's 16x16
-  and 8x8 stages) takes it too.
+  cores' reduced precision; bf16 dq above C=256 takes it too.
 
 Every entry point dispatches on where its inputs lie: CPU tensors go to the
 plain versions, CUDA tensors to the kernels, and anything the kernels do not
@@ -32,27 +36,41 @@ import torch
 
 from . import _build
 
-# Kernel launches so far: the forward (both entry points, both routes), the
-# dq kernel and the dk/dv kernel (both routes), and of those the ones on the
-# "mma" route. A run resets them to check what went through the kernels.
+# Kernel launches so far: the forward (both entry points, every route), the
+# dq kernel and the dk/dv kernel (every route), and of those the ones on
+# the "mma" and "wide" routes. A run resets them to check what went
+# through the kernels.
 launches = 0
 mma_launches = 0
+wide_launches = 0
 dq_launches = 0
 dq_mma_launches = 0
 dkv_launches = 0
 dkv_mma_launches = 0
+dkv_wide_launches = 0
 
 MAX_C = 1024  # kMaxC of csrc/flash_attention.cu and flash_attention_bwd.cu
 MMA_MAX_C = 256  # kMaxC of the csrc/flash_attention*_mma.cu kernels
+WIDE_MAX_C = 1024  # kMaxC of the csrc/flash_attention*_wide.cu kernels
+KERNELS = ("forward", "dq", "dkv")
 
 
-def route(dtype: torch.dtype, C: int) -> str:
-    """The kernels a CUDA call takes, for the forward, dq and dk/dv alike:
-    "mma" (tensor cores) for bf16 with C % 16 == 0 and C <= 256, "simt"
-    (CUDA cores, f32 arithmetic) for the rest. Wider bf16 rows would need
-    more accumulator registers than a thread has."""
-    if dtype == torch.bfloat16 and C % 16 == 0 and C <= MMA_MAX_C:
+def route(dtype: torch.dtype, C: int, kernel: str) -> str:
+    """The kernel a CUDA call of ``kernel`` ("forward", "dq" or "dkv")
+    takes: "mma" (tensor cores) for bf16 with C % 16 == 0 and C <= 256;
+    "wide" (tensor cores, the head dimension split across warps) for the
+    forward and dk/dv in bf16 with C % 16 == 0 and 256 < C <= 1024; "simt"
+    (CUDA cores, f32 arithmetic) for the rest, bf16 dq above C=256
+    included."""
+    if kernel not in KERNELS:
+        raise ValueError(f"route: kernel must be one of {KERNELS}, got "
+                         f"{kernel!r}")
+    if dtype != torch.bfloat16 or C % 16:
+        return "simt"
+    if C <= MMA_MAX_C:
         return "mma"
+    if kernel != "dq" and C <= WIDE_MAX_C:
+        return "wide"
     return "simt"
 
 
@@ -105,37 +123,44 @@ def _check(q, k, v, *more):
                          f"got C={C}")
 
 
-def _launch_forward(q, k, v, scale, emit_lse, mma):
-    global launches, mma_launches
+def _entry(kernels, base, which):
+    """The C entry point of a route's kernel: ``base`` for "simt",
+    ``base_mma`` or ``base_wide`` for the tensor-core ones."""
+    name = base if which == "simt" else f"{base}_{which}"
+    return getattr(kernels.lib, name), name
+
+
+def _launch_forward(q, k, v, scale, emit_lse, which):
+    global launches, mma_launches, wide_launches
     _check(q, k, v)
     B, N, C = q.shape
     o = torch.empty_like(q)
     lse = (torch.empty((B, N), dtype=torch.float32, device=q.device)
            if emit_lse else None)
     kernels = _build.load()
-    entry = (kernels.lib.itsd_flash_attention_mma if mma
-             else kernels.lib.itsd_flash_attention)
+    entry, name = _entry(kernels, "itsd_flash_attention", which)
     with torch.cuda.device(q.device):
         rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                    lse.data_ptr() if emit_lse else None, B, N, C, scale,
                    _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
-    _build.check(kernels, rc, "flash_attention" + ("_mma" if mma else ""))
+    _build.check(kernels, rc, name)
     launches += 1
-    mma_launches += mma
+    mma_launches += which == "mma"
+    wide_launches += which == "wide"
     return (o, lse) if emit_lse else o
 
 
 def _flash(q, k, v, scale, emit_lse):
     """The forward through the kernel ``route`` names."""
-    mma = route(q.dtype, q.shape[-1]) == "mma"
-    return _launch_forward(q, k, v, scale, emit_lse, mma)
+    return _launch_forward(q, k, v, scale, emit_lse,
+                           route(q.dtype, q.shape[-1], "forward"))
 
 
 def _flash_simt(q, k, v, scale, emit_lse):
     """The forward through the CUDA-core kernel whatever the route, so that
-    both kernels can be held and timed on the same bf16 inputs. No path of
-    the program calls it."""
-    return _launch_forward(q, k, v, scale, emit_lse, False)
+    it can be held and timed on the same bf16 inputs as the tensor-core
+    kernels. No path of the program calls it."""
+    return _launch_forward(q, k, v, scale, emit_lse, "simt")
 
 
 def row_dd(o, do, dlse=None):
@@ -213,7 +238,7 @@ def _check_rows(t, q, what):
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def _launch_dq(q, k, v, do, lse, dd, scale, mma):
+def _launch_dq(q, k, v, do, lse, dd, scale, which):
     global dq_launches, dq_mma_launches
     _check(q, k, v, do)
     _check_rows(lse, q, "lse")
@@ -221,63 +246,62 @@ def _launch_dq(q, k, v, do, lse, dd, scale, mma):
     B, N, C = q.shape
     dq = torch.empty_like(q)
     kernels = _build.load()
-    entry = (kernels.lib.itsd_flash_bwd_dq_mma if mma
-             else kernels.lib.itsd_flash_bwd_dq)
+    entry, name = _entry(kernels, "itsd_flash_bwd_dq", which)
     with torch.cuda.device(q.device):
         rc = entry(*(t.data_ptr() for t in (q, k, v, do, lse, dd, dq)), B, N,
                    C, scale, _build.DTYPE_CODES[q.dtype],
                    _build.stream_ptr(q))
-    _build.check(kernels, rc, "flash_bwd_dq" + ("_mma" if mma else ""))
+    _build.check(kernels, rc, name)
     dq_launches += 1
-    dq_mma_launches += mma
+    dq_mma_launches += which == "mma"
     return dq
 
 
 def flash_bwd_dq(q, k, v, do, lse, dd, scale):
     """dq through the dq kernel ``route`` names (CUDA tensors only)."""
-    mma = route(q.dtype, q.shape[-1]) == "mma"
-    return _launch_dq(q, k, v, do, lse, dd, scale, mma)
+    return _launch_dq(q, k, v, do, lse, dd, scale,
+                      route(q.dtype, q.shape[-1], "dq"))
 
 
 def _flash_bwd_dq_simt(q, k, v, do, lse, dd, scale):
     """dq through the CUDA-core kernel whatever the route, so that both
     kernels can be held and timed on the same bf16 inputs. No path of the
     program calls it."""
-    return _launch_dq(q, k, v, do, lse, dd, scale, False)
+    return _launch_dq(q, k, v, do, lse, dd, scale, "simt")
 
 
-def _launch_dkv(q, k, v, do, lse, dd, scale, mma):
-    global dkv_launches, dkv_mma_launches
+def _launch_dkv(q, k, v, do, lse, dd, scale, which):
+    global dkv_launches, dkv_mma_launches, dkv_wide_launches
     _check(q, k, v, do)
     _check_rows(lse, q, "lse")
     _check_rows(dd, q, "dd")
     B, N, C = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     kernels = _build.load()
-    entry = (kernels.lib.itsd_flash_bwd_dkv_mma if mma
-             else kernels.lib.itsd_flash_bwd_dkv)
+    entry, name = _entry(kernels, "itsd_flash_bwd_dkv", which)
     with torch.cuda.device(q.device):
         rc = entry(*(t.data_ptr() for t in (q, k, v, do, lse, dd, dk, dv)),
                    B, N, C, scale, _build.DTYPE_CODES[q.dtype],
                    _build.stream_ptr(q))
-    _build.check(kernels, rc, "flash_bwd_dkv" + ("_mma" if mma else ""))
+    _build.check(kernels, rc, name)
     dkv_launches += 1
-    dkv_mma_launches += mma
+    dkv_mma_launches += which == "mma"
+    dkv_wide_launches += which == "wide"
     return dk, dv
 
 
 def flash_bwd_dkv(q, k, v, do, lse, dd, scale):
     """(dk, dv) through the dk/dv kernel ``route`` names (CUDA tensors
     only)."""
-    mma = route(q.dtype, q.shape[-1]) == "mma"
-    return _launch_dkv(q, k, v, do, lse, dd, scale, mma)
+    return _launch_dkv(q, k, v, do, lse, dd, scale,
+                       route(q.dtype, q.shape[-1], "dkv"))
 
 
 def _flash_bwd_dkv_simt(q, k, v, do, lse, dd, scale):
     """(dk, dv) through the CUDA-core kernel whatever the route, so that
-    both kernels can be held and timed on the same bf16 inputs. No path of
-    the program calls it."""
-    return _launch_dkv(q, k, v, do, lse, dd, scale, False)
+    it can be held and timed on the same bf16 inputs as the tensor-core
+    kernels. No path of the program calls it."""
+    return _launch_dkv(q, k, v, do, lse, dd, scale, "simt")
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

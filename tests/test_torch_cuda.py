@@ -14,14 +14,15 @@ relative, so the sums differ by at most 2^-8 * max|v|; then each side rounds
 its output to bf16 (one step, 2^-7 relative). The test allows twice the
 first term: atol 2^-7 * max|v|, rtol 2^-7.
 
-The forward, the dq backward and the dk/dv backward have two kernels each,
-the tensor-core ("mma") and the CUDA-core ("simt") one; ``route`` picks one
-from the dtype and C. Both are held here on the same bf16 inputs, the
-"simt" one through the private ``_flash_simt``, ``_flash_bwd_dq_simt`` and
-``_flash_bwd_dkv_simt``. Run one route's tests with ``-k mma`` or
-``-k simt``, the dq tests of one route with ``-k "dq and mma"`` or
-``-k "routes and simt"``, the tests at the CFG UNet's widths and maps with
-``-k cfg``.
+The forward, the dq backward and the dk/dv backward each have a
+tensor-core ("mma", C <= 256) and a CUDA-core ("simt") kernel, and the
+forward and dk/dv a second tensor-core one ("wide", 256 < C <= 1024);
+``route`` picks one from the function, the dtype and C. They are held here
+on the same bf16 inputs, the "simt" ones through the private
+``_flash_simt``, ``_flash_bwd_dq_simt`` and ``_flash_bwd_dkv_simt``. Run one
+route's tests with ``-k mma``, ``-k wide`` or ``-k simt``, the dq tests of
+one route with ``-k "dq and mma"`` or ``-k "routes and simt"``, the tests at
+the CFG UNet's widths and maps with ``-k cfg``.
 
 The backward kernels against ``attention_bwd_plain`` (the same formula and
 roundings): f32 2e-5 absolute on values O(1), sums in another order
@@ -212,11 +213,19 @@ def _dq_order_bound(q, k, v, do, lse, scale):
     there p = 1 and dp = dd, so ds = 0 in exact arithmetic) the outputs are
     this rounding noise, not O(1) values rounded to bf16. Elsewhere the
     bound is a few percent of the bf16 tolerance's atol."""
+    return torch.einsum("bqk,bkc->bqc", _ds_order_bound(q, k, v, do, lse,
+                                                        scale),
+                        k.float().abs())
+
+
+def _ds_order_bound(q, k, v, do, lse, scale):
+    """scale * (the f32 summation-order bound of dp, carried through p into
+    ds): [B, N, N], the factor ``_dq_order_bound`` and ``_dk_order_bound``
+    multiply by |k| and |q|."""
     C = q.shape[-1]
     p = torch.exp(attention._scores(q, k, scale) - lse[..., None])
     terms = torch.einsum("bqc,bkc->bqk", do.float().abs(), v.float().abs())
-    return scale * C * 2.0 ** -23 * torch.einsum(
-        "bqk,bkc->bqc", p * terms, k.float().abs())
+    return scale * C * 2.0 ** -23 * p * terms
 
 
 @pytest.mark.cuda
@@ -228,7 +237,7 @@ def test_flash_bwd_dq_mma_matches_plain(cuda_device, N, C):
     launches on the same inputs agree bit for bit. Tolerance: the bf16 one
     above (atol 2^-7 * max|plain|, rtol 2^-7) plus, elementwise, the f32
     summation-order bound of ``_dq_order_bound``."""
-    assert attention.route(torch.bfloat16, C) == "mma"
+    assert attention.route(torch.bfloat16, C, "dq") == "mma"
     B = 2
     gen = torch.Generator(device=cuda_device).manual_seed(N * C)
     q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
@@ -269,7 +278,8 @@ def test_flash_routes_match_plain_in_bf16(cuda_device, which, B, N, C):
     tensor-core kernels ("mma", which ``route`` names for these shapes) and
     through the CUDA-core kernels ("simt", forced), each against its plain
     version."""
-    assert attention.route(torch.bfloat16, C) == "mma"
+    assert all(attention.route(torch.bfloat16, C, kernel) == "mma"
+               for kernel in attention.KERNELS)
     gen = torch.Generator(device=cuda_device).manual_seed(B * N + C)
     q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
                    .to(torch.bfloat16) for _ in range(4))
@@ -315,31 +325,40 @@ def test_flash_routes_match_plain_in_bf16(cuda_device, which, B, N, C):
         _close_bf16(g, w, w)
 
 
+def _counts():
+    return tuple(getattr(attention, n) for n in (
+        "launches", "mma_launches", "wide_launches", "dq_launches",
+        "dq_mma_launches", "dkv_launches", "dkv_mma_launches",
+        "dkv_wide_launches"))
+
+
+def _launched(before):
+    return tuple(a - b for a, b in zip(_counts(), before))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flagship_attention_shape(cuda_device, dtype):
     """The 256x256 flagship's attention, [1, 4096, 384], forward and
-    backward on the route it takes (C=384 is past the tensor-core kernels'
-    256: "simt" in both dtypes)."""
+    backward through the CUDA-core kernels: the route of f32, and forced
+    for bf16, whose forward and dk/dv take the wide kernels
+    (``test_wide_mma_kernels_at_the_cfg_widths`` holds those here)."""
     B, N, C = 1, 4096, 384
-    assert attention.route(dtype, C) == "simt"
+    assert attention.route(dtype, C, "dq") == "simt"
     gen = torch.Generator(device=cuda_device).manual_seed(384)
     q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
                    .to(dtype) for _ in range(4))
     scale = C ** -0.5
-    counts = (attention.launches, attention.mma_launches,
-              attention.dq_launches, attention.dq_mma_launches,
-              attention.dkv_launches, attention.dkv_mma_launches)
-    o, lse = attention.attention_with_lse(q, k, v, scale)
-    got = attention.attention_bwd(q, k, v, o, lse, do, scale)
+    counts = _counts()
+    o, lse = attention._flash_simt(q, k, v, scale, emit_lse=True)
+    dd = attention.row_dd(o, do).contiguous()
+    args = (q, k, v, do, lse, dd, scale)
+    got = (attention.flash_bwd_dq(*args),
+           *attention._flash_bwd_dkv_simt(*args))
     want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
     want = attention.attention_bwd_plain(q, k, v, o, lse, do, scale)
     torch.cuda.synchronize()
-    assert (attention.launches - counts[0], attention.mma_launches - counts[1],
-            attention.dq_launches - counts[2],
-            attention.dq_mma_launches - counts[3],
-            attention.dkv_launches - counts[4],
-            attention.dkv_mma_launches - counts[5]) == (1, 0, 1, 0, 1, 0)
+    assert _launched(counts) == (1, 0, 0, 1, 0, 1, 0, 0)
     torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
     if dtype == torch.float32:
         torch.testing.assert_close(o, want_o, atol=2e-5, rtol=0)
@@ -360,29 +379,29 @@ def test_simt_kernels_at_the_cfg_widths(cuda_device, dtype, C, N):
     widths of the CFG UNet's 16x16 (C=512) and 8x8 and 4x4 (C=1024)
     stages, and C=768, each against its plain version (f32: 2e-5; bf16:
     the tolerances above), with dlse; two launches of each agree bit for
-    bit. bf16 takes this route at these widths, f32 always."""
-    assert attention.route(dtype, C) == "simt"
+    bit. f32 takes this route at these widths, and bf16 dq; the bf16
+    forward and dk/dv, which take the wide kernels, are forced here."""
+    assert attention.route(dtype, C, "dq") == "simt"
     B = 3
     gen = torch.Generator(device=cuda_device).manual_seed(N * 7 + C)
     q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
                    .to(dtype) for _ in range(4))
     dlse = torch.randn((B, N), generator=gen, device=cuda_device)
     scale = C ** -0.5
-    counts = (attention.launches, attention.dq_launches,
-              attention.dkv_launches, attention.mma_launches)
-    o, lse = attention.attention_with_lse(q, k, v, scale)
-    o2 = attention.spatial_attention(q, k, v)
+    counts = _counts()
+    o, lse = attention._flash_simt(q, k, v, scale, emit_lse=True)
+    o2 = attention._flash_simt(q, k, v, scale, emit_lse=False)
     dd = attention.row_dd(o, do, dlse).contiguous()
     args = (q, k, v, do, lse, dd, scale)
-    got = (attention.flash_bwd_dq(*args), *attention.flash_bwd_dkv(*args))
-    again = (attention.flash_bwd_dq(*args), *attention.flash_bwd_dkv(*args))
+    got = (attention.flash_bwd_dq(*args),
+           *attention._flash_bwd_dkv_simt(*args))
+    again = (attention.flash_bwd_dq(*args),
+             *attention._flash_bwd_dkv_simt(*args))
     want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
     want = (attention.flash_bwd_dq_plain(*args),
             *attention.flash_bwd_dkv_plain(*args))
     torch.cuda.synchronize()
-    assert (attention.launches - counts[0], attention.dq_launches - counts[1],
-            attention.dkv_launches - counts[2],
-            attention.mma_launches - counts[3]) == (2, 2, 2, 0)
+    assert _launched(counts) == (2, 0, 0, 2, 0, 2, 0, 0)
     assert torch.equal(o, o2)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
     torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
@@ -395,6 +414,68 @@ def test_simt_kernels_at_the_cfg_widths(cuda_device, dtype, C, N):
         for g, w in zip(got, want):
             assert g.dtype == dtype and g.shape == (B, N, C)
             _close_bf16(g, w, w)
+
+
+def _dk_order_bound(q, k, v, do, lse, scale):
+    """As ``_dq_order_bound``, for dk = scale * ds^T.q (N = 1 without dlse
+    gives dk = 0 in exact arithmetic)."""
+    return torch.einsum("bqk,bqc->bkc", _ds_order_bound(q, k, v, do, lse,
+                                                        scale),
+                        q.float().abs())
+
+
+# The CFG UNet's widths at every N its maps give, C=384 and C=768, the
+# flagship's shape, and ragged N (a last tile part filled) at the CFG
+# widths and at widths whose column shares differ by a step (C=272: 17
+# steps of 16 columns over 2 or 4 warps; C=784: 49 over 4 or 8).
+WIDE_SHAPES = ([(3, N, C) for C in (384, 512, 768, 1024)
+                for N in (1, 4, 16, 64, 256)]
+               + [(1, 4096, 384), (2, 100, 512), (2, 37, 1024),
+                  (2, 100, 272), (2, 37, 784)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,C", WIDE_SHAPES)
+def test_wide_mma_kernels_at_the_cfg_widths(cuda_device, B, N, C):
+    """The wide tensor-core forward (with and without lse) and dk/dv, which
+    ``route`` names for bf16 at these widths (``WIDE_SHAPES``), against
+    their plain versions: the forward at the bf16 tolerance above (lse
+    2e-5), dk/dv with a nonzero dlse at the bf16 one plus, for dk, the f32
+    summation-order bound. Two launches of each agree bit for bit."""
+    assert attention.route(torch.bfloat16, C, "forward") == "wide"
+    assert attention.route(torch.bfloat16, C, "dkv") == "wide"
+    gen = torch.Generator(device=cuda_device).manual_seed(N * 11 + C)
+    q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
+                   .to(torch.bfloat16) for _ in range(4))
+    dlse = torch.randn((B, N), generator=gen, device=cuda_device)
+    scale = C ** -0.5
+    counts = _counts()
+    o, lse = attention.attention_with_lse(q, k, v, scale)
+    o2 = attention.spatial_attention(q, k, v)
+    o3, lse3 = attention.attention_with_lse(q, k, v, scale)
+    dd = attention.row_dd(o, do, dlse).contiguous()
+    args = (q, k, v, do, lse, dd, scale)
+    got = attention.flash_bwd_dkv(*args)
+    again = attention.flash_bwd_dkv(*args)
+    want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
+    want = attention.flash_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    assert _launched(counts) == (3, 0, 3, 0, 0, 2, 0, 2)
+    assert torch.equal(o, o2) and torch.equal(o, o3)
+    assert torch.equal(lse, lse3)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert o.dtype == torch.bfloat16 and o.shape == (B, N, C)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
+    _close_bf16(o, want_o, v)
+    bounds = (_dk_order_bound(q, k, v, do, lse, scale), 0.0)
+    for name, g, w, bound in zip(("dk", "dv"), got, want, bounds):
+        assert g.dtype == torch.bfloat16 and g.shape == (B, N, C)
+        err = (g.float() - w.float()).abs()
+        limit = (BF16_RTOL * w.float().abs().max()
+                 + BF16_RTOL * w.float().abs() + bound)
+        assert (err <= limit).all(), (
+            f"{name}: max err {err.max().item():.3g}, worst excess "
+            f"{(err - limit).max().item():.3g}")
 
 
 # GroupNorm at the CFG UNet's smallest maps: 1x1 and 2x2 take the scalar
@@ -433,6 +514,33 @@ def test_mma_entries_refuse_what_they_do_not_take(cuda_device):
         assert lib.itsd_flash_bwd_dq_mma(p, p, p, p, lse.data_ptr(),
                                          lse.data_ptr(), p, 1, 8, C, 0.5,
                                          code, stream) != 0
+
+
+@pytest.mark.cuda
+def test_wide_entries_refuse_what_they_do_not_take(cuda_device):
+    """The wide entry points take bf16 with C % 16 == 0 and
+    256 < C <= 1024 only; anything else returns an error, which the
+    wrapper raises."""
+    from itsd_tpu_torch.kernels import _build
+
+    lib = _build.load().lib
+    for dtype, C in ((torch.float32, 512), (torch.bfloat16, 520),
+                     (torch.bfloat16, 256), (torch.bfloat16, 1040)):
+        q = torch.zeros((1, 8, C), dtype=dtype, device=cuda_device)
+        lse = torch.zeros((1, 8), device=cuda_device)
+        code = _build.DTYPE_CODES[dtype]
+        stream = _build.stream_ptr(q)
+        p = q.data_ptr()
+        assert lib.itsd_flash_attention_wide(p, p, p, p, None, 1, 8, C, 0.5,
+                                             code, stream) != 0
+        assert lib.itsd_flash_bwd_dkv_wide(p, p, p, p, lse.data_ptr(),
+                                           lse.data_ptr(), p, p, 1, 8, C,
+                                           0.5, code, stream) != 0
+    # C=520 passes the wrapper's checks (C % 4 == 0, C <= 1024); the
+    # kernel's refusal is raised
+    q = torch.zeros((1, 8, 520), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(RuntimeError, match="flash_attention_wide: CUDA"):
+        attention._launch_forward(q, q, q, 0.5, False, "wide")
 
 
 @pytest.mark.cuda

@@ -16,12 +16,16 @@ Tolerances:
   intermediates differ in their last bits.
 """
 
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from itsd_tpu.kernels.attention import (_attention_flash,
+                                        _attention_flash_bwd,
                                         _attention_flash_stats,
                                         _attention_xla)
 from itsd_tpu.kernels.groupnorm import (groupnorm_swish_pallas,
@@ -146,6 +150,38 @@ def test_attention_lse_matches_flash_stats_interpret():
                                atol=2e-5, rtol=0)
 
 
+@pytest.mark.parametrize("C", [512, 1024])
+def test_attention_at_the_wide_widths_matches_flash_interpret(C):
+    """The yardstick of the wide kernels at the CFG UNet's widths, on CPU
+    tensors (the plain versions): the forward with lse and the backward
+    with dlse against the Pallas forward and backward kernels in interpret
+    mode, f32, 2e-5 (measured ~1.7e-6 on values up to ~2)."""
+    rng = np.random.default_rng(C)
+    q, k, v, do = (rng.standard_normal((1, 64, C)).astype(np.float32)
+                   for _ in range(4))
+    dlse = rng.standard_normal((1, 64)).astype(np.float32)
+    scale = C ** -0.5
+    want_o, want_lse = _attention_flash_stats(
+        *map(jnp.asarray, (q, k, v)), scale, block_q=32, block_k=32,
+        interpret=True)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = attention.attention_with_lse(tq, tk, tv, scale)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), atol=2e-5,
+                               rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0],
+                               atol=2e-5, rtol=0)
+    want = _attention_flash_bwd(
+        *map(jnp.asarray, (q, k, v, o.numpy())),
+        jnp.asarray(lse.numpy())[..., None], jnp.asarray(do), scale,
+        block_q=32, block_k=32, interpret=True,
+        dlse=jnp.asarray(dlse)[..., None])
+    got = attention.attention_bwd(tq, tk, tv, o, lse, tdo, scale,
+                                  torch.from_numpy(dlse))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
+                                   rtol=0)
+
+
 def test_attention_plain_bf16_matches_xla():
     q, k, v = _qkv(2, 2, 64, 32)
     jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
@@ -180,18 +216,29 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert (groupnorm.launches, attention.launches) == before
 
 
+# want: "mma" and "simt" name the kernel of all three functions; "wide"
+# sends the forward and dk/dv to the wide tensor-core kernels and dq to the
+# CUDA-core one.
 @pytest.mark.parametrize("dtype,C,want", [
     (torch.bfloat16, 16, "mma"), (torch.bfloat16, 64, "mma"),
     (torch.bfloat16, 128, "mma"), (torch.bfloat16, 256, "mma"),
-    (torch.bfloat16, 100, "simt"), (torch.bfloat16, 384, "simt"),
-    (torch.bfloat16, 512, "simt"), (torch.float32, 16, "simt"),
-    (torch.float32, 256, "simt"), (torch.float32, 384, "simt")])
+    (torch.bfloat16, 100, "simt"), (torch.bfloat16, 384, "wide"),
+    (torch.bfloat16, 512, "wide"), (torch.float32, 16, "simt"),
+    (torch.float32, 256, "simt"), (torch.float32, 384, "simt"),
+    (torch.bfloat16, 768, "wide"), (torch.bfloat16, 1024, "wide"),
+    (torch.bfloat16, 1040, "simt"), (torch.bfloat16, 520, "simt"),
+    (torch.float32, 512, "simt"), (torch.float32, 1024, "simt")])
 def test_route_is_chosen_by_dtype_and_width(dtype, C, want, monkeypatch):
     """bf16 rows of a multiple of 16 up to 256 take the tensor-core
-    kernels; f32 (kept off the tensor cores) and other widths the CUDA-core
-    ones. The forward, dq and dk/dv wrappers each hand their launch the
-    route's kernel (the launches are recorded, not made)."""
-    assert attention.route(dtype, C) == want
+    kernels; from 272 to 1024 the forward and dk/dv take the wide
+    tensor-core kernels and dq the CUDA-core one; f32 (kept off the tensor
+    cores) and other widths the CUDA-core ones. The forward, dq and dk/dv
+    wrappers each hand their launch the route's kernel (the launches are
+    recorded, not made)."""
+    routes = {"forward": want, "dq": "simt" if want == "wide" else want,
+              "dkv": want}
+    assert {kernel: attention.route(dtype, C, kernel)
+            for kernel in routes} == routes
     chosen = []
     for name in ("_launch_forward", "_launch_dq", "_launch_dkv"):
         monkeypatch.setattr(attention, name,
@@ -202,20 +249,27 @@ def test_route_is_chosen_by_dtype_and_width(dtype, C, want, monkeypatch):
     attention._flash(q, q, q, 0.5, emit_lse=True)
     attention.flash_bwd_dq(q, q, q, q, lse, lse, 0.5)
     attention.flash_bwd_dkv(q, q, q, q, lse, lse, 0.5)
-    mma = want == "mma"
-    assert chosen == [("_launch_forward", mma), ("_launch_dq", mma),
-                      ("_launch_dkv", mma)]
+    assert chosen == [("_launch_forward", routes["forward"]),
+                      ("_launch_dq", routes["dq"]),
+                      ("_launch_dkv", routes["dkv"])]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cpu_tensors_launch_no_kernel_of_either_route(dtype):
-    names = ("launches", "mma_launches", "dq_launches", "dq_mma_launches",
-             "dkv_launches", "dkv_mma_launches")
-    before = [getattr(attention, n) for n in names]
-    gen = torch.Generator().manual_seed(0)
-    q, k, v, do = (torch.randn((2, 16, 256), generator=gen).to(dtype)
+def test_route_refuses_an_unknown_kernel():
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        attention.route(torch.bfloat16, 512, "backward")
+
+
+COUNTERS = ("launches", "mma_launches", "wide_launches", "dq_launches",
+            "dq_mma_launches", "dkv_launches", "dkv_mma_launches",
+            "dkv_wide_launches")
+
+
+def _plain_path_launches_nothing(dtype, C, N=16):
+    before = [getattr(attention, n) for n in COUNTERS]
+    gen = torch.Generator().manual_seed(C)
+    q, k, v, do = (torch.randn((2, N, C), generator=gen).to(dtype)
                    for _ in range(4))
-    scale = 256 ** -0.5
+    scale = C ** -0.5
     o, lse = attention.attention_with_lse(q, k, v, scale)
     want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
     assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
@@ -224,7 +278,75 @@ def test_cpu_tensors_launch_no_kernel_of_either_route(dtype):
     got = attention.attention_bwd(q, k, v, o, lse, do, scale)
     want = attention.attention_bwd_plain(q, k, v, o, lse, do, scale)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert [getattr(attention, n) for n in names] == before
+    assert [getattr(attention, n) for n in COUNTERS] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_tensors_launch_no_kernel_of_either_route(dtype):
+    _plain_path_launches_nothing(dtype, 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C", [512, 1024])
+def test_cpu_tensors_at_the_wide_widths_launch_no_kernel(dtype, C):
+    """The CFG UNet's C=512 and C=1024, which bf16 sends to the wide
+    kernels on the card, take the plain versions for CPU tensors and launch
+    no kernel of any route, through the differentiable path too."""
+    _plain_path_launches_nothing(dtype, C, N=4)
+    before = [getattr(attention, n) for n in COUNTERS]
+    q, k, v = (torch.randn((1, 4, C)).to(dtype).requires_grad_()
+               for _ in range(3))
+    o, _ = attention.flash_attention(q, k, v, C ** -0.5)
+    o.float().sum().backward()
+    assert all(t.grad is not None for t in (q, k, v))
+    assert [getattr(attention, n) for n in COUNTERS] == before
+
+
+# Each source's widest C (its kMaxC, and kMinC where it has one: the wide
+# kernels take only C above it) against the limits ``route`` and ``_check``
+# use.
+@pytest.mark.parametrize("source,max_c,min_c", [
+    ("flash_attention.cu", "MAX_C", None),
+    ("flash_attention_bwd.cu", "MAX_C", None),
+    ("flash_attention_mma.cu", "MMA_MAX_C", None),
+    ("flash_attention_bwd_dq_mma.cu", "MMA_MAX_C", None),
+    ("flash_attention_bwd_mma.cu", "MMA_MAX_C", None),
+    ("flash_attention_wide.cu", "WIDE_MAX_C", "MMA_MAX_C"),
+    ("flash_attention_bwd_wide.cu", "WIDE_MAX_C", "MMA_MAX_C")])
+def test_kernel_width_limits_match_the_route(source, max_c, min_c):
+    text = (_build.CSRC / source).read_text()
+
+    def constant(name):
+        found = re.findall(rf"constexpr int {name} = (\d+);", text)
+        assert len(found) == 1, f"{source}: {name} defined {len(found)} times"
+        return int(found[0])
+
+    assert constant("kMaxC") == getattr(attention, max_c)
+    if min_c is not None:
+        assert constant("kMinC") == getattr(attention, min_c)
+
+
+_EXTERN_C = re.compile(r'extern "C" int (itsd_\w+)\(([^)]*)\)')
+
+
+def test_every_entry_point_has_its_ctypes_signature():
+    """Each ``extern "C"`` entry point of csrc/ has a SIGNATURES entry with
+    one ctypes type a parameter: pointers (and the stream) as c_void_p,
+    ints as c_int, floats as c_float."""
+    kinds = {"c_void_p": ctypes.c_void_p, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+    found = {}
+    for p in _build.sources():
+        for name, params in _EXTERN_C.findall(p.read_text()):
+            types = []
+            for param in params.split(","):
+                param = " ".join(param.split())
+                types.append(kinds["c_void_p" if "*" in param
+                                   else param.split()[-2]])
+            found[name] = tuple(types)
+    assert {"itsd_flash_attention_wide",
+            "itsd_flash_bwd_dkv_wide"} <= set(found)
+    assert found == _build.SIGNATURES
 
 
 def test_build_commands_are_one_nvcc_per_source_for_sm90a(tmp_path):
@@ -232,7 +354,8 @@ def test_build_commands_are_one_nvcc_per_source_for_sm90a(tmp_path):
     srcs = _build.sources()
     assert {"groupnorm.cu", "flash_attention.cu", "flash_attention_bwd.cu",
             "flash_attention_mma.cu", "flash_attention_bwd_mma.cu",
-            "flash_attention_bwd_dq_mma.cu"} <= {p.name for p in srcs}
+            "flash_attention_bwd_dq_mma.cu", "flash_attention_wide.cu",
+            "flash_attention_bwd_wide.cu"} <= {p.name for p in srcs}
     assert len(cmds) == len(srcs)
     for cmd, src in zip(cmds, srcs):
         assert cmd[0] == "nvcc" and cmd[-1] == str(src)
