@@ -36,13 +36,13 @@ Phases, each ending with one line that carries its elapsed seconds:
    at timesteps across the chain, and 20 denoising steps from one x_T with
    one fed noise sequence;
 5. backward: the dq and dk/dv kernels (each on its bf16 route and on
-   simt, as in phase 2; dk/dv on the wide route at C=512 and C=1024, dq on
-   simt there) against their plain versions at both train paths' shapes,
-   one more C and the flagship's [1, 4096, 384], in bf16 and f32, with a
-   nonzero dlse once, timed beside the plain versions, the backward of
-   ``F.scaled_dot_product_attention`` and their bound; every dq and dk/dv
-   must take the route ``route`` names; the GroupNorm backward (autograd
-   through the plain recompute) checked and timed;
+   simt, as in phase 2; both on the wide route at C=512 and C=1024 and at
+   the flagship's C=384) against their plain versions at both train
+   paths' shapes, one more C and the flagship's [1, 4096, 384], in bf16
+   and f32, with a nonzero dlse once, timed beside the plain versions, the
+   backward of ``F.scaled_dot_product_attention`` and their bound; every
+   dq and dk/dv must take the route ``route`` names; the GroupNorm
+   backward (autograd through the plain recompute) checked and timed;
 6. train-step parity: 3 steps of the kernel path against the plain path at
    full width and batch 128 (dropout 0, the same params, batches, t and
    noise), in f32 (simt) and bf16 (mma): loss, pre-clip gradient norm, max
@@ -78,8 +78,8 @@ Phases, each ending with one line that carries its elapsed seconds:
 12. conditional train path: ``runner.train`` at the configuration of
     ``configs/cifar10_cfg.yaml`` on the shapes dataset with 10 labels
     (batch 256, bf16, no tracked metrics or representation extraction) for
-    200 steps; exactly 78/13/13/13 launches a step (the forward and dk/dv
-    5 on mma and 8 on wide, dq 5 on mma and 8 on simt); a finite, falling
+    200 steps; exactly 78/13/13/13 launches a step (the forward, dq and
+    dk/dv each 5 on mma, 8 on wide and none on simt); a finite, falling
     loss; the checkpoint restored
     for one more step and, through the eval loader, for 100 guided steps
     of its T=3000 chain; ms per step, images/s, peak memory and the
@@ -93,10 +93,10 @@ when there is no CUDA device or no ``itsd_tpu_torch`` beside it.
 Launch counts: every count is set to 0 just before a path is driven and
 read just after. The bf16 eval and train paths of the unconditional UNet
 (phases 3 and 7) run the mma kernels and GroupNorm; those of the CFG UNet
-(phases 9 and 12) the mma and wide kernels, and the simt dq. The kernels'
-JSON line carries each kernel's launches summed over these paths, and per
-path; the simt forward and dk/dv, which no bf16 path runs, carry their
-launches on the f32 kernel paths of phases 4, 6, 10 and 11.
+(phases 9 and 12) the mma and wide kernels. The kernels' JSON line carries
+each kernel's launches summed over these paths, and per path; the simt
+forward, dq and dk/dv, which no bf16 path runs, carry their launches on
+the f32 kernel paths of phases 4, 6, 10 and 11.
 """
 
 from __future__ import annotations
@@ -137,7 +137,7 @@ TRAIN_PARITY_STEPS = 3
 # 78 GroupNorm calls and 13 attention calls, all on the tensor cores in
 # bf16: 5 on the mma route (C=128 at 32x32, C=256 at 1x1) and 8 on the wide
 # route (C=512 at 16x16 and 2x2, C=1024 at 8x8 and 4x4). A train step's dq
-# takes mma at the first 5 and simt at the other 8.
+# and dk/dv take the same routes.
 CFG_PER_FORWARD = (78, 13, 5, 8)
 CFG_BATCH = 8               # train.eval_batch_size of the guided evals
 CFG_SHORT_T = 100           # the interval-CFG and autoguidance chains
@@ -725,15 +725,17 @@ def check_backward_kernels(paths, dev, timer):
     either to a tensor-core kernel, the simt dq and dk/dv kernels on the
     bf16 inputs too; times at bf16 of the route's kernels and the simt
     ones, on the same inputs, beside the plain versions, the backward of
-    SDPA and the bound (rows: the route's kernels, and the simt dk/dv's
-    forced calls where bf16 takes wide). Then the GroupNorm backward at
-    each path's shapes. Returns {kernel: {tag: (max error, rows)}}."""
+    SDPA and the bound (rows: the route's kernels, and the simt dq's and
+    dk/dv's forced calls where bf16 takes wide). Then the GroupNorm
+    backward at each path's shapes. Returns {kernel: {tag: (max error,
+    rows)}}."""
     from itsd_tpu_torch.kernels import attention
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(5)
-    kernels = ("flash_bwd_dq_mma", "flash_bwd_dq_simt", "flash_bwd_dkv_mma",
-               "flash_bwd_dkv_wide", "flash_bwd_dkv_simt")
+    kernels = ("flash_bwd_dq_mma", "flash_bwd_dq_wide", "flash_bwd_dq_simt",
+               "flash_bwd_dkv_mma", "flash_bwd_dkv_wide",
+               "flash_bwd_dkv_simt")
     out = {k: {} for k in kernels}
     log("flash backward: [B,N,C] x calls/step routes | max_abs_err dq dk dv "
         "bf16 (routes), dq dk dv bf16 simt, dq dk dv f32 (simt) | ms (bf16): "
@@ -857,6 +859,9 @@ def check_backward_kernels(paths, dev, timer):
             rows[f"flash_bwd_dkv_{dkv_route}"].append(
                 (calls, dkv_ms if dkv_route != "simt" else simt_ms,
                  dkv_plain, sdpa_ms, *b_dkv))
+            if dq_route == "wide":
+                rows["flash_bwd_dq_simt"].append(
+                    (calls, dq_simt_ms, dq_plain, sdpa_ms, *b_dq))
             if dkv_route == "wide":
                 rows["flash_bwd_dkv_simt"].append(
                     (calls, simt_ms, dkv_plain, sdpa_ms, *b_dkv))
@@ -942,6 +947,7 @@ def reset_launches():
     attention.launches = attention.mma_launches = 0
     attention.wide_launches = 0
     attention.dq_launches = attention.dq_mma_launches = 0
+    attention.dq_wide_launches = 0
     attention.dkv_launches = attention.dkv_mma_launches = 0
     attention.dkv_wide_launches = 0
 
@@ -955,12 +961,13 @@ def read_launches() -> dict:
     return route_counts(
         gn=groupnorm.launches, fwd=a.launches, fwd_mma=a.mma_launches,
         fwd_wide=a.wide_launches, dq=a.dq_launches,
-        dq_mma=a.dq_mma_launches, dkv=a.dkv_launches,
-        dkv_mma=a.dkv_mma_launches, dkv_wide=a.dkv_wide_launches)
+        dq_mma=a.dq_mma_launches, dq_wide=a.dq_wide_launches,
+        dkv=a.dkv_launches, dkv_mma=a.dkv_mma_launches,
+        dkv_wide=a.dkv_wide_launches)
 
 
 def route_counts(gn=0, fwd=0, fwd_mma=0, fwd_wide=0, dq=0, dq_mma=0,
-                 dkv=0, dkv_mma=0, dkv_wide=0):
+                 dq_wide=0, dkv=0, dkv_mma=0, dkv_wide=0):
     """Launch counts in the layout of ``read_launches``: each function's
     total and each route's kernel (simt: what the others leave)."""
     return {"groupnorm_swish": gn, "flash_attention": fwd,
@@ -968,7 +975,9 @@ def route_counts(gn=0, fwd=0, fwd_mma=0, fwd_wide=0, dq=0, dq_mma=0,
             "flash_attention_wide": fwd_wide,
             "flash_attention_simt": fwd - fwd_mma - fwd_wide,
             "flash_bwd_dq": dq, "flash_bwd_dq_mma": dq_mma,
-            "flash_bwd_dq_simt": dq - dq_mma, "flash_bwd_dkv": dkv,
+            "flash_bwd_dq_wide": dq_wide,
+            "flash_bwd_dq_simt": dq - dq_mma - dq_wide,
+            "flash_bwd_dkv": dkv,
             "flash_bwd_dkv_mma": dkv_mma, "flash_bwd_dkv_wide": dkv_wide,
             "flash_bwd_dkv_simt": dkv - dkv_mma - dkv_wide}
 
@@ -976,11 +985,10 @@ def route_counts(gn=0, fwd=0, fwd_mma=0, fwd_wide=0, dq=0, dq_mma=0,
 def step_counts(gn, attn, mma=0, wide=0):
     """Launches of one train step whose forward makes ``gn`` GroupNorm and
     ``attn`` attention calls: as many dq and dk/dv as forwards, ``mma`` of
-    each on the mma route, ``wide`` of the forwards and dk/dv on the wide
-    route (their dq on simt)."""
+    each on the mma route and ``wide`` of each on the wide route."""
     return route_counts(gn=gn, fwd=attn, fwd_mma=mma, fwd_wide=wide,
-                        dq=attn, dq_mma=mma, dkv=attn, dkv_mma=mma,
-                        dkv_wide=wide)
+                        dq=attn, dq_mma=mma, dq_wide=wide, dkv=attn,
+                        dkv_mma=mma, dkv_wide=wide)
 
 
 def scaled(counts: dict, k: float) -> dict:
@@ -1207,6 +1215,7 @@ def _category(name: str) -> str:
             ("flash_fwd wide (ours)", ("flash_fwd_wide_kernel",)),
             ("flash_fwd simt (ours)", ("flash_fwd_kernel",)),
             ("flash_bwd_dq mma (ours)", ("flash_bwd_dq_mma_kernel",)),
+            ("flash_bwd_dq wide (ours)", ("flash_bwd_dq_wide_kernel",)),
             ("flash_bwd_dq simt (ours)", ("flash_bwd_dq_kernel",)),
             ("flash_bwd_dkv mma (ours)", ("flash_bwd_dkv_mma_kernel",)),
             ("flash_bwd_dkv wide (ours)", ("flash_bwd_dkv_wide_kernel",)),
@@ -1687,11 +1696,10 @@ def cond_train_path(tmpdir, card_line):
     COND_TRAIN_EPOCHS epochs (8 steps each), no sample grid, one checkpoint at
     the end; exactly 78/13/13/13 launches a step of GroupNorm / flash
     forward / dq / dk-dv, 5 of each attention kernel's 13 on the mma route,
-    the other 8 on wide (forward, dk/dv) and simt (dq); a finite, falling
-    loss; the checkpoint restored for one
-    more step and, through the eval loader, for RESTORED_EVAL_STEPS guided
-    steps; ms per step, images/s, peak memory and the device's busy
-    share."""
+    the other 8 on wide and none on simt; a finite, falling loss; the
+    checkpoint restored for one more step and, through the eval loader,
+    for RESTORED_EVAL_STEPS guided steps; ms per step, images/s, peak
+    memory and the device's busy share."""
     from itsd_tpu_torch.cli import runner
     from itsd_tpu_torch.core import denoise_segment
     from itsd_tpu_torch.data import shapes_dataset
@@ -1722,8 +1730,8 @@ def cond_train_path(tmpdir, card_line):
         f"{launches}; per step {per_step}")
     if per_step != step_counts(gn, fwd, mma, wide):
         fail(f"launches per cond train step {per_step}, want 78/13/13/13, 5 "
-             "of each attention kernel's on mma, the forward's and dk/dv's "
-             "other 8 on wide and dq's on simt")
+             "of each attention kernel's on mma, the other 8 on wide and "
+             "none on simt")
     first, last = losses[:per_epoch].mean(), losses[-per_epoch:].mean()
     log(f"loss (sum/B^2): first {losses[0]:.5f}, mean of the first epoch "
         f"({per_epoch} steps) {first:.5f}, of the last {last:.5f}, final "
@@ -1858,6 +1866,8 @@ KERNELS = {
                              "cond_train"),
     "flash_bwd_dq_mma": ("itsd_tpu_torch/csrc/flash_attention_bwd_dq_mma.cu",
                          "itsd_tpu/kernels/attention.py:229", "train"),
+    "flash_bwd_dq_wide": ("itsd_tpu_torch/csrc/flash_attention_bwd_dq_wide.cu",
+                          "itsd_tpu/kernels/attention.py:229", "cond_train"),
     "flash_bwd_dq_simt": ("itsd_tpu_torch/csrc/flash_attention_bwd.cu",
                           "itsd_tpu/kernels/attention.py:229", "cond_train"),
     "flash_bwd_dkv_mma": ("itsd_tpu_torch/csrc/flash_attention_bwd_mma.cu",
@@ -1876,11 +1886,11 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
     Times are summed over one train step at bf16 (the paths that run every
     function): the unconditional one for GroupNorm and the mma kernels,
     the conditional one for the wide and simt kernels at the CFG UNet's
-    C=512 and C=1024 (the simt forward and dk/dv there through forced
-    calls on the same inputs); the sums over the other paths' steps stand
-    beside them. ``launches`` sums the kernel's launches over the bf16
-    runs of runner.evaluate and runner.train (``launches_by_path``); the
-    simt forward and dk/dv, which no bf16 path sends there, count their
+    C=512 and C=1024 (the simt kernels there through forced calls on the
+    same inputs); the sums over the other paths' steps stand beside them.
+    ``launches`` sums the kernel's launches over the bf16 runs of
+    runner.evaluate and runner.train (``launches_by_path``); the simt
+    forward, dq and dk/dv, which no bf16 path sends there, count their
     launches on the f32 kernel paths of the parity phases 4, 6, 10 and 11
     (``launches_f32_parity``, kept for every kernel)."""
     entries = []
@@ -1890,6 +1900,7 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
         by_path = {p: path_launches[p][name] for p in MAIN_PATHS}
         launches, counted_on = sum(by_path.values()), "bf16 runner paths"
         if not launches and name in ("flash_attention_simt",
+                                     "flash_bwd_dq_simt",
                                      "flash_bwd_dkv_simt"):
             launches = f32_launches[name]
             counted_on = "f32 kernel paths of phases 4, 6, 10 and 11"

@@ -55,6 +55,8 @@ SIGNATURES = {
                           _P),
     "itsd_flash_bwd_dq_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                               _I, _P),
+    "itsd_flash_bwd_dq_wide": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                               _I, _P),
     # q, k, v, dout, lse, dd, dk, dv, B, N, C, scale, dtype, stream
     "itsd_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                            _I, _P),

@@ -9,20 +9,20 @@ and the backward ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``.
 ``flash_attention`` ties them together as a ``torch.autograd.Function``, as
 ``_flash_attention_diff`` does with ``jax.custom_vjp``.
 
-The forward and the dk/dv backward have three kernels each, the dq backward
-two, and ``route`` picks one from the function, the dtype and C:
+Each of the three functions has three kernels, and ``route`` picks one
+from the function, the dtype and C:
 * "mma": bf16 with C % 16 == 0 and C <= 256, on the tensor cores
   (``csrc/flash_attention_mma.cu``, ``csrc/flash_attention_bwd_dq_mma.cu``,
   ``csrc/flash_attention_bwd_mma.cu``);
-* "wide": the forward and dk/dv in bf16 with C % 16 == 0 and
-  256 < C <= 1024, on the tensor cores with the head dimension split
-  across warps (``csrc/flash_attention_wide.cu``,
+* "wide": bf16 with C % 16 == 0 and 256 < C <= 1024, on the tensor cores
+  with the head dimension split across warps
+  (``csrc/flash_attention_wide.cu``, ``csrc/flash_attention_bwd_dq_wide.cu``,
   ``csrc/flash_attention_bwd_wide.cu``): the CFG UNet's C=512 and C=1024
   and the flagship's C=384;
 * "simt": everything else the kernels take (C % 4 == 0 up to 1024), f32
   above all, on the CUDA cores in f32 (``csrc/flash_attention.cu``,
   ``csrc/flash_attention_bwd.cu``), so that f32 never runs at the tensor
-  cores' reduced precision; bf16 dq above C=256 takes it too.
+  cores' reduced precision.
 
 Every entry point dispatches on where its inputs lie: CPU tensors go to the
 plain versions, CUDA tensors to the kernels, and anything the kernels do not
@@ -45,6 +45,7 @@ mma_launches = 0
 wide_launches = 0
 dq_launches = 0
 dq_mma_launches = 0
+dq_wide_launches = 0
 dkv_launches = 0
 dkv_mma_launches = 0
 dkv_wide_launches = 0
@@ -58,10 +59,9 @@ KERNELS = ("forward", "dq", "dkv")
 def route(dtype: torch.dtype, C: int, kernel: str) -> str:
     """The kernel a CUDA call of ``kernel`` ("forward", "dq" or "dkv")
     takes: "mma" (tensor cores) for bf16 with C % 16 == 0 and C <= 256;
-    "wide" (tensor cores, the head dimension split across warps) for the
-    forward and dk/dv in bf16 with C % 16 == 0 and 256 < C <= 1024; "simt"
-    (CUDA cores, f32 arithmetic) for the rest, bf16 dq above C=256
-    included."""
+    "wide" (tensor cores, the head dimension split across warps) for bf16
+    with C % 16 == 0 and 256 < C <= 1024; "simt" (CUDA cores, f32
+    arithmetic) for the rest."""
     if kernel not in KERNELS:
         raise ValueError(f"route: kernel must be one of {KERNELS}, got "
                          f"{kernel!r}")
@@ -69,7 +69,7 @@ def route(dtype: torch.dtype, C: int, kernel: str) -> str:
         return "simt"
     if C <= MMA_MAX_C:
         return "mma"
-    if kernel != "dq" and C <= WIDE_MAX_C:
+    if C <= WIDE_MAX_C:
         return "wide"
     return "simt"
 
@@ -239,7 +239,7 @@ def _check_rows(t, q, what):
 
 
 def _launch_dq(q, k, v, do, lse, dd, scale, which):
-    global dq_launches, dq_mma_launches
+    global dq_launches, dq_mma_launches, dq_wide_launches
     _check(q, k, v, do)
     _check_rows(lse, q, "lse")
     _check_rows(dd, q, "dd")
@@ -254,6 +254,7 @@ def _launch_dq(q, k, v, do, lse, dd, scale, which):
     _build.check(kernels, rc, name)
     dq_launches += 1
     dq_mma_launches += which == "mma"
+    dq_wide_launches += which == "wide"
     return dq
 
 
@@ -264,9 +265,9 @@ def flash_bwd_dq(q, k, v, do, lse, dd, scale):
 
 
 def _flash_bwd_dq_simt(q, k, v, do, lse, dd, scale):
-    """dq through the CUDA-core kernel whatever the route, so that both
-    kernels can be held and timed on the same bf16 inputs. No path of the
-    program calls it."""
+    """dq through the CUDA-core kernel whatever the route, so that it can
+    be held and timed on the same bf16 inputs as the tensor-core kernels.
+    No path of the program calls it."""
     return _launch_dq(q, k, v, do, lse, dd, scale, "simt")
 
 

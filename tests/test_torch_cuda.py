@@ -14,15 +14,15 @@ relative, so the sums differ by at most 2^-8 * max|v|; then each side rounds
 its output to bf16 (one step, 2^-7 relative). The test allows twice the
 first term: atol 2^-7 * max|v|, rtol 2^-7.
 
-The forward, the dq backward and the dk/dv backward each have a
-tensor-core ("mma", C <= 256) and a CUDA-core ("simt") kernel, and the
-forward and dk/dv a second tensor-core one ("wide", 256 < C <= 1024);
-``route`` picks one from the function, the dtype and C. They are held here
-on the same bf16 inputs, the "simt" ones through the private
-``_flash_simt``, ``_flash_bwd_dq_simt`` and ``_flash_bwd_dkv_simt``. Run one
-route's tests with ``-k mma``, ``-k wide`` or ``-k simt``, the dq tests of
-one route with ``-k "dq and mma"`` or ``-k "routes and simt"``, the tests at
-the CFG UNet's widths and maps with ``-k cfg``.
+The forward, the dq backward and the dk/dv backward each have two
+tensor-core kernels ("mma", C <= 256, and "wide", 256 < C <= 1024) and a
+CUDA-core one ("simt"); ``route`` picks one from the function, the dtype
+and C. They are held here on the same bf16 inputs, the "simt" ones through
+the private ``_flash_simt``, ``_flash_bwd_dq_simt`` and
+``_flash_bwd_dkv_simt``. Run one route's tests with ``-k mma``, ``-k wide``
+or ``-k simt``, the dq tests of one route with ``-k "dq and mma"``,
+``-k "wide and cfg"`` or ``-k "routes and simt"``, the tests at the CFG
+UNet's widths and maps with ``-k cfg``.
 
 The backward kernels against ``attention_bwd_plain`` (the same formula and
 roundings): f32 2e-5 absolute on values O(1), sums in another order
@@ -328,8 +328,8 @@ def test_flash_routes_match_plain_in_bf16(cuda_device, which, B, N, C):
 def _counts():
     return tuple(getattr(attention, n) for n in (
         "launches", "mma_launches", "wide_launches", "dq_launches",
-        "dq_mma_launches", "dkv_launches", "dkv_mma_launches",
-        "dkv_wide_launches"))
+        "dq_mma_launches", "dq_wide_launches", "dkv_launches",
+        "dkv_mma_launches", "dkv_wide_launches"))
 
 
 def _launched(before):
@@ -341,10 +341,11 @@ def _launched(before):
 def test_flagship_attention_shape(cuda_device, dtype):
     """The 256x256 flagship's attention, [1, 4096, 384], forward and
     backward through the CUDA-core kernels: the route of f32, and forced
-    for bf16, whose forward and dk/dv take the wide kernels
+    for bf16, whose forward, dq and dk/dv take the wide kernels
     (``test_wide_mma_kernels_at_the_cfg_widths`` holds those here)."""
     B, N, C = 1, 4096, 384
-    assert attention.route(dtype, C, "dq") == "simt"
+    assert attention.route(dtype, C, "dq") == (
+        "simt" if dtype == torch.float32 else "wide")
     gen = torch.Generator(device=cuda_device).manual_seed(384)
     q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
                    .to(dtype) for _ in range(4))
@@ -353,12 +354,12 @@ def test_flagship_attention_shape(cuda_device, dtype):
     o, lse = attention._flash_simt(q, k, v, scale, emit_lse=True)
     dd = attention.row_dd(o, do).contiguous()
     args = (q, k, v, do, lse, dd, scale)
-    got = (attention.flash_bwd_dq(*args),
+    got = (attention._flash_bwd_dq_simt(*args),
            *attention._flash_bwd_dkv_simt(*args))
     want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
     want = attention.attention_bwd_plain(q, k, v, o, lse, do, scale)
     torch.cuda.synchronize()
-    assert _launched(counts) == (1, 0, 0, 1, 0, 1, 0, 0)
+    assert _launched(counts) == (1, 0, 0, 1, 0, 0, 1, 0, 0)
     torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
     if dtype == torch.float32:
         torch.testing.assert_close(o, want_o, atol=2e-5, rtol=0)
@@ -379,9 +380,10 @@ def test_simt_kernels_at_the_cfg_widths(cuda_device, dtype, C, N):
     widths of the CFG UNet's 16x16 (C=512) and 8x8 and 4x4 (C=1024)
     stages, and C=768, each against its plain version (f32: 2e-5; bf16:
     the tolerances above), with dlse; two launches of each agree bit for
-    bit. f32 takes this route at these widths, and bf16 dq; the bf16
-    forward and dk/dv, which take the wide kernels, are forced here."""
-    assert attention.route(dtype, C, "dq") == "simt"
+    bit. f32 takes this route at these widths; bf16, which takes the wide
+    kernels, is forced here."""
+    assert attention.route(dtype, C, "dq") == (
+        "simt" if dtype == torch.float32 else "wide")
     B = 3
     gen = torch.Generator(device=cuda_device).manual_seed(N * 7 + C)
     q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
@@ -393,15 +395,15 @@ def test_simt_kernels_at_the_cfg_widths(cuda_device, dtype, C, N):
     o2 = attention._flash_simt(q, k, v, scale, emit_lse=False)
     dd = attention.row_dd(o, do, dlse).contiguous()
     args = (q, k, v, do, lse, dd, scale)
-    got = (attention.flash_bwd_dq(*args),
+    got = (attention._flash_bwd_dq_simt(*args),
            *attention._flash_bwd_dkv_simt(*args))
-    again = (attention.flash_bwd_dq(*args),
+    again = (attention._flash_bwd_dq_simt(*args),
              *attention._flash_bwd_dkv_simt(*args))
     want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
     want = (attention.flash_bwd_dq_plain(*args),
             *attention.flash_bwd_dkv_plain(*args))
     torch.cuda.synchronize()
-    assert _launched(counts) == (2, 0, 0, 2, 0, 2, 0, 0)
+    assert _launched(counts) == (2, 0, 0, 2, 0, 0, 2, 0, 0)
     assert torch.equal(o, o2)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
     torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
@@ -437,13 +439,14 @@ WIDE_SHAPES = ([(3, N, C) for C in (384, 512, 768, 1024)
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,C", WIDE_SHAPES)
 def test_wide_mma_kernels_at_the_cfg_widths(cuda_device, B, N, C):
-    """The wide tensor-core forward (with and without lse) and dk/dv, which
-    ``route`` names for bf16 at these widths (``WIDE_SHAPES``), against
-    their plain versions: the forward at the bf16 tolerance above (lse
-    2e-5), dk/dv with a nonzero dlse at the bf16 one plus, for dk, the f32
-    summation-order bound. Two launches of each agree bit for bit."""
-    assert attention.route(torch.bfloat16, C, "forward") == "wide"
-    assert attention.route(torch.bfloat16, C, "dkv") == "wide"
+    """The wide tensor-core forward (with and without lse), dq and dk/dv,
+    which ``route`` names for bf16 at these widths (``WIDE_SHAPES``),
+    against their plain versions: the forward at the bf16 tolerance above
+    (lse 2e-5), dq and dk/dv with a nonzero dlse at the bf16 one plus, for
+    dq and dk, the f32 summation-order bound. Two launches of each agree
+    bit for bit."""
+    assert all(attention.route(torch.bfloat16, C, kernel) == "wide"
+               for kernel in attention.KERNELS)
     gen = torch.Generator(device=cuda_device).manual_seed(N * 11 + C)
     q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
                    .to(torch.bfloat16) for _ in range(4))
@@ -455,20 +458,23 @@ def test_wide_mma_kernels_at_the_cfg_widths(cuda_device, B, N, C):
     o3, lse3 = attention.attention_with_lse(q, k, v, scale)
     dd = attention.row_dd(o, do, dlse).contiguous()
     args = (q, k, v, do, lse, dd, scale)
-    got = attention.flash_bwd_dkv(*args)
-    again = attention.flash_bwd_dkv(*args)
+    got = (attention.flash_bwd_dq(*args), *attention.flash_bwd_dkv(*args))
+    again = (attention.flash_bwd_dq(*args),
+             *attention.flash_bwd_dkv(*args))
     want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
-    want = attention.flash_bwd_dkv_plain(*args)
+    want = (attention.flash_bwd_dq_plain(*args),
+            *attention.flash_bwd_dkv_plain(*args))
     torch.cuda.synchronize()
-    assert _launched(counts) == (3, 0, 3, 0, 0, 2, 0, 2)
+    assert _launched(counts) == (3, 0, 3, 2, 0, 2, 2, 0, 2)
     assert torch.equal(o, o2) and torch.equal(o, o3)
     assert torch.equal(lse, lse3)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
     assert o.dtype == torch.bfloat16 and o.shape == (B, N, C)
     torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
     _close_bf16(o, want_o, v)
-    bounds = (_dk_order_bound(q, k, v, do, lse, scale), 0.0)
-    for name, g, w, bound in zip(("dk", "dv"), got, want, bounds):
+    bounds = (_dq_order_bound(q, k, v, do, lse, scale),
+              _dk_order_bound(q, k, v, do, lse, scale), 0.0)
+    for name, g, w, bound in zip(("dq", "dk", "dv"), got, want, bounds):
         assert g.dtype == torch.bfloat16 and g.shape == (B, N, C)
         err = (g.float() - w.float()).abs()
         limit = (BF16_RTOL * w.float().abs().max()
@@ -536,11 +542,17 @@ def test_wide_entries_refuse_what_they_do_not_take(cuda_device):
         assert lib.itsd_flash_bwd_dkv_wide(p, p, p, p, lse.data_ptr(),
                                            lse.data_ptr(), p, p, 1, 8, C,
                                            0.5, code, stream) != 0
+        assert lib.itsd_flash_bwd_dq_wide(p, p, p, p, lse.data_ptr(),
+                                          lse.data_ptr(), p, 1, 8, C, 0.5,
+                                          code, stream) != 0
     # C=520 passes the wrapper's checks (C % 4 == 0, C <= 1024); the
     # kernel's refusal is raised
     q = torch.zeros((1, 8, 520), dtype=torch.bfloat16, device=cuda_device)
+    lse = torch.zeros((1, 8), device=cuda_device)
     with pytest.raises(RuntimeError, match="flash_attention_wide: CUDA"):
         attention._launch_forward(q, q, q, 0.5, False, "wide")
+    with pytest.raises(RuntimeError, match="flash_bwd_dq_wide: CUDA"):
+        attention._launch_dq(q, q, q, q, lse, lse, 0.5, "wide")
 
 
 @pytest.mark.cuda

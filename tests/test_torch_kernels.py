@@ -150,12 +150,13 @@ def test_attention_lse_matches_flash_stats_interpret():
                                atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize("C", [512, 1024])
+@pytest.mark.parametrize("C", [384, 512, 1024])
 def test_attention_at_the_wide_widths_matches_flash_interpret(C):
-    """The yardstick of the wide kernels at the CFG UNet's widths, on CPU
-    tensors (the plain versions): the forward with lse and the backward
-    with dlse against the Pallas forward and backward kernels in interpret
-    mode, f32, 2e-5 (measured ~1.7e-6 on values up to ~2)."""
+    """The yardstick of the wide kernels at the CFG UNet's widths and the
+    flagship's C=384, on CPU tensors (the plain versions): the forward
+    with lse and the backward with dlse against the Pallas forward and
+    backward kernels in interpret mode, f32, 2e-5 (measured ~1.7e-6 on
+    values up to ~2)."""
     rng = np.random.default_rng(C)
     q, k, v, do = (rng.standard_normal((1, 64, C)).astype(np.float32)
                    for _ in range(4))
@@ -216,9 +217,7 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert (groupnorm.launches, attention.launches) == before
 
 
-# want: "mma" and "simt" name the kernel of all three functions; "wide"
-# sends the forward and dk/dv to the wide tensor-core kernels and dq to the
-# CUDA-core one.
+# want: the kernel of all three functions (forward, dq and dk/dv).
 @pytest.mark.parametrize("dtype,C,want", [
     (torch.bfloat16, 16, "mma"), (torch.bfloat16, 64, "mma"),
     (torch.bfloat16, 128, "mma"), (torch.bfloat16, 256, "mma"),
@@ -230,13 +229,11 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     (torch.float32, 512, "simt"), (torch.float32, 1024, "simt")])
 def test_route_is_chosen_by_dtype_and_width(dtype, C, want, monkeypatch):
     """bf16 rows of a multiple of 16 up to 256 take the tensor-core
-    kernels; from 272 to 1024 the forward and dk/dv take the wide
-    tensor-core kernels and dq the CUDA-core one; f32 (kept off the tensor
-    cores) and other widths the CUDA-core ones. The forward, dq and dk/dv
-    wrappers each hand their launch the route's kernel (the launches are
-    recorded, not made)."""
-    routes = {"forward": want, "dq": "simt" if want == "wide" else want,
-              "dkv": want}
+    kernels; from 272 to 1024 the wide tensor-core kernels, dq included;
+    f32 (kept off the tensor cores) and other widths the CUDA-core ones.
+    The forward, dq and dk/dv wrappers each hand their launch the route's
+    kernel (the launches are recorded, not made)."""
+    routes = dict.fromkeys(attention.KERNELS, want)
     assert {kernel: attention.route(dtype, C, kernel)
             for kernel in routes} == routes
     chosen = []
@@ -254,14 +251,29 @@ def test_route_is_chosen_by_dtype_and_width(dtype, C, want, monkeypatch):
                       ("_launch_dkv", routes["dkv"])]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_route_at_every_width_the_kernels_take(dtype):
+    """Every C the kernels take (C % 4 == 0 up to 1024), for all three
+    functions: bf16 with C % 16 == 0 goes to "mma" up to 256 and to "wide"
+    above; f32 and every other width to "simt"."""
+    for C in range(4, attention.MAX_C + 1, 4):
+        if dtype != torch.bfloat16 or C % 16:
+            want = "simt"
+        else:
+            want = "mma" if C <= attention.MMA_MAX_C else "wide"
+        assert {kernel: attention.route(dtype, C, kernel)
+                for kernel in attention.KERNELS} == dict.fromkeys(
+                    attention.KERNELS, want), C
+
+
 def test_route_refuses_an_unknown_kernel():
     with pytest.raises(ValueError, match="kernel must be one of"):
         attention.route(torch.bfloat16, 512, "backward")
 
 
 COUNTERS = ("launches", "mma_launches", "wide_launches", "dq_launches",
-            "dq_mma_launches", "dkv_launches", "dkv_mma_launches",
-            "dkv_wide_launches")
+            "dq_mma_launches", "dq_wide_launches", "dkv_launches",
+            "dkv_mma_launches", "dkv_wide_launches")
 
 
 def _plain_path_launches_nothing(dtype, C, N=16):
@@ -312,6 +324,7 @@ def test_cpu_tensors_at_the_wide_widths_launch_no_kernel(dtype, C):
     ("flash_attention_bwd_dq_mma.cu", "MMA_MAX_C", None),
     ("flash_attention_bwd_mma.cu", "MMA_MAX_C", None),
     ("flash_attention_wide.cu", "WIDE_MAX_C", "MMA_MAX_C"),
+    ("flash_attention_bwd_dq_wide.cu", "WIDE_MAX_C", "MMA_MAX_C"),
     ("flash_attention_bwd_wide.cu", "WIDE_MAX_C", "MMA_MAX_C")])
 def test_kernel_width_limits_match_the_route(source, max_c, min_c):
     text = (_build.CSRC / source).read_text()
@@ -344,7 +357,7 @@ def test_every_entry_point_has_its_ctypes_signature():
                 types.append(kinds["c_void_p" if "*" in param
                                    else param.split()[-2]])
             found[name] = tuple(types)
-    assert {"itsd_flash_attention_wide",
+    assert {"itsd_flash_attention_wide", "itsd_flash_bwd_dq_wide",
             "itsd_flash_bwd_dkv_wide"} <= set(found)
     assert found == _build.SIGNATURES
 
@@ -355,6 +368,7 @@ def test_build_commands_are_one_nvcc_per_source_for_sm90a(tmp_path):
     assert {"groupnorm.cu", "flash_attention.cu", "flash_attention_bwd.cu",
             "flash_attention_mma.cu", "flash_attention_bwd_mma.cu",
             "flash_attention_bwd_dq_mma.cu", "flash_attention_wide.cu",
+            "flash_attention_bwd_dq_wide.cu",
             "flash_attention_bwd_wide.cu"} <= {p.name for p in srcs}
     assert len(cmds) == len(srcs)
     for cmd, src in zip(cmds, srcs):
