@@ -21,8 +21,10 @@ Phases, each ending with one line that carries its elapsed seconds:
    bf16 at C <= 256, and "wide", of bf16 at 256 < C <= 1024: the CFG
    model's C=512 and C=1024) and the CUDA-core one ("simt", the route of
    f32); the simt kernel is checked and timed on the same bf16 inputs as
-   the tensor-core one at every shape. The flash forward also at the
-   256x256 flagship's attention, [1, 4096, 384] (bf16: wide).
+   the tensor-core one at every shape. Also at Picard's folded batches
+   (phase 13's time grid of 50 points in the batch: 400 rows for the
+   unconditional UNet, 800 for the guided CFG UNet). The flash forward also
+   at the 256x256 flagship's attention, [1, 4096, 384] (bf16: wide).
    GroupNorm also at the 256x256 flagship's largest spans (batch 1, spans
    of up to 786,432 elements, split over a thread-block cluster): forward
    and backward in f32 and bf16, two launches equal bit for bit, timed;
@@ -83,7 +85,24 @@ Phases, each ending with one line that carries its elapsed seconds:
     loss; the checkpoint restored
     for one more step and, through the eval loader, for 100 guided steps
     of its T=3000 chain; ms per step, images/s, peak memory and the
-    device's busy share.
+    device's busy share (it runs after phase 14);
+13. fast and composite samplers: ``runner.evaluate`` at full width, bf16,
+    batch 8: the unconditional UNet (T=1000) through DDIM 50 at eta 0 and
+    1, DPM-Solver++ 20, restart sampling on (600, 300, 2) over DDIM 50,
+    Picard 50 (its grid folded into a batch of 400; sweeps, and its wall
+    time against sequential DDIM 50); the CFG UNet
+    (T=3000, w=1.8) through DDIM 50, DPM-Solver++ 20 guided on
+    30 <= t < 70, DDIM 50 with autoguidance and Picard 50 (batch 800);
+    exact launches per model forward, the attention batch of every call,
+    no synchronizing CUDA operation (Picard: exactly one a sweep, the read
+    of its stopping test), finite images; NFE, ms per NFE, ms per image,
+    images/s;
+14. fast sampler parity: kernel path against plain path in f32 and bf16:
+    the unconditional DDIM over its whole 50-step chain, DPM-Solver++ 20,
+    Picard (max_iters = n = 20) against sequential DDIM at a (T, n) where
+    the two grids agree, and 20 guided DDIM steps of the CFG UNet; each
+    limit the sampler's rms chain gain times the eps limit of phases 4
+    and 10.
 
 Then it prints the ``nvidia-smi`` line, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -92,11 +111,11 @@ when there is no CUDA device or no ``itsd_tpu_torch`` beside it.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after. The bf16 eval and train paths of the unconditional UNet
-(phases 3 and 7) run the mma kernels and GroupNorm; those of the CFG UNet
-(phases 9 and 12) the mma and wide kernels. The kernels' JSON line carries
-each kernel's launches summed over these paths, and per path; the simt
-forward, dq and dk/dv, which no bf16 path runs, carry their launches on
-the f32 kernel paths of phases 4, 6, 10 and 11.
+(phases 3, 7 and 13) run the mma kernels and GroupNorm; those of the CFG
+UNet (phases 9, 12 and 13) the mma and wide kernels. The kernels' JSON
+line carries each kernel's launches summed over these paths, and per path;
+the simt forward, dq and dk/dv, which no bf16 path runs, carry their
+launches on the f32 kernel paths of phases 4, 6, 10, 11 and 14.
 """
 
 from __future__ import annotations
@@ -147,6 +166,13 @@ COND_PARITY_BATCH = 128
 COND_LOSS_FALL = 0.5        # the last epoch's mean loss below this share
                             # of the first epoch's (measured: 0.04)
 RESTORED_EVAL_STEPS = 100   # guided steps from the restored checkpoint
+# Phases 13 and 14: the fast and composite samplers.
+FAST_STEPS = 50             # diffusion.ddim_steps of DDIM, restart, Picard
+DPM_STEPS = 20              # DPM-Solver++'s steps
+RESTARTS = ((600, 300, 2),)  # restart_intervals over DDIM 50
+PICARD_PARITY_STEPS = 20    # Picard against sequential DDIM (grids agree)
+PICARD_PARITY_BATCH = 8
+CFG_DDIM_FROM = 200         # the guided DDIM parity runs state 200 -> 0
 # GroupNorm: f32 sums in another order (~1e-6 on values O(1)); bf16: the
 # same f32 value may round to a neighbouring bf16 value (one step, 2^-7).
 GN_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-3, 2.0 ** -7)}
@@ -323,14 +349,14 @@ def build():
     phase_done(1, "build", t0, "(no spills)" if kernels.built else "")
 
 
-def eval_config(tmpdir: str, dtype: str = "bfloat16"):
+def eval_config(tmpdir: str, dtype: str = "bfloat16", *extra):
     from itsd_tpu_torch.utils import load_config
 
     return load_config(None, [
         f"channel={WIDTH}", "channel_mult=[1,2,2,2]", "attn=[1]",
         "num_res_blocks=2", "dropout=0.1", f"T={T_STEPS}", "img_size=32",
         f"model.dtype={dtype}", f"train.eval_batch_size={BATCH}", "seed=0",
-        f"sampled_dir={tmpdir}"])
+        f"sampled_dir={tmpdir}", *extra])
 
 
 def train_config(tmpdir: str, dtype: str = "bfloat16", *extra):
@@ -1379,8 +1405,8 @@ def watch_sampling():
     itself); the wall seconds of ``run_sampler``, synchronized before and
     after, so that a step's time leaves out the model's set-up; and every
     synchronizing CUDA operation the sampler makes, which PyTorch's sync
-    debug mode reports (the sampler promises none: the host never waits on
-    the device within a step)."""
+    debug mode reports (the samplers promise none, but for Picard's one
+    read a sweep: the host never waits on the device within a step)."""
     from itsd_tpu_torch.cli import runner
     from itsd_tpu_torch.models import unet
 
@@ -1827,6 +1853,356 @@ def cond_train_path(tmpdir, card_line):
 
 
 
+# ---------------------------------------------------------------------------
+# the fast and composite samplers (phases 13 and 14)
+
+
+def sampler_eval(what, cfg, params, per_forward, card_line, want_forwards,
+                 want_batches, nfe_of, fold=None, sequential_s=None):
+    """One ``runner.evaluate`` through the sampler ``cfg`` names, watched as
+    phase 9 watches it: exact launches (``want_forwards`` forwards of
+    ``per_forward`` launches each), the batch of every attention call
+    (``want_batches``), no synchronizing CUDA operation, finite images.
+    ``fold`` = (rows, attention calls a forward) marks Picard: every call
+    takes the folded batch, the forwards are its sweeps (read off the
+    calls), and the sampler reads delta back once a sweep, so it makes
+    exactly that many synchronizing calls; ``sequential_s`` is then the
+    sampler seconds of sequential DDIM at the same n, set beside its own.
+    ``nfe_of(forwards)``: model evaluations an image. Returns (launches,
+    result)."""
+    from itsd_tpu_torch.cli import runner
+
+    B = cfg.train.eval_batch_size
+    reset_launches()
+    t0 = time.perf_counter()
+    with watch_sampling() as (batches, sampler_s, syncs):
+        out = runner.evaluate(cfg, params, device=DEVICE)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    n_syncs = 0
+    if fold is not None:
+        rows, per = fold
+        want_forwards, rest = divmod(len(batches), per)
+        if rest or not want_forwards:
+            fail(f"{what}: {len(batches)} attention calls, not a whole "
+                 f"number of forwards of {per}")
+        want_batches = collections.Counter({rows: len(batches)})
+        n_syncs = want_forwards
+    if len(syncs) != n_syncs:
+        fail(f"{what}: the sampler made {len(syncs)} synchronizing CUDA "
+             f"operations, want {n_syncs}: {syncs[:1]}")
+    if launches != scaled(per_forward, want_forwards):
+        fail(f"{what}: launches {launches}, want {want_forwards} forwards "
+             f"of {per_forward}")
+    if collections.Counter(batches) != want_batches:
+        fail(f"{what}: attention batches {collections.Counter(batches)}, "
+             f"want {want_batches}")
+    imgs = out["images"]
+    if imgs.shape != (B, 32, 32, 3) or not np.isfinite(imgs).all():
+        fail(f"{what}: images of shape {imgs.shape}, finite: "
+             f"{bool(np.isfinite(imgs).all())}")
+    nfe = nfe_of(want_forwards)
+    sec = sampler_s[0]
+    res = dict(nfe=nfe, forwards=want_forwards, sampler_s=sec,
+               evaluate_s=seconds, ms_per_nfe=sec * 1e3 / nfe,
+               ms_per_image=sec * 1e3 / B, images_per_s=B / sec)
+    log(f"{what}: batch {B}, bf16: NFE {nfe} ({want_forwards} forwards), "
+        f"sampler {sec:.3f} s = {res['ms_per_nfe']:.3f} ms/NFE, "
+        f"{res['ms_per_image']:.1f} ms/image, {res['images_per_s']:.4f} "
+        f"images/s (runner.evaluate {seconds:.3f} s) on {card_line}; "
+        f"syncs {len(syncs)}; attention batches "
+        f"{dict(collections.Counter(batches))}; images min {imgs.min():.3f} "
+        f"max {imgs.max():.3f} std {imgs.std():.3f}")
+    if fold is not None:
+        res.update(sweeps=want_forwards, sequential_ddim_s=sequential_s)
+        log(f"{what}: {want_forwards} sweeps at batch {fold[0]} in "
+            f"{sec:.3f} s against sequential DDIM {sequential_s:.3f} s "
+            f"({sequential_s / sec:.3f}x) on {card_line}")
+    return launches, res
+
+
+def eval_timesteps(sampler_fn, sched_cpu):
+    """The timesteps a deterministic sampler evaluates, in order, read on
+    the CPU from a probe eps_fn at one element (phase 13 counts the guided
+    steps of an interval from them)."""
+    seen = []
+
+    def probe(x, t):
+        seen.append(int(t[0]))
+        return torch.zeros_like(x)
+
+    sampler_fn(sched_cpu, probe, torch.zeros(1, 1, 1, 1))
+    return seen
+
+
+def fast_sampler_path(params, cparams, tmpdir, card_line):
+    """Phase 13: runner.evaluate through the fast and composite samplers at
+    full width, bf16, batch 8, on the seeded weights. Unconditional UNet
+    (T=1000): DDIM 50 at eta 0 and 1, DPM-Solver++ 20, restart
+    RESTARTS over DDIM 50, Picard 50 (batch 400 folded; its wall time
+    against sequential DDIM 50 from the same x_T). CFG UNet
+    (T=3000, w=1.8): DDIM 50 (dual batch 16), DPM 20 guided on
+    CFG_INTERVAL, DDIM 50 with autoguidance, Picard 50 without an interval
+    (batch 800). Returns {run: launches}, {run: result}."""
+    from itsd_tpu_torch.cli import runner
+    from itsd_tpu_torch.core import dpm_solver_sample
+    from itsd_tpu_torch.core.sampling import restart_nfes, segment_cost
+
+    t0 = time.perf_counter()
+    launches, results = {}, {}
+    one = route_counts(gn=51, fwd=6, fwd_mma=6)
+    n = FAST_STEPS
+    ddim = ["diffusion.sampler=ddim", f"diffusion.ddim_steps={n}"]
+    restart_fwd = restart_nfes(T_STEPS, RESTARTS,
+                               segment_cost(T_STEPS, "ddim", n))
+    runs = [
+        ("ddim_eval", f"DDIM {n} eta 0", ddim, n),
+        ("ddim_eta1_eval", f"DDIM {n} eta 1",
+         ddim + ["diffusion.ddim_eta=1.0"], n),
+        ("dpm_eval", f"DPM-Solver++ {DPM_STEPS}",
+         ["diffusion.sampler=dpm", f"diffusion.ddim_steps={DPM_STEPS}"],
+         DPM_STEPS),
+        ("restart_eval", f"restart {list(RESTARTS)} over DDIM {n}",
+         ddim + [f"diffusion.restart_intervals={list(map(list, RESTARTS))}"
+                 .replace(" ", "")], restart_fwd)]
+    for tag, what, keys, forwards in runs:
+        cfg = eval_config(tmpdir, "bfloat16", *keys)
+        launches[tag], results[tag] = sampler_eval(
+            what, cfg, params, one, card_line, forwards,
+            collections.Counter({BATCH: 6 * forwards}), lambda f: f)
+    cfg = eval_config(tmpdir, "bfloat16", "diffusion.sampler=picard",
+                      f"diffusion.ddim_steps={n}")
+    launches["picard_eval"], results["picard_eval"] = sampler_eval(
+        f"Picard {n}", cfg, params, one, card_line, None, None,
+        lambda f: f * n, fold=(n * BATCH, 6),
+        sequential_s=results["ddim_eval"]["sampler_s"])
+
+    gn, fwd, mma, wide = CFG_PER_FORWARD
+    cone = route_counts(gn=gn, fwd=fwd, fwd_mma=mma, fwd_wide=wide)
+    B = CFG_BATCH
+    cfg = cfg_config(tmpdir, "bfloat16", *ddim)
+    launches["cfg_ddim_eval"], results["cfg_ddim_eval"] = sampler_eval(
+        f"CFG w={cfg.diffusion.w} DDIM {n}", cfg, cparams, cone, card_line,
+        n, collections.Counter({2 * B: fwd * n}), lambda f: 2 * f)
+    lo, hi = CFG_INTERVAL
+    dkeys = ["diffusion.sampler=dpm", f"diffusion.ddim_steps={DPM_STEPS}",
+             f"diffusion.cfg_interval=[{lo},{hi}]"]
+    cfg = cfg_config(tmpdir, "bfloat16", *dkeys)
+    ts = eval_timesteps(
+        lambda sc, e, x: dpm_solver_sample(sc, e, x, num_steps=DPM_STEPS),
+        runner.build_schedule(cfg, inference=True, device="cpu"))
+    guided = sum(lo <= t < hi for t in ts)
+    launches["cfg_dpm_interval_eval"], results["cfg_dpm_interval_eval"] = \
+        sampler_eval(
+            f"CFG w={cfg.diffusion.w} on {lo} <= t < {hi}, DPM-Solver++ "
+            f"{DPM_STEPS} ({guided} steps guided)", cfg, cparams, cone,
+            card_line, DPM_STEPS, collections.Counter(
+                {2 * B: fwd * guided, B: fwd * (DPM_STEPS - guided)}),
+            lambda f: f + guided)
+    if not 0 < guided < DPM_STEPS:
+        fail(f"DPM-Solver++ {DPM_STEPS} over T={cfg.diffusion.T} guides "
+             f"{guided} steps on [{lo}, {hi}): want both branches")
+    # the weak weights of autoguidance are read from a file: a second
+    # seeded weight file at the config's T=3000
+    wdir = os.path.join(tmpdir, "cfg_weights_full")
+    os.makedirs(wdir, exist_ok=True)
+    cfg = cfg_config(tmpdir, "bfloat16", *ddim, f"save_weight_dir={wdir}",
+                     "diffusion.guidance=auto",
+                     "diffusion.weak_load_weight=weak.pt")
+    weak = seeded_params(cfg_config(tmpdir, "float32", "seed=1"))
+    torch.save(weak, os.path.join(wdir, "weak.pt"))
+    del weak
+    launches["auto_ddim_eval"], results["auto_ddim_eval"] = sampler_eval(
+        f"autoguidance w={cfg.diffusion.w} DDIM {n}", cfg, cparams, cone,
+        card_line, 2 * n, collections.Counter({B: 2 * fwd * n}),
+        lambda f: f)
+    cfg = cfg_config(tmpdir, "bfloat16", "diffusion.sampler=picard",
+                     f"diffusion.ddim_steps={n}")
+    launches["cfg_picard_eval"], results["cfg_picard_eval"] = \
+        sampler_eval(f"CFG w={cfg.diffusion.w} Picard {n}", cfg, cparams,
+                     cone, card_line, None, None, lambda f: 2 * f * n,
+                     fold=(2 * n * B, fwd),
+                     sequential_s=results["cfg_ddim_eval"]["sampler_s"])
+    phase_done(13, "fast and composite samplers (runner.evaluate)", t0)
+    return launches, results
+
+
+def chain_gain(sampler_fn, sched_cpu, steps):
+    """How far an eps error moves the output of a deterministic sampler:
+    the sampler is linear in x and eps, so feeding eps = 1 at step j alone
+    (x_T = 0) gives that step's weight w_j in the output. Returns (rms,
+    worst): sqrt(sum w_j^2), the output's error per unit eps error when
+    the steps' errors are independent of each other (an element's error
+    is then a sum of independent terms, whose size adds in squares), and
+    sum |w_j|, its error when every step's eps is off by 1 in the
+    direction that adds up (a bias). DDIM's weights grow where the chain
+    divides by a small sqrt(abar) (its first steps) and multiplies back
+    less."""
+    weights = []
+    for j in range(steps):
+        calls = []
+
+        def one_hot(x, t):
+            calls.append(None)
+            return torch.full_like(x, float(len(calls) - 1 == j))
+
+        out = sampler_fn(sched_cpu, one_hot, torch.zeros(1, 1, 1, 1,
+                                                         dtype=torch.float64))
+        weights.append(float(out))
+    w = np.asarray(weights)
+    return float(np.sqrt((w ** 2).sum())), float(np.abs(w).sum())
+
+
+def fast_sampler_parity(params, cparams, tmpdir):
+    """Phase 14: the fast samplers through the kernels against the plain
+    path, in f32 and bf16, at full width on the seeded weights, from one
+    x_T: unconditional DDIM (eta 0) over the whole 50-step chain and
+    DPM-Solver++ 20; Picard with max_iters = n against sequential DDIM at
+    n = PICARD_PARITY_STEPS, where the two grids agree; the CFG UNet's
+    guided (w=1.8) DDIM, 20 steps from state CFG_DDIM_FROM to 0. Each
+    limit is the sampler's rms chain gain (``chain_gain``, from its
+    coefficients) times the eps limit of phases 4 and 10, which one
+    forward meets: the kernels' eps errors come from rounding and
+    summation order, independent from step to step, so an eps off by up
+    to EPS_TOL at every step moves the output by about that much. (With
+    phase 4's measured bf16 eps error, 0.055, the rms gains predict 2.7,
+    3.9 and 4.3 on the three unconditional chains; a run on an H100,
+    NVIDIA H100 80GB HBM3 at 700 W, read 2.54, 5.54 and 3.98.) An error
+    that keeps its sign from step to step adds up as the worst-case gain
+    says, and a bias near EPS_TOL then fails the limit; each reading is
+    printed beside both limits. Returns {dtype: errors}, the f32 kernel
+    path's launches."""
+    from itsd_tpu_torch.cli import runner
+    from itsd_tpu_torch.core import (ddim_sample, ddim_segment,
+                                     dpm_solver_sample,
+                                     parallel_picard_sample)
+    from itsd_tpu_torch.core.sampling import ddim_timesteps
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    m = PICARD_PARITY_STEPS
+    if not np.array_equal(ddim_timesteps(T_STEPS, m),
+                          np.linspace(T_STEPS - 1, 0, m).round()):
+        fail(f"DDIM's and Picard's grids differ at T={T_STEPS}, n={m}")
+    samplers = {
+        f"DDIM {FAST_STEPS} (eta 0)": lambda sc, e, x: ddim_sample(
+            sc, e, x, num_steps=FAST_STEPS, clip_output=False),
+        f"DPM-Solver++ {DPM_STEPS}": lambda sc, e, x: dpm_solver_sample(
+            sc, e, x, num_steps=DPM_STEPS, clip_output=False)}
+    picard_seq = lambda sc, e, x: ddim_sample(  # noqa: E731
+        sc, e, x, num_steps=m, clip_output=False)
+    cfg_ddim = lambda sc, e, x: ddim_segment(  # noqa: E731
+        sc, e, x, CFG_DDIM_FROM, 0, num_steps=PARITY_STEPS)
+    sched_cpu = runner.build_schedule(eval_config(tmpdir), inference=True,
+                                      device="cpu")
+    csched_cpu = runner.build_schedule(cfg_config(tmpdir), inference=True,
+                                       device="cpu")
+    steps = {f"DDIM {FAST_STEPS} (eta 0)": FAST_STEPS,
+             f"DPM-Solver++ {DPM_STEPS}": DPM_STEPS}
+    gains = {k: chain_gain(fn, sched_cpu, steps[k])
+             for k, fn in samplers.items()}
+    gains["picard"] = chain_gain(picard_seq, sched_cpu, m)
+    gains["cfg"] = chain_gain(cfg_ddim, csched_cpu, PARITY_STEPS)
+    log("phase 14 chain gains (output error per unit eps error at every "
+        "step, (rms, worst case)): "
+        f"{({k: tuple(round(g, 4) for g in v) for k, v in gains.items()})}")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x_T = torch.randn((BATCH, 32, 32, 3), generator=gen, device=dev)
+    labels = torch.arange(CFG_BATCH, device=dev) % 10 + 1
+    errs, f32_launches = {}, {}
+
+    def check(what, name, got, want, key, factor=1.0):
+        """``got`` against ``want`` within factor x gains[key] x EPS_TOL
+        of the loop's dtype: the rms gain sets the limit, the worst-case
+        one is printed beside it."""
+        tol, worst = (factor * g * EPS_TOL[dtype] for g in gains[key])
+        err = (got - want).abs().max().item()
+        ok = np.isfinite(err) and err <= tol
+        log(f"fast parity {name} {what}: max_abs_err {err:.3g} (tol "
+            f"{tol:.3g}, {err / tol:.3f} of it; worst-case limit "
+            f"{worst:.3g}, {err / worst:.3f} of it), max |want| "
+            f"{want.abs().max().item():.3f} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"fast parity {name} {what}: {err:.3g} > {tol:.3g}")
+        return err
+
+    for dtype, name in ((torch.float32, "float32"),
+                        (torch.bfloat16, "bfloat16")):
+        e = {}
+        cfg = eval_config(tmpdir, dtype=name)
+        model, _ = runner.build_model(cfg)
+        model.load_state_dict(params)
+        model.to(dev).eval()
+        sched = runner.build_schedule(cfg, inference=True, device=dev)
+
+        def run():
+            with torch.inference_mode():
+                return {k: fn(sched, model, x_T)
+                        for k, fn in samplers.items()}
+
+        reset_launches()
+        got = run()
+        n1 = read_launches()
+        fwds = FAST_STEPS + DPM_STEPS
+        tc = fwds if dtype == torch.bfloat16 else 0
+        if n1 != route_counts(gn=51 * fwds, fwd=6 * fwds, fwd_mma=6 * tc):
+            fail(f"fast parity {name}: the kernel path launched {n1}")
+        p_gn, p_attn = plain_path()
+        with p_gn, p_attn:
+            want = run()
+        if read_launches() != n1:
+            fail("fast parity: the plain path launched a kernel")
+        for k in samplers:
+            e[k] = check(k, name, got[k], want[k], k)
+        reset_launches()
+        with torch.inference_mode():
+            par, sweeps = parallel_picard_sample(
+                sched, model, x_T[:PICARD_PARITY_BATCH], num_steps=m,
+                max_iters=m, tol=0.0, clip_output=False)
+            seq = picard_seq(sched, model, x_T[:PICARD_PARITY_BATCH])
+        n2 = read_launches()
+        want_n = sweeps + m
+        if n2 != route_counts(gn=51 * want_n, fwd=6 * want_n,
+                              fwd_mma=6 * want_n * (dtype == torch.bfloat16)):
+            fail(f"fast parity {name}: Picard and DDIM launched {n2}, want "
+                 f"{sweeps} sweeps and {m} steps")
+        e["picard"] = check(f"Picard {m} ({sweeps} sweeps) vs sequential "
+                            f"DDIM {m}", name, par, seq, "picard")
+        del model
+        ccfg = cfg_config(tmpdir, name)
+        cmodel, _ = runner.build_model(ccfg)
+        cmodel.load_state_dict(cparams)
+        cmodel.to(dev).eval()
+        csched = runner.build_schedule(ccfg, inference=True, device=dev)
+        guided = runner.make_eps_fn(cmodel, True, labels, ccfg.diffusion.w)
+
+        def crun():
+            with torch.inference_mode():
+                return cfg_ddim(csched, guided, x_T)
+
+        reset_launches()
+        cgot = crun()
+        n3 = read_launches()
+        gn, fwd, mma, wide = CFG_PER_FORWARD
+        tc = PARITY_STEPS if dtype == torch.bfloat16 else 0
+        if n3 != route_counts(gn=gn * PARITY_STEPS, fwd=fwd * PARITY_STEPS,
+                              fwd_mma=mma * tc, fwd_wide=wide * tc):
+            fail(f"fast parity {name}: the guided kernel path launched {n3}")
+        p_gn, p_attn = plain_path()
+        with p_gn, p_attn:
+            cwant = crun()
+        w = ccfg.diffusion.w
+        e["cfg"] = check(f"CFG w={w} DDIM {PARITY_STEPS} steps from "
+                         f"{CFG_DDIM_FROM}", name, cgot, cwant,
+                         "cfg", 1 + 2 * w)
+        if dtype == torch.float32:
+            f32_launches = {k: n1[k] + n2[k] + n3[k] for k in n1}
+        errs[name] = e
+        del cmodel
+    phase_done(14, "fast sampler parity", t0)
+    return errs, f32_launches
+
+
 def cuda_tests():
     """Phase 8: the CUDA tests in a subprocess, against the library that
     phase 1 built (the same sources hash to the same build directory)."""
@@ -1845,9 +2221,12 @@ def cuda_tests():
 
 
 # The paths whose launches the kernels' JSON line carries: the bf16 runs of
-# runner.evaluate and runner.train (phases 3, 7, 9 and 12).
+# runner.evaluate and runner.train (phases 3, 7, 9, 12 and 13).
 MAIN_PATHS = ("eval", "train", "cfg_eval", "cfg_interval_eval", "auto_eval",
-              "cond_train")
+              "cond_train", "ddim_eval", "ddim_eta1_eval", "dpm_eval",
+              "restart_eval", "picard_eval",
+              "cfg_ddim_eval", "cfg_dpm_interval_eval", "auto_ddim_eval",
+              "cfg_picard_eval")
 WORK = {"train": "one train step of configs/cifar10_uncond.yaml (batch 128, "
                  "bf16)",
         "cond_train": "one train step of configs/cifar10_cfg.yaml (batch "
@@ -1891,8 +2270,8 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
     ``launches`` sums the kernel's launches over the bf16 runs of
     runner.evaluate and runner.train (``launches_by_path``); the simt
     forward, dq and dk/dv, which no bf16 path sends there, count their
-    launches on the f32 kernel paths of the parity phases 4, 6, 10 and 11
-    (``launches_f32_parity``, kept for every kernel)."""
+    launches on the f32 kernel paths of the parity phases 4, 6, 10, 11 and
+    14 (``launches_f32_parity``, kept for every kernel)."""
     entries = []
     for name, (source, replaces, work) in KERNELS.items():
         by_tag = fwd[name] if name in fwd else bwd[name]
@@ -1903,7 +2282,7 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
                                      "flash_bwd_dq_simt",
                                      "flash_bwd_dkv_simt"):
             launches = f32_launches[name]
-            counted_on = "f32 kernel paths of phases 4, 6, 10 and 11"
+            counted_on = "f32 kernel paths of phases 4, 6, 10, 11 and 14"
         if not launches:
             fail(f"{name} was not launched on its paths")
         entry = dict(name=name, route="cuda", source=source,
@@ -1939,13 +2318,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="itsd_chip_smoke_") as tmpdir:
         cfg = eval_config(tmpdir)
         params = seeded_params(cfg)
-        eval_shapes, train_shapes = path_shapes(cfg, params, dev,
-                                                (BATCH, TRAIN_BATCH))
+        eval_shapes, train_shapes, picard_shapes = path_shapes(
+            cfg, params, dev, (BATCH, TRAIN_BATCH, FAST_STEPS * BATCH))
         ccfg = cfg_config(tmpdir)
         cparams = seeded_params(ccfg)
-        cfg_shapes, cfg_b8_shapes, cond_shapes = path_shapes(
-            ccfg, cparams, dev,
-            (2 * CFG_BATCH, CFG_BATCH, ccfg.train.batch_size))
+        cfg_shapes, cfg_b8_shapes, cond_shapes, cfg_picard_shapes = \
+            path_shapes(ccfg, cparams, dev,
+                        (2 * CFG_BATCH, CFG_BATCH, ccfg.train.batch_size,
+                         2 * FAST_STEPS * CFG_BATCH))
         from itsd_tpu_torch.kernels import attention
         fwd_routes = collections.Counter(
             attention.route(torch.bfloat16, C, "forward")
@@ -1963,10 +2343,13 @@ def main() -> int:
             "cfg_eval": (cfg_shapes, 50, False),
             "cfg_eval_b8": (cfg_b8_shapes, 50, False),
             "cond_train": (cond_shapes, 10, True),
+            "picard": (picard_shapes, 5, False),
+            "cfg_picard": (cfg_picard_shapes, 5, False),
             "flagship": (FLAGSHIP_ATTENTION, 10, True)}, dev, timer)
-        paths = {"eval": eval_path(params, tmpdir, smi_line,
-                                   len(eval_shapes[0]),
-                                   len(eval_shapes[1]), timer)}
+        eval_launches = eval_path(
+            params, tmpdir, smi_line, len(eval_shapes[0]),
+            len(eval_shapes[1]), timer)
+        paths = {"eval": eval_launches}
         f32 = [eval_parity(params, tmpdir)]
         bwd = check_backward_kernels({
             "train": (train_shapes, [(8, 256, 128)]),
@@ -1974,12 +2357,14 @@ def main() -> int:
             "flagship": (FLAGSHIP_ATTENTION, [])}, dev, timer)
         f32.append(train_parity(tmpdir)[1])
         paths["train"], _ = train_path(tmpdir, smi_line)
-        del params
         guided, _ = guided_eval_path(cparams, tmpdir, smi_line)
         paths.update(guided)
         f32.append(guided_parity(cparams, tmpdir)[0])
         f32.append(cond_train_parity(cparams, tmpdir)[1])
-        del cparams
+        fast, _ = fast_sampler_path(params, cparams, tmpdir, smi_line)
+        paths.update(fast)
+        f32.append(fast_sampler_parity(params, cparams, tmpdir)[1])
+        del params, cparams
         paths["cond_train"] = cond_train_path(tmpdir, smi_line)
     cuda_tests()
     f32_launches = {k: sum(n[k] for n in f32) for k in f32[0]}

@@ -2,15 +2,15 @@
 
 Counterpart of ``itsd_tpu/cli/runner.py`` (``build_model``,
 ``build_schedule``, ``load_dataset`` and ``init_params`` at 49-135,
-``load_eval_params`` 137-160, ``run_sampler``'s ancestral branch 179-227,
+``load_eval_params`` 137-160, ``_cli_segment`` 163-177, ``run_sampler``
+179-226, ``_validated_launch_segments`` 228-240,
 ``make_eps_fn`` and ``load_weak_params`` 277-319, ``make_train_key`` and
 ``resolve_track_metrics`` 322-350, ``train`` 389-600,
 ``_sample_grid_during_training`` 639-662 and ``evaluate`` 668-712), with
-the conditional model, classifier-free guidance and autoguidance. Search,
-the fast samplers, segmented launches, spatial meshes, metric-tracked
-training, profiling, representation extraction, the cross-T surgery of a
-table time embedding and the T-extension fine-tune are not yet ported and
-raise.
+the conditional model, classifier-free guidance, autoguidance and every
+sampler. Search, spatial meshes, metric-tracked training, profiling,
+representation extraction, the cross-T surgery of a table time embedding
+and the T-extension fine-tune are not yet ported and raise.
 
 Entry points run on ``device="cuda"`` unless the caller passes another.
 """
@@ -25,7 +25,9 @@ from typing import Optional
 
 import torch
 
-from ..core import linear_schedule, sample
+from ..core import (ddim_sample, dpm_solver_sample, linear_schedule,
+                    make_segment_denoiser, parallel_picard_sample,
+                    restart_sample, sample)
 from ..core.process import make_autoguidance_eps_fn, make_cfg_eps_fn
 from ..data import (BatchIterator, load_cifar10, load_image_folder,
                     prefetch_to_device, shapes_dataset, synthetic_dataset,
@@ -126,6 +128,20 @@ def load_eval_params(cfg: Config, name: Optional[str] = None) -> dict:
     return obj
 
 
+def load_weights(cfg: Config, model: UNet, params: dict) -> None:
+    """``model.load_state_dict(params)``, after checking that a table time
+    embedding in ``params`` has the rows the T wanted needs. A checkpoint
+    of another T needs the cross-T surgery (JAX's ``load_eval_params``
+    extends the table), which is not yet ported: that raises."""
+    table = params.get("time_embedding.table")
+    want_T = cfg.diffusion.inference_T or cfg.diffusion.T
+    if table is not None and table.shape[0] != want_T:
+        raise _not_ported(
+            f"a checkpoint whose time table has {table.shape[0]} rows, "
+            f"sampled at T={want_T} (the cross-T surgery)")
+    model.load_state_dict(params)
+
+
 def make_eps_fn(model: UNet, conditional: bool = False, labels=None,
                 w: float = 0.0, cfg_interval=None, weak_model=None):
     """eps_fn for the sampler: the model's forward when unconditional;
@@ -182,7 +198,7 @@ def sampling_eps_fn(cfg: Config, model: UNet, conditional: bool,
     weak = None
     if weak_params is not None:
         weak, _ = build_model(cfg)
-        weak.load_state_dict(weak_params)
+        load_weights(cfg, weak, weak_params)
         weak.to(device).eval()
     d = cfg.diffusion
     interval = tuple(d.cfg_interval) if d.cfg_interval else None
@@ -190,15 +206,57 @@ def sampling_eps_fn(cfg: Config, model: UNet, conditional: bool,
                        cfg_interval=interval, weak_model=weak)
 
 
+def _cli_segment(cfg: Config, sched, eps_fn):
+    """(denoise_seg, cost) for the forking searches from
+    ``diffusion.sampler``: DDIM or DPM segments when configured, else None
+    (the searches then build their ancestral default; picard has no
+    segment form)."""
+    d = cfg.diffusion
+    if d.sampler not in ("ddim", "dpm"):
+        return None
+    return make_segment_denoiser(sched, eps_fn, d.sampler,
+                                 num_steps=min(d.ddim_steps, sched.T),
+                                 clip_denoised=d.clip_denoised,
+                                 eta=d.ddim_eta)
+
+
 def run_sampler(cfg: Config, sched, eps_fn, x_T: torch.Tensor,
                 generator: torch.Generator) -> torch.Tensor:
-    """The sampler ``cfg.diffusion.sampler`` names; only ancestral DDPM is
-    ported."""
+    """The sampler ``cfg.diffusion.sampler`` names: ancestral DDPM, DDIM,
+    DPM-Solver++ or Picard, ``diffusion.ddim_steps`` the step budget of
+    the last three. A non-empty ``diffusion.restart_intervals`` wraps the
+    ddpm, ddim or dpm family in restart sampling. Picard cannot run with a
+    guidance interval: a sweep evaluates every timestep of its grid in one
+    call, so guidance cannot be switched per timestep (JAX decides it for
+    the whole sweep from the first grid point)."""
     d = cfg.diffusion
+    steps = min(d.ddim_steps, sched.T)
     if d.restart_intervals:
-        raise _not_ported("restart sampling (diffusion.restart_intervals)")
-    if d.sampler in ("ddim", "dpm", "picard"):
-        raise _not_ported(f"diffusion.sampler={d.sampler!r}")
+        if d.sampler not in ("ddpm", "ddim", "dpm"):
+            raise ValueError(
+                "diffusion.restart_intervals requires sampler "
+                f"ddpm | ddim | dpm, got {d.sampler!r} (picard has no "
+                "segment form)")
+        return restart_sample(sched, eps_fn, x_T,
+                              restarts=d.restart_intervals,
+                              sampler=d.sampler, num_steps=steps,
+                              clip_denoised=d.clip_denoised,
+                              eta=d.ddim_eta, generator=generator)
+    if d.sampler == "ddim":
+        return ddim_sample(sched, eps_fn, x_T, num_steps=steps,
+                           eta=d.ddim_eta, generator=generator)
+    if d.sampler == "dpm":
+        return dpm_solver_sample(sched, eps_fn, x_T, num_steps=steps)
+    if d.sampler == "picard":
+        if d.cfg_interval:
+            raise ValueError(
+                "diffusion.sampler=picard cannot run with "
+                f"diffusion.cfg_interval={list(d.cfg_interval)}: a Picard "
+                "sweep evaluates all its timesteps in one call, so guidance "
+                "cannot be switched per timestep")
+        imgs, _ = parallel_picard_sample(sched, eps_fn, x_T,
+                                         num_steps=steps)
+        return imgs
     if d.sampler != "ddpm":
         raise ValueError(f"unknown diffusion.sampler {d.sampler!r}; "
                          "expected ddpm | ddim | dpm | picard")
@@ -206,19 +264,35 @@ def run_sampler(cfg: Config, sched, eps_fn, x_T: torch.Tensor,
                   clip_denoised=d.clip_denoised)
 
 
+def _validated_launch_segments(cfg: Config) -> int:
+    """``diffusion.launch_segments``, validated: it splits the ancestral
+    chain, so more than one segment requires sampler=ddpm without
+    restart_intervals. JAX splits the chain into launches to bound the
+    device time of one; here every step is its own launches, so an
+    accepted count changes nothing: the chain is one ``sample`` call."""
+    d = cfg.diffusion
+    seg_n = max(1, int(d.launch_segments or 1))
+    if seg_n > 1 and (d.sampler != "ddpm" or d.restart_intervals):
+        raise ValueError(
+            "diffusion.launch_segments splits the ancestral T-step chain "
+            "into segments; it requires diffusion.sampler=ddpm without "
+            "restart_intervals")
+    return seg_n
+
+
 def evaluate(cfg: Config, params=None, device="cuda") -> dict:
-    """Sample ``eval_batch_size`` images with the ancestral sampler; write
-    the initial-noise grid and the sample grid under ``cfg.sampled_dir``.
-    Returns ``{"images": [B,H,W,3] numpy in [-1, 1], "path": grid path}``."""
-    if max(1, int(cfg.diffusion.launch_segments or 1)) > 1:
-        raise _not_ported("diffusion.launch_segments > 1")
+    """Sample ``eval_batch_size`` images with the sampler ``run_sampler``
+    picks; write the initial-noise grid and the sample grid under
+    ``cfg.sampled_dir``. Returns ``{"images": [B,H,W,3] numpy in [-1, 1],
+    "path": grid path}``."""
+    _validated_launch_segments(cfg)
     if cfg.train.spatial_shard > 1:
         raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
     model, conditional = build_model(cfg)
     weak = load_weak_params(cfg, conditional) if conditional else None
     if params is None:
         params = load_eval_params(cfg)
-    model.load_state_dict(params)
+    load_weights(cfg, model, params)
     model.to(device).eval()
 
     sched = build_schedule(cfg, inference=True, device=device)

@@ -2,6 +2,10 @@
 
 Counterpart of ``itsd_tpu/core/schedules.py``. The tables are computed in
 float64 with numpy and stored as float32 tensors on the schedule's device.
+The fast samplers build their timestep grids and coefficients on the host,
+from ``alphas_bar_host``: the float32 table upcast to float64, as JAX's
+``_host_alphas_bar`` reads it, kept on the host so that no sampler reads a
+device tensor back.
 """
 
 from __future__ import annotations
@@ -14,7 +18,9 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
-    """Every field but ``T`` is a float32 ``[T]`` tensor."""
+    """Every field but ``T`` and ``alphas_bar_host`` is a float32 ``[T]``
+    tensor; ``alphas_bar_host`` is ``alphas_bar`` as a float64 numpy array
+    on the host."""
 
     betas: torch.Tensor
     alphas: torch.Tensor
@@ -27,6 +33,7 @@ class DiffusionSchedule:
     # variance the ancestral sampler uses: concat([posterior_var[1:2],
     # betas[1:]])
     sampler_var: torch.Tensor
+    alphas_bar_host: np.ndarray
     T: int
 
     @property
@@ -60,6 +67,7 @@ def linear_schedule(beta_1: float, beta_T: float, T: int,
         coeff2=f32(coeff2),
         posterior_var=f32(posterior_var),
         sampler_var=f32(sampler_var),
+        alphas_bar_host=alphas_bar.astype(np.float32).astype(np.float64),
         T=int(T),
     )
 

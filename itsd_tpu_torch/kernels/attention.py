@@ -27,7 +27,8 @@ from the function, the dtype and C:
 Every entry point dispatches on where its inputs lie: CPU tensors go to the
 plain versions, CUDA tensors to the kernels, and anything the kernels do not
 take raises. A failed build or launch raises; nothing gives way to another
-route.
+route. Every kernel puts the batch in ``gridDim.y``, which CUDA caps at
+65,535, so a larger batch raises (``check_batch``) before any launch.
 """
 
 from __future__ import annotations
@@ -54,6 +55,15 @@ MAX_C = 1024  # kMaxC of csrc/flash_attention.cu and flash_attention_bwd.cu
 MMA_MAX_C = 256  # kMaxC of the csrc/flash_attention*_mma.cu kernels
 WIDE_MAX_C = 1024  # kMaxC of the csrc/flash_attention*_wide.cu kernels
 KERNELS = ("forward", "dq", "dkv")
+MAX_GRID_Y = 65535  # CUDA's cap on gridDim.y, where every kernel puts B
+
+
+def check_batch(B: int) -> None:
+    """Raise unless a batch of ``B`` fits one launch: every kernel puts the
+    batch in ``gridDim.y``, which CUDA caps at ``MAX_GRID_Y``."""
+    if B > MAX_GRID_Y:
+        raise ValueError(f"attention: the kernels take a batch of at most "
+                         f"{MAX_GRID_Y} (CUDA's gridDim.y cap), got {B}")
 
 
 def route(dtype: torch.dtype, C: int, kernel: str) -> str:
@@ -117,6 +127,7 @@ def _check(q, k, v, *more):
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError("attention: q, k, v must be 16-byte aligned (the "
                          "kernel loads 4 elements at once)")
+    check_batch(q.shape[0])
     C = q.shape[-1]
     if C % 4 or C > MAX_C:
         raise ValueError(f"attention: kernel takes C % 4 == 0, C <= {MAX_C}; "

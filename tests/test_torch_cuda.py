@@ -22,7 +22,9 @@ the private ``_flash_simt``, ``_flash_bwd_dq_simt`` and
 ``_flash_bwd_dkv_simt``. Run one route's tests with ``-k mma``, ``-k wide``
 or ``-k simt``, the dq tests of one route with ``-k "dq and mma"``,
 ``-k "wide and cfg"`` or ``-k "routes and simt"``, the tests at the CFG
-UNet's widths and maps with ``-k cfg``.
+UNet's widths and maps with ``-k cfg``, those at Picard's folded batches
+(400 and 800 rows) with ``-k picard``, and a batch at CUDA's gridDim.y
+cap and past it with ``-k grid_cap``.
 
 The backward kernels against ``attention_bwd_plain`` (the same formula and
 roundings): f32 2e-5 absolute on values O(1), sums in another order
@@ -603,3 +605,99 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     q = torch.randn((2, 16, 32), device=cuda_device)
     with pytest.raises(ValueError, match="lse must be"):
         attention.attention_bwd(q, q, q, q, lse.double(), q, 0.5)
+
+
+# Picard folds its n-point time grid into the batch: n=50 at batch 8 gives
+# the unconditional UNet 400 rows, and CFG doubles the CFG UNet's to 800.
+# (rows, N, C) of their attention calls; GroupNorm at their largest and
+# smallest maps.
+PICARD_ATTENTION = [(400, 256, 256), (800, 1024, 128), (800, 256, 512),
+                    (800, 64, 1024), (800, 16, 1024), (800, 4, 512),
+                    (800, 1, 256)]
+PICARD_GN = [(400, 128, 32, 32), (400, 256, 16, 16), (400, 512, 4, 4),
+             (800, 128, 32, 32), (800, 512, 16, 16), (800, 1024, 8, 8),
+             (800, 2048, 2, 2), (800, 256, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,C", PICARD_ATTENTION)
+def test_flash_forward_at_picard_folded_batches(cuda_device, B, N, C):
+    """The flash forward on the route bf16 takes, and simt in f32, against
+    the plain version at Picard's folded batches."""
+    gen = torch.Generator(device=cuda_device).manual_seed(B + N + C)
+    scale = C ** -0.5
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn((B, N, C), generator=gen, device=cuda_device)
+                   .to(dtype) for _ in range(3))
+        which = attention.route(dtype, C, "forward")
+        counts = _counts()
+        o = attention.spatial_attention(q, k, v)
+        want = attention.attention_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        fwd, mma, wide = _launched(counts)[:3]
+        assert (fwd, mma, wide) == (1, int(which == "mma"),
+                                    int(which == "wide"))
+        if dtype == torch.float32:
+            torch.testing.assert_close(o, want, atol=2e-5, rtol=0)
+        else:
+            _close_bf16(o, want, v)
+        del q, k, v, o, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PICARD_GN)
+def test_groupnorm_at_picard_folded_batches(cuda_device, dtype, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[0] + shape[1])
+    x, w, b = _gn_inputs(shape, dtype, gen, cuda_device)
+    for act in (True, False):
+        got = groupnorm.groupnorm_swish(x, w, b, _groups(shape[1]), act=act)
+        want = groupnorm.groupnorm_swish_plain(x, w, b, _groups(shape[1]),
+                                               act=act)
+        torch.cuda.synchronize()
+        _gn_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 512),
+                                     (torch.float32, 128)])
+def test_attention_at_the_grid_cap(cuda_device, dtype, C):
+    """A batch at CUDA's gridDim.y cap of 65,535 (where every kernel puts
+    the batch) runs as one launch of each kernel and matches the plain
+    version: forward with lse, dq and dk/dv with a nonzero dlse. One row
+    more raises ValueError before any launch."""
+    B, N = attention.MAX_GRID_Y, 4
+    gen = torch.Generator(device=cuda_device).manual_seed(C)
+    q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
+                   .to(dtype) for _ in range(4))
+    dlse = torch.randn((B, N), generator=gen, device=cuda_device)
+    scale = C ** -0.5
+    counts = _counts()
+    o, lse = attention.attention_with_lse(q, k, v, scale)
+    got = attention.attention_bwd(q, k, v, o, lse, do, scale, dlse)
+    want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
+    want = attention.attention_bwd_plain(q, k, v, o, lse, do, scale, dlse)
+    torch.cuda.synchronize()
+    launched = _launched(counts)
+    assert (launched[0], launched[3], launched[6]) == (1, 1, 1)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
+    q1 = torch.cat([q, q[:1]])
+    counts = _counts()
+    with pytest.raises(ValueError, match="gridDim.y"):
+        attention.attention_with_lse(q1, q1, q1, scale)
+    assert _launched(counts) == (0,) * len(counts)
+    del q1
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, want_o, atol=2e-5, rtol=0)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=BWD_F32_TOL, rtol=0)
+        return
+    _close_bf16(o, want_o, v)
+    bounds = (_dq_order_bound(q, k, v, do, lse, scale),
+              _dk_order_bound(q, k, v, do, lse, scale), 0.0)
+    for g, w, bound in zip(got, want, bounds):
+        err = (g.float() - w.float()).abs()
+        limit = (BF16_RTOL * w.float().abs().max()
+                 + BF16_RTOL * w.float().abs() + bound)
+        assert (err <= limit).all()

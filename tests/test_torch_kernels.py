@@ -271,6 +271,41 @@ def test_route_refuses_an_unknown_kernel():
         attention.route(torch.bfloat16, 512, "backward")
 
 
+@pytest.mark.parametrize("B", [1, 800, 65535])
+def test_check_batch_takes_a_batch_up_to_the_grid_cap(B):
+    """The kernels put the batch in gridDim.y, at most 65,535 (Picard folds
+    400 and 800 rows at n=50)."""
+    attention.check_batch(B)
+
+
+@pytest.mark.parametrize("B", [65536, 128000])
+def test_check_batch_refuses_a_batch_past_the_grid_cap(B):
+    """Past the cap (Picard's fold under CFG at B=64, n=1000 is 128,000
+    rows) the check raises a ValueError that names the limit."""
+    with pytest.raises(ValueError, match="at most 65535"):
+        attention.check_batch(B)
+
+
+def test_a_batch_past_the_grid_cap_raises_before_any_launch(monkeypatch):
+    """Each entry point refuses a batch past the cap before it loads the
+    library or counts a launch (a recording stand-in for the library, on
+    CPU tensors, which the wrappers are handed directly)."""
+    calls = []
+    monkeypatch.setattr(_build, "load", lambda: calls.append("load"))
+    B, N, C = attention.MAX_GRID_Y + 1, 1, 4
+    q, k, v, do = (torch.zeros((B, N, C)) for _ in range(4))
+    lse, dd = torch.zeros((B, N)), torch.zeros((B, N))
+    before = [getattr(attention, n) for n in COUNTERS]
+    for launch in (lambda: attention._flash(q, k, v, 0.5, emit_lse=True),
+                   lambda: attention.flash_bwd_dq(q, k, v, do, lse, dd, 0.5),
+                   lambda: attention.flash_bwd_dkv(q, k, v, do, lse, dd,
+                                                   0.5)):
+        with pytest.raises(ValueError, match="gridDim.y"):
+            launch()
+    assert calls == []
+    assert [getattr(attention, n) for n in COUNTERS] == before
+
+
 COUNTERS = ("launches", "mma_launches", "wide_launches", "dq_launches",
             "dq_mma_launches", "dq_wide_launches", "dkv_launches",
             "dkv_mma_launches", "dkv_wide_launches")

@@ -24,7 +24,7 @@ from _torch_port import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "itsd_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "itsd_tpu")
 
 TINY = ["channel=16", "channel_mult=[1,2]", "attn=[1]", "num_res_blocks=1",
@@ -134,15 +134,97 @@ def test_evaluate_needs_weights():
 
 
 @pytest.mark.parametrize("override", [
-    "diffusion.sampler=ddim", "diffusion.sampler=dpm",
-    "diffusion.sampler=picard", "diffusion.launch_segments=2",
-    "train.spatial_shard=2", "model.backbone=vit", "model.remat=true",
-    "diffusion.restart_intervals=[[10,5,1]]"])
+    "train.spatial_shard=2", "model.backbone=vit", "model.remat=true"])
 def test_unported_eval_options_raise(tmp_path, override):
     cfg = load_config(None, TINY + [f"sampled_dir={tmp_path}", override])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         model, _ = runner.build_model(cfg)
         runner.evaluate(cfg, runner.init_params(cfg, model), device="cpu")
+
+
+@pytest.mark.parametrize("overrides", [
+    ["diffusion.sampler=ddim"], ["diffusion.sampler=dpm"],
+    ["diffusion.sampler=picard"], ["diffusion.launch_segments=2"],
+    ["diffusion.restart_intervals=[[3,1,1]]"],
+    ["diffusion.sampler=ddim", "diffusion.ddim_eta=1.0",
+     "diffusion.restart_intervals=[[3,1,2]]"]])
+def test_fast_sampler_eval_options_run(tmp_path, overrides):
+    """The samplers that raised "not yet ported" until they were ported
+    run through evaluate (ddim_steps 3 of T=4), unconditional and guided."""
+    for base in (TINY, COND):
+        cfg = load_config(None, base + [f"sampled_dir={tmp_path}",
+                                        "diffusion.ddim_steps=3",
+                                        *overrides])
+        model, _ = runner.build_model(cfg)
+        imgs = runner.evaluate(cfg, runner.init_params(cfg, model),
+                               device="cpu")["images"]
+        assert imgs.shape == (2, 8, 8, 3) and np.isfinite(imgs).all()
+        assert np.abs(imgs).max() <= 1.0
+
+
+@pytest.mark.parametrize("seg_n", [2, 3, 4])
+def test_launch_segments_equal_one_chain_bit_for_bit(tmp_path, seg_n):
+    """diffusion.launch_segments is accepted for the ancestral chain and
+    changes nothing: JAX splits the chain into launches to bound the device
+    time of one, here every step is its own launches, so the images equal
+    one sample call's bit for bit (T=10)."""
+    base = TINY[:-2] + ["T=10", "img_size=8", "train.eval_batch_size=2",
+                        f"sampled_dir={tmp_path}",
+                        "diffusion.clip_denoised=true"]
+    cfg = load_config(None, base)
+    model, _ = runner.build_model(cfg)
+    params = runner.init_params(cfg, model)
+    one = runner.evaluate(cfg, params, device="cpu")["images"]
+    seg = runner.evaluate(load_config(None, base + [
+        f"diffusion.launch_segments={seg_n}"]), params,
+        device="cpu")["images"]
+    np.testing.assert_array_equal(seg, one)
+
+
+@pytest.mark.parametrize("overrides,match", [
+    (["diffusion.sampler=ddim", "diffusion.launch_segments=2"],
+     "launch_segments"),
+    (["diffusion.restart_intervals=[[3,1,1]]", "diffusion.launch_segments=2"],
+     "launch_segments"),
+    (["diffusion.sampler=picard", "diffusion.restart_intervals=[[3,1,1]]"],
+     "picard"),
+    (["diffusion.sampler=picard", "diffusion.cfg_interval=[1,3]"],
+     "cfg_interval"),
+    (["diffusion.restart_intervals=[[5,1,1]]"], "out of range")])
+def test_sampler_options_that_cannot_run_raise(tmp_path, overrides, match):
+    """Segments of a non-ancestral chain, restart over picard, picard with a
+    guidance interval (its sweep evaluates every timestep at once) and a
+    restart interval beyond T raise ValueError."""
+    cfg = load_config(None, COND + [f"sampled_dir={tmp_path}", *overrides])
+    model, _ = runner.build_model(cfg)
+    with pytest.raises(ValueError, match=match):
+        runner.evaluate(cfg, runner.init_params(cfg, model), device="cpu")
+
+
+def test_a_checkpoint_of_another_T_is_not_yet_ported(tmp_path, capsys):
+    """A table time embedding saved at diffusion.T=10 and sampled at 20
+    needs the cross-T surgery: evaluate raises NotImplementedError (for the
+    eval weights and for autoguidance's weak weights), the CLI exits 2."""
+    keys = COND + ["model.time_embed=table", f"save_weight_dir={tmp_path}",
+                   f"sampled_dir={tmp_path}"]
+    cfg10 = load_config(None, keys + ["diffusion.T=10"])
+    model, _ = runner.build_model(cfg10)
+    torch.save(runner.init_params(cfg10, model), tmp_path / "t10.pt")
+    cfg20 = load_config(None, keys + ["diffusion.T=20"])
+    model, _ = runner.build_model(cfg20)
+    torch.save(runner.init_params(cfg20, model), tmp_path / "t20.pt")
+    for extra in (["test_load_weight=t10.pt"],
+                  ["test_load_weight=t20.pt", "diffusion.guidance=auto",
+                   "diffusion.weak_load_weight=t10.pt"]):
+        with pytest.raises(NotImplementedError, match="cross-T surgery"):
+            runner.evaluate(load_config(None, keys + ["diffusion.T=20",
+                                                      *extra]),
+                            device="cpu")
+    rc = cli_main.main(["eval", "--device", "cpu", *keys, "diffusion.T=20",
+                        "test_load_weight=t10.pt"])
+    assert rc == 2
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and "10 rows" in err
 
 
 COND = TINY + ["model.num_labels=10", "w=1.8"]
