@@ -23,8 +23,12 @@ Phases, each ending with one line that carries its elapsed seconds:
    f32); the simt kernel is checked and timed on the same bf16 inputs as
    the tensor-core one at every shape. Also at Picard's folded batches
    (phase 13's time grid of 50 points in the batch: 400 rows for the
-   unconditional UNet, 800 for the guided CFG UNet). The flash forward also
-   at the 256x256 flagship's attention, [1, 4096, 384] (bf16: wide).
+   unconditional UNet, 800 for the guided CFG UNet) and at phase 15's
+   search folds (32 rows for the unconditional UNet: 4 chunked candidates,
+   pruned survivors, paths or neighbours of batch 8; 64 and 32 for the CFG
+   UNet: 4 candidates and 2 survivors of the dual batch 16); phase 15
+   fails on an attention batch that this phase did not hold. The flash
+   forward also at the 256x256 flagship's attention, [1, 4096, 384] (bf16: wide).
    GroupNorm also at the 256x256 flagship's largest spans (batch 1, spans
    of up to 786,432 elements, split over a thread-block cluster): forward
    and backward in f32 and bf16, two launches equal bit for bit, timed;
@@ -40,8 +44,10 @@ Phases, each ending with one line that carries its elapsed seconds:
 5. backward: the dq and dk/dv kernels (each on its bf16 route and on
    simt, as in phase 2; both on the wide route at C=512 and C=1024 and at
    the flagship's C=384) against their plain versions at both train
-   paths' shapes, one more C and the flagship's [1, 4096, 384], in bf16
-   and f32, with a nonzero dlse once, timed beside the plain versions, the
+   paths' shapes, gradient search's (the unconditional eval batch 8 and
+   the CFG dual batch 16), one more C and the flagship's [1, 4096, 384],
+   in bf16 and f32, with a nonzero dlse once, timed beside the plain
+   versions, the
    backward of ``F.scaled_dot_product_attention`` and their bound; every
    dq and dk/dv must take the route ``route`` names; the GroupNorm
    backward (autograd through the plain recompute) checked and timed;
@@ -85,7 +91,7 @@ Phases, each ending with one line that carries its elapsed seconds:
     loss; the checkpoint restored
     for one more step and, through the eval loader, for 100 guided steps
     of its T=3000 chain; ms per step, images/s, peak memory and the
-    device's busy share (it runs after phase 14);
+    device's busy share (it runs after phase 16);
 13. fast and composite samplers: ``runner.evaluate`` at full width, bf16,
     batch 8: the unconditional UNet (T=1000) through DDIM 50 at eta 0 and
     1, DPM-Solver++ 20, restart sampling on (600, 300, 2) over DDIM 50,
@@ -102,7 +108,34 @@ Phases, each ending with one line that carries its elapsed seconds:
     Picard (max_iters = n = 20) against sequential DDIM at a (T, n) where
     the two grids agree, and 20 guided DDIM steps of the CFG UNet; each
     limit the sampler's rms chain gain times the eps limit of phases 4
-    and 10.
+    and 10;
+15. search: a SmallCNN classifier trained here on shapes (32x32) with the
+    port's ``train_classifier``, then ``runner.run_search`` at full width,
+    bf16, batch 8, scored by it (``search.verifier=classifier``): the
+    unconditional UNet through random N=16 over the ancestral T=1000
+    chain (128 rows, BASELINE.md workload 3), random N=16 in chunks of 4
+    over DDIM 50 with the verifier-hacking guard, pruned 16 -> 4 at t=500,
+    path 4/2 at t=400, zero-order 4 x 2 over DDIM 50, SMC with 16
+    particles over DDIM 50 segments, gradient search through DPM-Solver++
+    20 (2 iterations) and through the remat'd ancestral chain (1
+    iteration); the CFG UNet (w=1.8, dual batch) through random N=4 and
+    pruned 4 -> 2 over DDIM 50 and gradient search through DPM-Solver++ 20
+    (the wide dq and dk/dv at batch 16). Exact launches (forwards, the
+    remat'd chain's recomputed forwards, one dq and one dk/dv per
+    attention call of a differentiated forward), the attention batch of
+    every call, no synchronizing CUDA operation inside an algorithm
+    (random search: one read between chunks), JAX's NFE accounting; wall
+    s, NFE, ms per NFE and per forward, peak memory, the best and the
+    median candidate score;
+16. search parity: random and pruned search over DDIM 50 and gradient
+    search's gradient through DPM-Solver++ (both UNets), kernel path
+    against plain path on the same seeds, in f32 and bf16; then
+    ``gradient_search`` itself over the remat'd ancestral chain cut to
+    T=20 (3 iterations of Adam and best tracking; its scores and gradient
+    norms, kernels against plain) and the remat'd chain's gradient against
+    the gradient of the chain that holds every step, on the same draws,
+    bit for bit under cuDNN's deterministic algorithms; each reading
+    printed beside its limit.
 
 Then it prints the ``nvidia-smi`` line, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -110,9 +143,10 @@ the script then exits non-zero and prints no result. It also exits non-zero
 when there is no CUDA device or no ``itsd_tpu_torch`` beside it.
 
 Launch counts: every count is set to 0 just before a path is driven and
-read just after. The bf16 eval and train paths of the unconditional UNet
-(phases 3, 7 and 13) run the mma kernels and GroupNorm; those of the CFG
-UNet (phases 9, 12 and 13) the mma and wide kernels. The kernels' JSON
+read just after. The bf16 eval, train and search paths of the
+unconditional UNet (phases 3, 7, 13 and 15) run the mma kernels and
+GroupNorm; those of the CFG UNet (phases 9, 12, 13 and 15) the mma and
+wide kernels. The kernels' JSON
 line carries each kernel's launches summed over these paths, and per path;
 the simt forward, dq and dk/dv, which no bf16 path runs, carry their
 launches on the f32 kernel paths of phases 4, 6, 10, 11 and 14.
@@ -173,6 +207,54 @@ RESTARTS = ((600, 300, 2),)  # restart_intervals over DDIM 50
 PICARD_PARITY_STEPS = 20    # Picard against sequential DDIM (grids agree)
 PICARD_PARITY_BATCH = 8
 CFG_DDIM_FROM = 200         # the guided DDIM parity runs state 200 -> 0
+# Phases 15 and 16: search.
+CLF_IMAGES = 2048           # shapes images the classifier verifier trains on
+CLF_EPOCHS = 20           # 16 steps an epoch at batch 128
+CLF_MIN_ACC = 0.9
+# The class the unconditional searches reward. The seeded UNet's samples
+# are noise-like, and the classifier gives them class 3 with probability
+# ~1 (phase 15's first run on an H100: every score -0.0000), which leaves
+# nothing to search for; class 0 is far from saturated.
+TARGET = 0
+SMC_STEPS = (700, 400, 150)
+PRUNE_AT = 500              # pruned 16 -> 4 at this timestep (uncond)
+INJECT_AT = 400             # path search's injection step (uncond)
+CFG_PRUNE_AT = 1500         # pruned 4 -> 2 (CFG UNet, T=3000)
+# Candidates folded into the batch: 4 of batch 8 (the unconditional
+# UNet's chunks, pruned survivors, paths and neighbours: 32 rows); the CFG
+# UNet's 4 candidates and 2 survivors of its dual batch 16 (64 and 32 rows).
+SEARCH_FOLD = 4
+CFG_SEARCH_N = 4
+CFG_SEARCH_KEEP = 2
+# The remat'd ancestral gradient's chain, cut from T=1000: one iteration
+# at T=1000 took 122.3 s on an H100 (NVIDIA H100 80GB HBM3, 700 W; 40.8
+# ms a forward, recompute and backward included).
+REMAT_T = 250
+CFG_GRAD_STEPS = 10         # DPM-Solver++ steps of the CFG gradient parity
+# Phase 16 limits, kernels against plain on the same seeds, each 4-5x
+# the largest error of the first run on an H100 (NVIDIA H100 80GB HBM3,
+# 700 W). Scores: the classifier's mean log-probability of 8 images after
+# DDIM 50, |score| 17-30 (f32: the paths differ by summation order,
+# measured 3.1e-5 to 6.1e-5; bf16: by roundings at neighbouring bf16
+# values, which DDIM's chain carries to the images (phase 14), measured
+# 0.177 to 0.230). Gradient of the score with respect to the noise,
+# relative L2 (f32: 2.5e-6 unconditional, 1.7e-6 under CFG; bf16: 0.0128
+# and 0.0082).
+SCORE_TOL = {"float32": 3e-4, "bfloat16": 1.0}
+GRAD_REL_TOL = {"float32": 1.2e-5, "bfloat16": 0.06}
+# gradient_search itself, kernels against plain: the unconditional UNet at
+# batch 8 over the remat'd ancestral chain cut to diffusion.T=GS_T, for
+# GS_ITERS iterations. The sampler clips its output to [-1, 1], and the
+# seeded UNet leaves about half the pixels outside; a pixel whose value
+# lies within the paths' difference of +-1 passes its gradient on one path
+# and not on the other, so bf16 (whose paths differ by roundings) is held
+# to a looser limit than f32. Limits about 5x the first readings on an
+# H100 (NVIDIA H100 80GB HBM3, 700 W): scores f32 1.9e-6, bf16 0.0152;
+# gradient norms, relative, f32 1.9e-7, bf16 1.6e-3.
+GS_T = 20
+GS_ITERS = 3
+GS_SCORE_TOL = {"float32": 1e-5, "bfloat16": 0.08}
+GS_NORM_REL_TOL = {"float32": 1e-6, "bfloat16": 8e-3}
 # GroupNorm: f32 sums in another order (~1e-6 on values O(1)); bf16: the
 # same f32 value may round to a neighbouring bf16 value (one step, 2^-7).
 GN_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-3, 2.0 ** -7)}
@@ -2203,6 +2285,590 @@ def fast_sampler_parity(params, cparams, tmpdir):
     return errs, f32_launches
 
 
+# ---------------------------------------------------------------------------
+# search (phases 15 and 16)
+
+
+def train_search_classifier(tmpdir):
+    """The classifier verifier's SmallCNN, trained on the card on the
+    shapes dataset at 32x32 with the port's ``train_classifier`` and saved
+    with ``save_classifier``. Returns its path."""
+    from itsd_tpu_torch.data import shapes_dataset
+    from itsd_tpu_torch.models import save_classifier, train_classifier
+
+    t0 = time.perf_counter()
+    images, labels = shapes_dataset(n=CLF_IMAGES, img_size=32, seed=1)
+    _, params, acc = train_classifier(images, labels, epochs=CLF_EPOCHS,
+                                      device=DEVICE)
+    path = os.path.join(tmpdir, "classifier_shapes32.pt")
+    save_classifier(path, params)
+    log(f"classifier: SmallCNN (10 classes, ch 32, depth 3) trained on "
+        f"{CLF_IMAGES} shapes images for {CLF_EPOCHS} epochs in "
+        f"{time.perf_counter() - t0:.2f} s, accuracy {acc:.4f} on the first "
+        f"512 -> {path}")
+    if acc < CLF_MIN_ACC:
+        fail(f"the classifier reached accuracy {acc:.4f} < {CLF_MIN_ACC}")
+    return path
+
+
+ALGORITHMS = ("random_search", "zero_order_search", "path_search",
+              "pruned_search", "smc_search", "gradient_search")
+
+
+@contextlib.contextmanager
+def watch_search():
+    """Inside ``runner.run_search``: the batch of every attention call; the
+    synchronizing CUDA operations PyTorch's sync debug mode reports, per
+    call of a search algorithm (the algorithms promise none) and between
+    consecutive calls (random search's one read a chunk); the seconds of
+    the algorithm calls, synchronized before and after."""
+    from itsd_tpu_torch.models import unet
+    from itsd_tpu_torch.search import algorithms as A
+
+    seen = dict(batches=[], inside=[], between=[], seconds=0.0)
+    attention_fn = unet.spatial_attention
+    ends = []
+
+    def attention(q, k, v):
+        seen["batches"].append(q.shape[0])
+        return attention_fn(q, k, v)
+
+    def syncs(caught):
+        return [str(w.message) for w in caught
+                if "called a synchronizing" in str(w.message)]
+
+    def wrap(fn):
+        def wrapped(*a, **kw):
+            if ends:
+                seen["between"].append(len(syncs(caught[ends[-1]:])))
+            torch.cuda.synchronize()
+            n0, t0 = len(caught), time.perf_counter()
+            out = fn(*a, **kw)
+            found = syncs(caught[n0:])
+            torch.cuda.synchronize()
+            seen["seconds"] += time.perf_counter() - t0
+            seen["inside"].append(found)
+            ends.append(len(caught))
+            return out
+        return wrapped
+
+    patches = [mock.patch.object(unet, "spatial_attention", attention)] + [
+        mock.patch.object(A, name, wrap(getattr(A, name)))
+        for name in ALGORITHMS]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            torch.ones(1, device=DEVICE).item()
+            if not syncs(caught):
+                fail("sync debug mode reported no sync for .item()")
+            del caught[:]
+            with contextlib.ExitStack() as stack:
+                for p in patches:
+                    stack.enter_context(p)
+                yield seen
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def search_run(what, cfg, params, per_forward, forwards, grad_forwards,
+               batches, nfes, card_line, reads=0, recompute=0):
+    """One ``runner.run_search``, watched: exact launches (``forwards``
+    model forwards of ``per_forward`` launches each, plus ``recompute``
+    forwards rerun by the remat'd backward, and one dq and one dk/dv per
+    attention call of ``grad_forwards`` differentiated forwards), the
+    attention batch of every call (``batches``), no synchronizing CUDA
+    operation inside an algorithm and ``reads`` between its calls (random
+    search: one a chunk), the NFE of JAX's accounting (``nfes``), a finite
+    best score and images. Returns (launches, result)."""
+    from itsd_tpu_torch.cli import runner
+
+    B = cfg.train.eval_batch_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with watch_search() as seen:
+        out = runner.run_search(cfg, params, device=DEVICE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res = out["result"]
+    inside = [s for call in seen["inside"] for s in call]
+    if inside:
+        fail(f"{what}: a search algorithm made {len(inside)} synchronizing "
+             f"CUDA operations, the first: {inside[0]}")
+    if any(n != reads for n in seen["between"]):
+        fail(f"{what}: {seen['between']} synchronizing operations between "
+             f"the algorithm's calls, want {reads} each")
+    attn = per_forward["flash_attention"]
+    want = scaled(per_forward, forwards + recompute)
+    for k in ("mma", "wide"):
+        want[f"flash_bwd_dq_{k}"] = want[f"flash_bwd_dkv_{k}"] = (
+            per_forward[f"flash_attention_{k}"] * grad_forwards)
+    want["flash_bwd_dq"] = want["flash_bwd_dkv"] = attn * grad_forwards
+    want["flash_bwd_dq_simt"] = want["flash_bwd_dkv_simt"] = (
+        want["flash_bwd_dq"] - want["flash_bwd_dq_mma"]
+        - want["flash_bwd_dq_wide"])
+    if launches != want:
+        fail(f"{what}: launches {launches}, want {want}")
+    if collections.Counter(seen["batches"]) != batches:
+        fail(f"{what}: attention batches "
+             f"{dict(collections.Counter(seen['batches']))}, want "
+             f"{dict(batches)}")
+    if out["nfes"] != nfes:
+        fail(f"{what}: NFE {out['nfes']}, JAX's accounting gives {nfes}")
+    imgs = res.best_images
+    best = out["best_score"]
+    if (imgs is None or tuple(imgs.shape) != (B, 32, 32, 3)
+            or not torch.isfinite(imgs).all() or not np.isfinite(best)):
+        fail(f"{what}: best score {best}, images "
+             f"{None if imgs is None else tuple(imgs.shape)}")
+    scores = res.history["scores"]
+    scores = np.asarray(scores.float().cpu() if torch.is_tensor(scores)
+                        else scores, np.float64).ravel()
+    model_fwd = forwards + recompute
+    # JAX's NFE unit is T model evaluations: a short DDIM chain can round
+    # to 0 of them, and then has no ms per NFE
+    ms_nfe = (seen["seconds"] * 1e3 / out["nfes"] if out["nfes"]
+              else float("nan"))
+    r = dict(nfe=out["nfes"], forwards=forwards, seconds=seconds,
+             search_s=seen["seconds"], ms_per_nfe=ms_nfe,
+             ms_per_forward=seen["seconds"] * 1e3 / model_fwd,
+             peak_gb=peak_gb, best=best,
+             median=float(np.nanmedian(scores)),
+             syncs_between=sum(seen["between"]), guard=out["guard"])
+    log(f"{what}: NFE {r['nfe']} ({forwards} forwards"
+        f"{f' + {recompute} recomputed' if recompute else ''}, "
+        f"{grad_forwards} differentiated), search {seen['seconds']:.3f} s "
+        f"(run_search {seconds:.3f} s with set-up) = {r['ms_per_nfe']:.1f} "
+        f"ms/NFE, {r['ms_per_forward']:.3f} ms/forward, peak "
+        f"{peak_gb:.3f} GB, best score {best:.4f}, median candidate score "
+        f"{r['median']:.4f}, syncs: 0 in the algorithm, "
+        f"{r['syncs_between']} between its calls, on {card_line}; attention "
+        f"batches {dict(collections.Counter(seen['batches']))}")
+    return launches, r
+
+
+def search_path(params, cparams, tmpdir, card_line, held):
+    """Phase 15: runner.run_search at full width, bf16, batch 8, on the
+    seeded weights, scored by the classifier verifier (a SmallCNN trained
+    here on shapes). Unconditional UNet (T=1000, target class TARGET): random
+    N=16 over the ancestral chain (128 rows, BASELINE workload 3); random
+    N=16 in chunks of 4 over DDIM 50, with the verifier-hacking guard;
+    pruned 16 -> 4 at t=500 and path search 4/2 at t=400 (ancestral);
+    zero-order 4 neighbours x 2 iterations over DDIM 50; SMC, 16 particles
+    weighed at 700, 400 and 150 (spread scaling, lambda 10), over DDIM 50
+    segments; gradient search
+    through DPM-Solver++ 20 for 2 iterations, and through the remat'd
+    ancestral chain for 1 iteration at diffusion.T=REMAT_T. CFG UNet
+    (w=1.8, dual batch 16, the classes of labels 1..8): random N=4 and
+    pruned 4 -> 2 at t=1500 over DDIM 50, gradient search through
+    DPM-Solver++ 20. Every run's attention batches must be among those
+    phase 2 held (``held``: model -> batches). Returns the classifier's
+    path, {run: launches}, {run: result}."""
+    from itsd_tpu_torch.core.sampling import segment_cost
+    from itsd_tpu_torch.search.algorithms import (path_search_nfes,
+                                                  pruned_search_nfes,
+                                                  smc_search_nfes)
+
+    t0 = time.perf_counter()
+    clf = train_search_classifier(tmpdir)
+    launches, results = {}, {}
+    one = route_counts(gn=51, fwd=6, fwd_mma=6)
+    B, T = BATCH, T_STEPS
+    n = FAST_STEPS
+    verifier = ["search.verifier=classifier",
+                f"search.classifier_ckpt={clf}"]
+    ddim = ["diffusion.sampler=ddim", f"diffusion.ddim_steps={n}"]
+    dpm = ["diffusion.sampler=dpm", f"diffusion.ddim_steps={DPM_STEPS}"]
+    ddim_cost = segment_cost(T, "ddim", n)
+
+    def run(model, tag, what, cfg, weights, per_forward, forwards,
+            grad_forwards, batches, nfes, **kw):
+        unheld = set(batches) - held[model]
+        if unheld:
+            fail(f"{what}: attention batches {sorted(unheld)} were not "
+                 f"held against the plain version in phase 2")
+        launches[tag], results[tag] = search_run(
+            what, cfg, weights, per_forward, forwards, grad_forwards,
+            collections.Counter({b: per_forward["flash_attention"] * f
+                                 for b, f in batches.items()}),
+            nfes, card_line, **kw)
+
+    def uncond(tag, what, keys, forwards, grad_forwards, batches, nfes,
+               **kw):
+        cfg = eval_config(tmpdir, "bfloat16", *verifier,
+                          f"search.target_label={TARGET}", *keys)
+        run("uncond", tag, what, cfg, params, one, forwards, grad_forwards,
+            batches, nfes, **kw)
+
+    N = 16
+    uncond("search_random", f"random N={N}, ancestral T={T}",
+           [f"search.n_candidates={N}"], T, 0, {N * B: T}, N)
+    chunk, draws = SEARCH_FOLD, 4
+    uncond("search_random_chunked",
+           f"random N={N} in chunks of {chunk}, DDIM {n}, guard",
+           [f"search.n_candidates={N}", f"search.candidate_chunk={chunk}",
+            "search.guard_proxy=true", "data.dataset=shapes",
+            f"search.guard_baseline_draws={draws}", *ddim],
+           (N // chunk + draws) * n, 0,
+           {chunk * B: N // chunk * n, B: draws * n}, N,
+           reads=1)
+    g = results["search_random_chunked"]["guard"]
+    log(f"guard: winner FID-proxy {g['winner_fid_proxy']:.4f}, unsearched "
+        f"baseline {g['baseline_fid_proxy']:.4f} +- "
+        f"{g['baseline_fid_proxy_std']:.4f} over {draws} draws, flagged "
+        f"{g['flagged']}")
+    if len(g["baseline_fid_proxy_draws"]) != draws or not np.isfinite(
+            g["winner_fid_proxy"]):
+        fail(f"the guard gave {g}")
+    keep, t_p = SEARCH_FOLD, PRUNE_AT
+    uncond("search_pruned", f"pruned {N} -> {keep} at t={t_p}, ancestral",
+           [f"search.n_candidates={N}", "search.algorithm=pruned",
+            f"search.prune_schedule=[[{t_p},{keep}]]"],
+           T - t_p + 1 + t_p, 0, {N * B: T - t_p + 1, keep * B: t_p},
+           pruned_search_nfes(T, N, [(t_p, keep)]))
+    paths, active, t_inj, delta = SEARCH_FOLD, 2, INJECT_AT, 50
+    uncond("search_path", f"path {paths}/{active} at t={t_inj}, ancestral",
+           ["search.algorithm=path", f"search.n_paths={paths}",
+            f"search.n_active={active}",
+            f"search.injection_steps=[{t_inj}]", f"search.delta_f={delta}"],
+           T - t_inj + 1 + min(t_inj + delta, T), 0,
+           {paths * B: T - t_inj + 1 + min(t_inj + delta, T)},
+           path_search_nfes(T, paths, [t_inj], delta))
+    nb, it = SEARCH_FOLD, 2
+    uncond("search_zero_order",
+           f"zero-order {nb} neighbours x {it} iterations, DDIM {n}",
+           ["search.algorithm=zero_order", f"search.n_neighbors={nb}",
+            f"search.n_iterations={it}", *ddim],
+           (it + 1) * n, 0, {nb * B: it * n, B: n}, it * nb + 1)
+    steps = SMC_STEPS
+    bounds = (T,) + steps + (0,)
+    smc_fwd = sum(ddim_cost(hi, lo) for hi, lo in zip(bounds, bounds[1:]))
+    uncond("search_smc", f"SMC {N} particles at {list(steps)}, spread "
+           f"lambda 10, DDIM {n}",
+           ["search.algorithm=smc", f"search.n_candidates={N}",
+            f"search.smc_resample_steps={list(steps)}".replace(" ", ""),
+            "search.smc_lambda_scale=spread", *ddim],
+           smc_fwd + len(steps), 0,
+           {N * B: smc_fwd + len(steps)},
+           smc_search_nfes(T, N, steps, ddim_cost))
+    uncond("search_gradient_dpm",
+           f"gradient, DPM-Solver++ {DPM_STEPS} x 2 iterations",
+           ["search.algorithm=gradient", "search.n_iterations=2", *dpm],
+           3 * DPM_STEPS, 2 * DPM_STEPS, {B: 3 * DPM_STEPS}, 3)
+    uncond("search_gradient_remat",
+           f"gradient, remat'd ancestral T={REMAT_T} x 1 iteration",
+           ["search.algorithm=gradient", "search.n_iterations=1",
+            f"diffusion.T={REMAT_T}"],
+           2 * REMAT_T, REMAT_T, {B: 3 * REMAT_T}, 2, recompute=REMAT_T)
+
+    gn, fwd, mma, wide = CFG_PER_FORWARD
+    cone = route_counts(gn=gn, fwd=fwd, fwd_mma=mma, fwd_wide=wide)
+    CT = cfg_config(tmpdir).diffusion.T
+
+    def cond(tag, what, keys, forwards, grad_forwards, batches, nfes):
+        cfg = cfg_config(tmpdir, "bfloat16", *verifier,
+                         "diffusion.clip_denoised=true", *keys)
+        run("cfg", tag, what, cfg, cparams, cone, forwards, grad_forwards,
+            batches, nfes)
+
+    CN = CFG_SEARCH_N
+    cond("cfg_search_random", f"CFG random N={CN}, DDIM {n}",
+         [f"search.n_candidates={CN}", *ddim], n, 0, {2 * CN * B: n}, CN)
+    ccost = segment_cost(CT, "ddim", n)
+    ckeep, ct_p = CFG_SEARCH_KEEP, CFG_PRUNE_AT
+    cond("cfg_search_pruned", f"CFG pruned {CN} -> {ckeep} at t={ct_p}, "
+         f"DDIM {n}", [f"search.n_candidates={CN}", "search.algorithm=pruned",
+                       f"search.prune_schedule=[[{ct_p},{ckeep}]]", *ddim],
+         ccost(CT, ct_p) + 1 + ccost(ct_p, 0), 0,
+         {2 * CN * B: ccost(CT, ct_p) + 1, 2 * ckeep * B: ccost(ct_p, 0)},
+         pruned_search_nfes(CT, CN, [(ct_p, ckeep)], ccost))
+    cond("cfg_search_gradient_dpm",
+         f"CFG gradient, DPM-Solver++ {DPM_STEPS} x 2 iterations",
+         ["search.algorithm=gradient", "search.n_iterations=2", *dpm],
+         3 * DPM_STEPS, 2 * DPM_STEPS, {2 * B: 3 * DPM_STEPS}, 3)
+    phase_done(15, "search (runner.run_search)", t0)
+    return clf, launches, results
+
+
+def search_parity(params, cparams, clf, tmpdir):
+    """Phase 16: search through the kernels against the plain path on the
+    same seeds, in f32 (simt) and bf16 (mma, wide). Random N=16 and pruned
+    16 -> 4 at t=500 of the unconditional UNet over DDIM 50 at eta 0 (the
+    candidates drawn from one seed; nothing else is drawn): every
+    candidate's score within SCORE_TOL of the plain path's, and the same
+    winner unless the plain path's two best lie within SCORE_TOL (the
+    margin is printed). Gradient search's gradient of the classifier
+    score with respect to the noise through DPM-Solver++ (the unconditional
+    UNet at batch 8 over its whole chain in DPM_STEPS steps; the CFG UNet
+    at dual batch 16 from state CFG_DDIM_FROM in CFG_GRAD_STEPS): relative
+    L2 distance within GRAD_REL_TOL. The classifier scores the chain's
+    unclipped output divided by twice its largest magnitude (one constant
+    for both paths): on the seeded weights the output is O(700) (phase 14), so
+    the sampler's clip to [-1, 1] passes the gradient of only the few
+    pixels left inside it, and in bf16 which ones differs between the
+    paths by rounding (relative L2 0.97 on an H100, NVIDIA H100 80GB HBM3,
+    700 W; f32 4.2e-5). The CFG chain starts at state 200, as phase 14's
+    guided parity does: from T=3000 its output reaches ~1e10. Returns the
+    f32 kernel path's launches."""
+    from itsd_tpu_torch.cli import runner
+    from itsd_tpu_torch.core import dpm_segment
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    verifier = ["search.verifier=classifier",
+                f"search.classifier_ckpt={clf}"]
+    ddim = ["diffusion.sampler=ddim", f"diffusion.ddim_steps={FAST_STEPS}"]
+    searches = {
+        "random N=16": ["search.n_candidates=16"],
+        f"pruned 16 -> 4 at t={PRUNE_AT}": [
+            "search.algorithm=pruned", "search.n_candidates=16",
+            f"search.prune_schedule=[[{PRUNE_AT},4]]"]}
+    f32_launches = collections.Counter()
+    log(f"search parity limits: scores {SCORE_TOL}, gradient relative L2 "
+        f"{GRAD_REL_TOL}")
+    for dtype, name in ((torch.float32, "float32"),
+                        (torch.bfloat16, "bfloat16")):
+        for what, keys in searches.items():
+            cfg = eval_config(tmpdir, name, *verifier,
+                              f"search.target_label={TARGET}", *ddim, *keys)
+            reset_launches()
+            got = runner.run_search(cfg, params, device=DEVICE)
+            n1 = read_launches()
+            if not n1["flash_attention"]:
+                fail(f"search parity {what} {name}: no kernel launched")
+            if dtype == torch.float32:
+                f32_launches.update(n1)
+            p_gn, p_attn = plain_path()
+            with p_gn, p_attn:
+                want = runner.run_search(cfg, params, device=DEVICE)
+            if read_launches() != n1:
+                fail("search parity: the plain path launched a kernel")
+            tol = SCORE_TOL[name]
+            # the candidate pool's scores (pruned: at its prune point, where
+            # the 4 survivors are chosen), then the winner among the
+            # finals
+            rounds = [("pool", "scores", 1 if "random" in what else 4)]
+            if "pruned" in what:
+                rounds.append(("finals", "final_scores", 1))
+            for part, hist, keep in rounds:
+                gs, ws = (np.asarray(torch.as_tensor(
+                    o["result"].history[hist]).float().cpu())
+                    for o in (got, want))
+                err = float(np.abs(gs - ws).max())
+                order = np.argsort(-ws, kind="stable")
+                margin = float(ws[order[keep - 1]] - ws[order[keep]]) if \
+                    len(ws) > keep else float("inf")
+                same = (set(np.argsort(-gs, kind="stable")[:keep])
+                        == set(order[:keep]))
+                ok = (np.isfinite(err) and err <= tol
+                      and (same or margin <= tol))
+                best_g = sorted(int(i) for i in
+                                np.argsort(-gs, kind="stable")[:keep])
+                best_w = sorted(int(i) for i in order[:keep])
+                log(f"search parity {what} {name} {part}: max |score err| "
+                    f"{err:.4g} (limit {tol}), best {keep} kernels {best_g} "
+                    f"plain {best_w}, plain margin {margin:.4g} -> "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"search parity {what} {name} {part}")
+                if not same:
+                    break  # other survivors: their finals differ
+
+    models = (
+        ("uncond", eval_config, params, DPM_STEPS, T_STEPS),
+        ("cfg", cfg_config, cparams, CFG_GRAD_STEPS, CFG_DDIM_FROM))
+    for tag, make, weights, steps, t_from in models:
+        for dtype, name in ((torch.float32, "float32"),
+                            (torch.bfloat16, "bfloat16")):
+            cfg = make(tmpdir, name, *verifier,
+                       f"search.target_label={TARGET}")
+            model, conditional = runner.build_model(cfg)
+            model.load_state_dict(weights)
+            model.to(dev).eval().requires_grad_(False)
+            eps_fn = runner.sampling_eps_fn(cfg, model, conditional, BATCH)
+            score = runner.build_cli_verifier(cfg, conditional, BATCH,
+                                              DEVICE)
+            sched = runner.build_schedule(cfg, inference=True, device=dev)
+            noise = torch.randn((BATCH, 32, 32, 3), device=dev,
+                                generator=torch.Generator(device=dev)
+                                .manual_seed(41))
+
+            def chain(x):
+                return dpm_segment(sched, eps_fn, x, t_from, 0,
+                                   num_steps=steps)
+
+            with torch.no_grad():
+                # twice the largest magnitude: no pixel reaches the
+                # verifier's clamp to [0, 1], whose gradient a pixel
+                # exactly at the bound passes on one path and not the
+                # other (one such pixel read 4.5e-3 of the f32 CFG
+                # gradient's norm)
+                out_scale = 2 * chain(noise).abs().max().item()
+
+            def grad():
+                x = noise.clone().requires_grad_(True)
+                return torch.autograd.grad(score(chain(x) / out_scale),
+                                           x)[0]
+
+            reset_launches()
+            got = grad()
+            n1 = read_launches()
+            per = CFG_PER_FORWARD[1] if conditional else 6
+            if (n1["flash_bwd_dq"] != per * steps
+                    or n1["flash_bwd_dkv"] != per * steps):
+                fail(f"gradient parity {tag} {name}: launches {n1}")
+            if dtype == torch.float32:
+                f32_launches.update(n1)
+            p_gn, p_attn = plain_path()
+            with p_gn, p_attn:
+                want = grad()
+            rel = ((got - want).norm() / want.norm()).item()
+            tol = GRAD_REL_TOL[name]
+            ok = np.isfinite(rel) and rel <= tol
+            log(f"gradient parity {tag} {name} (DPM-Solver++ {steps} from "
+                f"state {t_from}, batch {BATCH}"
+                f"{', dual 16' if conditional else ''}, output / "
+                f"{out_scale:.4g}): "
+                f"relative L2 {rel:.4g} (limit {tol}), |grad| "
+                f"{want.norm().item():.4g} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"gradient parity {tag} {name}: {rel:.4g} > {tol}")
+            del model, got, want
+    gradient_search_parity(params, clf, tmpdir, f32_launches)
+    phase_done(16, "search parity", t0)
+    return dict(f32_launches)
+
+
+def gradient_search_parity(params, clf, tmpdir, f32_launches):
+    """Phase 16, continued: ``gradient_search`` itself (the remat'd
+    ancestral chain, Adam, best tracking) on the unconditional UNet at
+    batch 8, diffusion.T=GS_T, GS_ITERS iterations, the sampler's draws
+    from one seed: its history of scores and gradient norms and its best
+    score, kernels against plain (GS_SCORE_TOL absolute, GS_NORM_REL_TOL
+    relative). The classifier scores the images halved, so that no pixel
+    sits at its clamp to [0, 1]. Then, on the kernels, the gradient of
+    that score through ``sample(remat=True)`` against ``remat=False`` on
+    the same draws, bit for bit under cuDNN's deterministic algorithms,
+    with exact launches: the remat'd backward reruns each step's forward.
+    Adds the f32 kernel runs' launches to ``f32_launches``."""
+    from itsd_tpu_torch.cli import runner
+    from itsd_tpu_torch.core.sampling import sample
+    from itsd_tpu_torch.search import algorithms as A
+
+    dev = torch.device(DEVICE)
+    log(f"gradient_search parity (remat'd ancestral T={GS_T}, {GS_ITERS} "
+        f"iterations, batch {BATCH}) limits: scores {GS_SCORE_TOL}, "
+        f"gradient norms relative {GS_NORM_REL_TOL}; remat against no "
+        f"remat: bit for bit")
+    for dtype, name in ((torch.float32, "float32"),
+                        (torch.bfloat16, "bfloat16")):
+        cfg = eval_config(tmpdir, name, "search.verifier=classifier",
+                          f"search.classifier_ckpt={clf}",
+                          f"search.target_label={TARGET}",
+                          f"diffusion.T={GS_T}")
+        model, conditional = runner.build_model(cfg)
+        model.load_state_dict(params)
+        model.to(dev).eval().requires_grad_(False)
+        eps_fn = runner.sampling_eps_fn(cfg, model, conditional, BATCH)
+        score = runner.build_cli_verifier(cfg, conditional, BATCH, DEVICE)
+        sched = runner.build_schedule(cfg, inference=True, device=dev)
+        noise = torch.randn((BATCH, 32, 32, 3), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(43))
+
+        def draws():
+            return torch.Generator(device=dev).manual_seed(44)
+
+        def verifier(images):
+            return score(images / 2)
+
+        def search():
+            return A.gradient_search(noise, sched, eps_fn, verifier,
+                                     n_iterations=GS_ITERS,
+                                     generator=draws())
+
+        steps = GS_ITERS * GS_T
+        reset_launches()
+        got = search()
+        n1 = read_launches()
+        want_n = route_counts(
+            gn=51 * 2 * steps, fwd=6 * 2 * steps, dq=6 * steps,
+            dkv=6 * steps, **({} if dtype == torch.float32 else dict(
+                fwd_mma=6 * 2 * steps, dq_mma=6 * steps,
+                dkv_mma=6 * steps)))
+        if n1 != want_n:
+            fail(f"gradient_search {name}: launches {n1}, want {want_n}")
+        if dtype == torch.float32:
+            f32_launches.update(n1)
+        p_gn, p_attn = plain_path()
+        with p_gn, p_attn:
+            want = search()
+        if read_launches() != n1:
+            fail("gradient_search parity: the plain path launched a kernel")
+        gs, ws = (torch.cat([r.history["scores"],
+                             r.best_score[None]]).float().cpu().numpy()
+                  for r in (got, want))
+        gn_, wn_ = (r.history["grad_norms"].float().cpu().numpy()
+                    for r in (got, want))
+        s_err = float(np.abs(gs - ws).max())
+        n_rel = float((np.abs(gn_ - wn_) / wn_).max())
+        ok = (np.isfinite(s_err) and np.isfinite(n_rel)
+              and s_err <= GS_SCORE_TOL[name]
+              and n_rel <= GS_NORM_REL_TOL[name]
+              and float(gs[-1]) == float(gs[:-1].max()))
+        def show(a):
+            return " ".join(f"{x:.6g}" for x in a)
+
+        log(f"gradient_search parity {name}: scores kernels {show(gs[:-1])}"
+            f", plain {show(ws[:-1])}, best {gs[-1]:.6g} / {ws[-1]:.6g}, "
+            f"max |score err| {s_err:.4g} (limit {GS_SCORE_TOL[name]}); "
+            f"gradient norms kernels {show(gn_)}, plain {show(wn_)}, max "
+            f"relative err {n_rel:.4g} (limit {GS_NORM_REL_TOL[name]}) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"gradient_search parity {name}")
+
+        def grad(remat):
+            x = noise.clone().requires_grad_(True)
+            img = sample(sched, eps_fn, x, generator=draws(), remat=remat)
+            return torch.autograd.grad(verifier(img), x)[0]
+
+        grads = {}
+        for remat in (True, False):
+            reset_launches()
+            # cuDNN's default f32 convolution backward differs from run to
+            # run in the last bits (two held chains: 3.4e-7 relative on an
+            # H100); its deterministic algorithms leave the recompute as
+            # the only difference
+            torch.backends.cudnn.deterministic = True
+            try:
+                grads[remat] = grad(remat)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            n1 = read_launches()
+            fwds = GS_T * (2 if remat else 1)
+            if (n1["groupnorm_swish"] != 51 * fwds
+                    or n1["flash_attention"] != 6 * fwds
+                    or n1["flash_bwd_dq"] != 6 * GS_T
+                    or n1["flash_bwd_dkv"] != 6 * GS_T):
+                fail(f"gradient remat={remat} {name}: launches {n1}")
+        rel = ((grads[True] - grads[False]).norm()
+               / grads[False].norm()).item()
+        ok = (torch.equal(grads[True], grads[False])
+              and grads[False].norm().item() > 0)
+        log(f"remat'd gradient {name} (ancestral T={GS_T}, kernels, "
+            f"deterministic cuDNN): relative L2 to the held chain's "
+            f"{rel:.4g} (limit: bit for bit), |grad| "
+            f"{grads[False].norm().item():.4g} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"remat'd gradient {name}: {rel:.4g}")
+        del model, got, want, grads
+
+
 def cuda_tests():
     """Phase 8: the CUDA tests in a subprocess, against the library that
     phase 1 built (the same sources hash to the same build directory)."""
@@ -2221,12 +2887,17 @@ def cuda_tests():
 
 
 # The paths whose launches the kernels' JSON line carries: the bf16 runs of
-# runner.evaluate and runner.train (phases 3, 7, 9, 12 and 13).
+# runner.evaluate, runner.train and runner.run_search (phases 3, 7, 9, 12,
+# 13 and 15).
 MAIN_PATHS = ("eval", "train", "cfg_eval", "cfg_interval_eval", "auto_eval",
               "cond_train", "ddim_eval", "ddim_eta1_eval", "dpm_eval",
               "restart_eval", "picard_eval",
               "cfg_ddim_eval", "cfg_dpm_interval_eval", "auto_ddim_eval",
-              "cfg_picard_eval")
+              "cfg_picard_eval", "search_random", "search_random_chunked",
+              "search_pruned", "search_path", "search_zero_order",
+              "search_smc", "search_gradient_dpm", "search_gradient_remat",
+              "cfg_search_random", "cfg_search_pruned",
+              "cfg_search_gradient_dpm")
 WORK = {"train": "one train step of configs/cifar10_uncond.yaml (batch 128, "
                  "bf16)",
         "cond_train": "one train step of configs/cifar10_cfg.yaml (batch "
@@ -2268,10 +2939,11 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
     C=512 and C=1024 (the simt kernels there through forced calls on the
     same inputs); the sums over the other paths' steps stand beside them.
     ``launches`` sums the kernel's launches over the bf16 runs of
-    runner.evaluate and runner.train (``launches_by_path``); the simt
-    forward, dq and dk/dv, which no bf16 path sends there, count their
-    launches on the f32 kernel paths of the parity phases 4, 6, 10, 11 and
-    14 (``launches_f32_parity``, kept for every kernel)."""
+    runner.evaluate, runner.train and runner.run_search
+    (``launches_by_path``); the simt forward, dq and dk/dv, which no bf16
+    path sends there, count their launches on the f32 kernel paths of the
+    parity phases 4, 6, 10, 11, 14 and 16 (``launches_f32_parity``, kept
+    for every kernel)."""
     entries = []
     for name, (source, replaces, work) in KERNELS.items():
         by_tag = fwd[name] if name in fwd else bwd[name]
@@ -2282,7 +2954,7 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
                                      "flash_bwd_dq_simt",
                                      "flash_bwd_dkv_simt"):
             launches = f32_launches[name]
-            counted_on = "f32 kernel paths of phases 4, 6, 10, 11 and 14"
+            counted_on = "f32 kernel paths of phases 4, 6, 10, 11, 14, 16"
         if not launches:
             fail(f"{name} was not launched on its paths")
         entry = dict(name=name, route="cuda", source=source,
@@ -2318,14 +2990,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="itsd_chip_smoke_") as tmpdir:
         cfg = eval_config(tmpdir)
         params = seeded_params(cfg)
-        eval_shapes, train_shapes, picard_shapes = path_shapes(
-            cfg, params, dev, (BATCH, TRAIN_BATCH, FAST_STEPS * BATCH))
+        (eval_shapes, train_shapes, picard_shapes,
+         search_shapes) = path_shapes(
+            cfg, params, dev, (BATCH, TRAIN_BATCH, FAST_STEPS * BATCH,
+                               SEARCH_FOLD * BATCH))
         ccfg = cfg_config(tmpdir)
         cparams = seeded_params(ccfg)
-        cfg_shapes, cfg_b8_shapes, cond_shapes, cfg_picard_shapes = \
-            path_shapes(ccfg, cparams, dev,
-                        (2 * CFG_BATCH, CFG_BATCH, ccfg.train.batch_size,
-                         2 * FAST_STEPS * CFG_BATCH))
+        (cfg_shapes, cfg_b8_shapes, cond_shapes, cfg_picard_shapes,
+         cfg_search_shapes, cfg_pruned_shapes) = path_shapes(
+            ccfg, cparams, dev,
+            (2 * CFG_BATCH, CFG_BATCH, ccfg.train.batch_size,
+             2 * FAST_STEPS * CFG_BATCH, 2 * CFG_SEARCH_N * CFG_BATCH,
+             2 * CFG_SEARCH_KEEP * CFG_BATCH))
         from itsd_tpu_torch.kernels import attention
         fwd_routes = collections.Counter(
             attention.route(torch.bfloat16, C, "forward")
@@ -2345,7 +3021,18 @@ def main() -> int:
             "cond_train": (cond_shapes, 10, True),
             "picard": (picard_shapes, 5, False),
             "cfg_picard": (cfg_picard_shapes, 5, False),
+            "search": (search_shapes, 10, False),
+            "cfg_search": (cfg_search_shapes, 5, False),
+            "cfg_search_pruned": (cfg_pruned_shapes, 5, False),
             "flagship": (FLAGSHIP_ATTENTION, 10, True)}, dev, timer)
+        # the attention batches phase 2 held, for phase 15's search runs
+        held = {model: {B for _, attn in paths for B, _, _ in attn}
+                for model, paths in (
+                    ("uncond", (eval_shapes, train_shapes, picard_shapes,
+                                search_shapes)),
+                    ("cfg", (cfg_shapes, cfg_b8_shapes, cond_shapes,
+                             cfg_picard_shapes, cfg_search_shapes,
+                             cfg_pruned_shapes)))}
         eval_launches = eval_path(
             params, tmpdir, smi_line, len(eval_shapes[0]),
             len(eval_shapes[1]), timer)
@@ -2354,6 +3041,8 @@ def main() -> int:
         bwd = check_backward_kernels({
             "train": (train_shapes, [(8, 256, 128)]),
             "cond_train": (cond_shapes, []),
+            "grad_search": (([], eval_shapes[1]), []),
+            "cfg_grad_search": (([], cfg_shapes[1]), []),
             "flagship": (FLAGSHIP_ATTENTION, [])}, dev, timer)
         f32.append(train_parity(tmpdir)[1])
         paths["train"], _ = train_path(tmpdir, smi_line)
@@ -2364,6 +3053,10 @@ def main() -> int:
         fast, _ = fast_sampler_path(params, cparams, tmpdir, smi_line)
         paths.update(fast)
         f32.append(fast_sampler_parity(params, cparams, tmpdir)[1])
+        clf, searched, _ = search_path(params, cparams, tmpdir, smi_line,
+                                       held)
+        paths.update(searched)
+        f32.append(search_parity(params, cparams, clf, tmpdir))
         del params, cparams
         paths["cond_train"] = cond_train_path(tmpdir, smi_line)
     cuda_tests()

@@ -1,13 +1,13 @@
 """Command line of the port.
 
 Usage:
-    python -m itsd_tpu_torch.cli.main {train|eval} [--config c.yaml]
+    python -m itsd_tpu_torch.cli.main {train|eval|search} [--config c.yaml]
         [--device cuda] [key=value ...]
 
 Overrides take dotted keys (``diffusion.T=50``) and the reference's flat keys
 (``T=50``, ``channel_mult=[1,2]``), as the JAX package's CLI. The other
-subcommands of that CLI, and the options of ``train`` and ``eval`` that are
-not yet ported, exit with status 2 and say so.
+subcommands of that CLI, and the options of ``train``, ``eval`` and
+``search`` that are not yet ported, exit with status 2 and say so.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import sys
 from ..utils import load_config, to_dict
 
 COMMANDS = ["train", "eval", "search", "finetune-t", "inference-metrics"]
-PORTED = ("train", "eval")
+PORTED = ("train", "eval", "search")
 
 
 def _parse(argv):
@@ -47,9 +47,12 @@ def main(argv=None) -> int:
             out = runner.train(cfg, device=args.device)
             print(f"final loss: {out['final_loss']} after {out['steps']} "
                   f"steps; checkpoints: {out['checkpoints']}")
-        else:
+        elif args.command == "eval":
             out = runner.evaluate(cfg, device=args.device)
             print(f"sampled grid: {out['path']}")
+        else:
+            out = runner.run_search(cfg, device=args.device)
+            print(f"best score: {out['best_score']} (NFE={out['nfes']})")
     except NotImplementedError as e:
         print(f"[itsd_tpu_torch] {args.command}: {e}", file=sys.stderr)
         return 2

@@ -6,11 +6,13 @@ Counterpart of ``itsd_tpu/cli/runner.py`` (``build_model``,
 179-226, ``_validated_launch_segments`` 228-240,
 ``make_eps_fn`` and ``load_weak_params`` 277-319, ``make_train_key`` and
 ``resolve_track_metrics`` 322-350, ``train`` 389-600,
-``_sample_grid_during_training`` 639-662 and ``evaluate`` 668-712), with
-the conditional model, classifier-free guidance, autoguidance and every
-sampler. Search, spatial meshes, metric-tracked training, profiling,
-representation extraction, the cross-T surgery of a table time embedding
-and the T-extension fine-tune are not yet ported and raise.
+``_sample_grid_during_training`` 639-662, ``evaluate`` 668-712,
+``build_cli_verifier`` 927-1007 and ``run_search`` 1010-1338), with the
+conditional model, classifier-free guidance, autoguidance, every sampler
+and noise search. Spatial meshes, metric-tracked training, profiling,
+representation extraction, the CLIP and ensemble verifiers, the cross-T
+surgery of a table time embedding and the T-extension fine-tune are not
+yet ported and raise.
 
 Entry points run on ``device="cuda"`` unless the caller passes another.
 """
@@ -20,9 +22,11 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
+import sys
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core import (ddim_sample, dpm_solver_sample, linear_schedule,
@@ -199,7 +203,7 @@ def sampling_eps_fn(cfg: Config, model: UNet, conditional: bool,
     if weak_params is not None:
         weak, _ = build_model(cfg)
         load_weights(cfg, weak, weak_params)
-        weak.to(device).eval()
+        weak.to(device).eval().requires_grad_(False)
     d = cfg.diffusion
     interval = tuple(d.cfg_interval) if d.cfg_interval else None
     return make_eps_fn(model, True, labels.to(device), d.w,
@@ -221,14 +225,16 @@ def _cli_segment(cfg: Config, sched, eps_fn):
 
 
 def run_sampler(cfg: Config, sched, eps_fn, x_T: torch.Tensor,
-                generator: torch.Generator) -> torch.Tensor:
+                generator: torch.Generator, noise_fn=None) -> torch.Tensor:
     """The sampler ``cfg.diffusion.sampler`` names: ancestral DDPM, DDIM,
     DPM-Solver++ or Picard, ``diffusion.ddim_steps`` the step budget of
     the last three. A non-empty ``diffusion.restart_intervals`` wraps the
     ddpm, ddim or dpm family in restart sampling. Picard cannot run with a
     guidance interval: a sweep evaluates every timestep of its grid in one
     call, so guidance cannot be switched per timestep (JAX decides it for
-    the whole sweep from the first grid point)."""
+    the whole sweep from the first grid point). ``noise_fn`` supplies the
+    draws of a stochastic sampler instead of ``generator``
+    (``core.sampling``: ``(i, t)``, restart ``(call, i, t)``)."""
     d = cfg.diffusion
     steps = min(d.ddim_steps, sched.T)
     if d.restart_intervals:
@@ -241,10 +247,12 @@ def run_sampler(cfg: Config, sched, eps_fn, x_T: torch.Tensor,
                               restarts=d.restart_intervals,
                               sampler=d.sampler, num_steps=steps,
                               clip_denoised=d.clip_denoised,
-                              eta=d.ddim_eta, generator=generator)
+                              eta=d.ddim_eta, generator=generator,
+                              noise_fn=noise_fn)
     if d.sampler == "ddim":
         return ddim_sample(sched, eps_fn, x_T, num_steps=steps,
-                           eta=d.ddim_eta, generator=generator)
+                           eta=d.ddim_eta, generator=generator,
+                           noise_fn=noise_fn)
     if d.sampler == "dpm":
         return dpm_solver_sample(sched, eps_fn, x_T, num_steps=steps)
     if d.sampler == "picard":
@@ -261,7 +269,7 @@ def run_sampler(cfg: Config, sched, eps_fn, x_T: torch.Tensor,
         raise ValueError(f"unknown diffusion.sampler {d.sampler!r}; "
                          "expected ddpm | ddim | dpm | picard")
     return sample(sched, eps_fn, x_T, generator=generator,
-                  clip_denoised=d.clip_denoised)
+                  noise_fn=noise_fn, clip_denoised=d.clip_denoised)
 
 
 def _validated_launch_segments(cfg: Config) -> int:
@@ -311,6 +319,289 @@ def evaluate(cfg: Config, params=None, device="cuda") -> dict:
     out_path = os.path.join(cfg.sampled_dir, cfg.sampled_img_name)
     save_image_grid(images, out_path, nrow=cfg.nrow)
     return {"images": images, "path": out_path}
+
+
+# ---------------------------------------------------------------------------
+# Search
+
+
+def build_cli_verifier(cfg: Config, conditional: bool, eval_bs: int,
+                       device="cuda"):
+    """The verifier ``search.verifier`` names: the heuristics (oracle,
+    self_supervised, aesthetic) or classifier (a SmallCNN checkpoint,
+    ``search.classifier_ckpt``, scoring ``search.target_label`` or, for the
+    conditional model, the classes of the sampler's labels). clip and
+    ensemble need the CLIP and Inception networks, which are not yet
+    ported."""
+    from ..search import (aesthetic_score, batch_pixel_variance_score,
+                          classifier_verifier, self_supervised_verifier)
+
+    s = cfg.search
+    simple = {
+        "oracle": batch_pixel_variance_score,
+        "self_supervised": self_supervised_verifier(),
+        "aesthetic": aesthetic_score,
+    }.get(s.verifier)
+    if simple is not None:
+        return simple
+
+    if s.verifier == "classifier":
+        if not s.classifier_ckpt:
+            raise ValueError(
+                "search.verifier=classifier needs search.classifier_ckpt "
+                "(save one with models.classifier.save_classifier)")
+        from ..models import load_classifier
+        path = s.classifier_ckpt
+        if not os.path.isabs(path):
+            path = os.path.join(cfg.save_weight_dir, path)
+        logit_fn, _, ccfg = load_classifier(path, device=device)
+        if s.target_label is not None:
+            targets = torch.full((eval_bs,), int(s.target_label),
+                                 dtype=torch.int64)
+        elif conditional:
+            # the sampler conditions on labels (arange % num_labels) + 1;
+            # the classifier scores the corresponding true classes
+            targets = torch.arange(eval_bs) % cfg.model.num_labels
+        else:
+            raise ValueError(
+                "unconditional classifier search needs search.target_label")
+        if int(targets.max()) >= ccfg.num_classes:
+            raise ValueError(f"target labels exceed classifier classes "
+                             f"({ccfg.num_classes})")
+        return classifier_verifier(logit_fn, targets.to(device))
+
+    if s.verifier in ("clip", "ensemble"):
+        net = "CLIP" if s.verifier == "clip" else "Inception"
+        raise _not_ported(f"search.verifier={s.verifier} (the {net} "
+                          "network)")
+
+    raise ValueError(
+        f"unknown search.verifier {s.verifier!r}; expected oracle | "
+        "self_supervised | aesthetic | classifier | clip | ensemble")
+
+
+def _guard(cfg: Config, res, sched, eps_fn, denoise_fn, shape,
+           device) -> dict:
+    """The verifier-hacking guard: the winner's pooled-pixel Fréchet proxy
+    (``make_fid_proxy``, independent of every verifier) against the mean
+    of ``search.guard_baseline_draws`` unsearched samples of the chain the
+    winner came from; flagged when the winner's is ``guard_ratio`` times
+    worse. The baseline draws come from a generator of their own, seeded
+    ``seed + 0x6a7d``."""
+    from ..search.verifiers import make_fid_proxy
+
+    s, d = cfg.search, cfg.diffusion
+    images, _ = load_dataset(cfg)
+    proxy = make_fid_proxy(images[: s.guard_num_real])
+    # path, pruned and SMC winners are ancestral unless their segments ride
+    # ddim | dpm; gradient follows the sampler only when it is dpm; random
+    # and zero-order denoise with the configured sampler
+    ancestral = ((s.algorithm in ("path", "pruned", "smc")
+                  and d.sampler not in ("ddim", "dpm"))
+                 or (s.algorithm == "gradient" and d.sampler != "dpm"))
+    if ancestral:
+        base_fn = lambda n, g: sample(  # noqa: E731
+            sched, eps_fn, n, generator=g, clip_denoised=d.clip_denoised)
+    else:
+        base_fn = lambda n, g: denoise_fn(n, g, None)  # noqa: E731
+    draws = max(1, int(s.guard_baseline_draws))
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 0x6a7d)
+    base_vals = []
+    with torch.inference_mode():
+        for _ in range(draws):
+            x = torch.randn(shape, generator=gen, device=device)
+            base_vals.append(float(proxy(base_fn(x, gen))))
+    base_mean = float(np.mean(base_vals))
+    base_std = float(np.std(base_vals))
+    guard = {"winner_fid_proxy": float(proxy(res.best_images)),
+             "baseline_fid_proxy": base_mean,
+             "baseline_fid_proxy_std": base_std,
+             "baseline_fid_proxy_draws": base_vals,
+             "ratio_threshold": s.guard_ratio}
+    guard["flagged"] = bool(
+        guard["winner_fid_proxy"] > s.guard_ratio * max(base_mean, 1e-9))
+    if guard["flagged"]:
+        print(f"[search] WARNING: verifier-hacking guard tripped — "
+              f"winner FID-proxy {guard['winner_fid_proxy']:.3f} vs "
+              f"unsearched baseline {base_mean:.3f} +- {base_std:.3f} "
+              f"(n={draws} draws, >{s.guard_ratio}x): the verifier "
+              f"score improved at the expense of independent sample "
+              f"quality. Reduce the search budget or strengthen the "
+              f"verifier.", file=sys.stderr)
+    return guard
+
+
+def run_search(cfg: Config, params=None, verifier_fn=None, device="cuda",
+               noise_fn=None) -> dict:
+    """Search over initial noise with ``search.algorithm`` (random |
+    zero_order | path | pruned | smc | gradient), scored by
+    ``verifier_fn`` or the verifier ``build_cli_verifier`` builds, at
+    ``train.eval_batch_size`` (default 8) images a candidate; the
+    conditional model samples labels ``(arange % num_labels) + 1``, guided
+    as ``evaluate`` guides it. Random and zero-order search denoise with
+    ``run_sampler``; path, pruned and SMC run their segments on DDIM or DPM
+    when ``diffusion.sampler`` names one, else ancestral; gradient search
+    differentiates through DPM-Solver++ when sampler=dpm, else through the
+    recomputed ancestral chain. Every algorithm but gradient runs under
+    ``torch.inference_mode``; gradient runs with the weights frozen.
+
+    Draws come from one generator seeded ``cfg.seed``. ``noise_fn`` (the
+    seam of ``search.algorithms``) replaces them: the initial noise of
+    zero-order and gradient search is the site ``("initial",)``, and random
+    search's chunk c sees each site with c appended (``("candidates",
+    c)``).
+
+    Writes ``sampled_dir/search_<algorithm>_best.png``; returns
+    ``{"best_score", "nfes", "guard", "result"}``. With
+    ``search.guard_proxy`` the winner is checked for verifier hacking
+    (``_guard``)."""
+    from ..search import algorithms as A
+
+    if cfg.train.spatial_shard > 1:
+        raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
+    model, conditional = build_model(cfg)
+    weak = load_weak_params(cfg, conditional) if conditional else None
+    if params is None:
+        params = load_eval_params(cfg)
+    load_weights(cfg, model, params)
+    model.to(device).eval().requires_grad_(False)
+    sched = build_schedule(cfg, inference=True, device=device)
+    s, d = cfg.search, cfg.diffusion
+    eval_bs = cfg.train.eval_batch_size or 8
+    shape = (eval_bs, cfg.data.img_size, cfg.data.img_size, 3)
+
+    chunk = s.n_candidates
+    if s.algorithm == "random" and s.candidate_chunk:
+        chunk = min(s.candidate_chunk, s.n_candidates)
+        if s.n_candidates % chunk:
+            raise ValueError(
+                f"search.candidate_chunk={chunk} must divide "
+                f"n_candidates={s.n_candidates}")
+
+    eps_fn = sampling_eps_fn(cfg, model, conditional, eval_bs, weak)
+
+    def denoise_fn(noise, generator, nf):
+        return run_sampler(cfg, sched, eps_fn, noise, generator, nf)
+
+    if verifier_fn is None:
+        verifier_fn = build_cli_verifier(cfg, conditional, eval_bs, device)
+
+    if _validated_launch_segments(cfg) > 1 and s.algorithm != "random":
+        raise ValueError(
+            "diffusion.launch_segments applies to eval and random "
+            "search only (the other search algorithms interleave "
+            "scoring with the chain)")
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+
+    def initial():
+        if noise_fn is not None:
+            return noise_fn(("initial",), 0, 0)
+        return torch.randn(shape, generator=gen, device=device)
+
+    with torch.inference_mode(s.algorithm != "gradient"):
+        if s.algorithm == "random":
+            # the host keeps the running argmax: one read a chunk
+            best, all_scores = None, []
+            for ci in range(s.n_candidates // chunk):
+                nf = (None if noise_fn is None else
+                      lambda site, i, t, c=ci: noise_fn(site + (c,), i, t))
+                r = A.random_search(shape, denoise_fn, verifier_fn,
+                                    n_candidates=chunk, generator=gen,
+                                    noise_fn=nf)
+                read = torch.cat([r.best_score.reshape(1),
+                                  r.history["scores"]]).float().cpu()
+                bsc = float(read[0])
+                all_scores.append(read[1:].numpy())
+                # NaN-aware: a NaN chunk must not beat a later finite one
+                if best is None or np.isnan(best[1]) or bsc > best[1]:
+                    best = (r.best_noise, bsc, r.best_images)
+            res = A.SearchResult(best[0], best[1], best[2],
+                                 {"scores": np.concatenate(all_scores)},
+                                 s.n_candidates)
+        elif s.algorithm == "zero_order":
+            res = A.zero_order_search(
+                initial(), denoise_fn, verifier_fn,
+                n_neighbors=s.n_neighbors, lambda_radius=s.lambda_radius,
+                n_iterations=s.n_iterations, neighbor_mode=s.neighbor_mode,
+                return_images=True, generator=gen, noise_fn=noise_fn)
+        elif s.algorithm == "path":
+            steps = tuple(s.injection_steps)
+            r = A.path_search(
+                sched, eps_fn, verifier_fn, shape, n_paths=s.n_paths,
+                n_active=s.n_active, injection_steps=steps,
+                delta_f=s.delta_f, clip_denoised=d.clip_denoised,
+                segment=_cli_segment(cfg, sched, eps_fn), generator=gen,
+                noise_fn=noise_fn)
+            res = A.SearchResult(
+                r.best_noise, r.best_score, r.best_images,
+                {"scores": r.history["scores"],
+                 "final_scores": r.history["final_scores"],
+                 "injection_points": list(steps)}, r.nfes)
+        elif s.algorithm == "pruned":
+            psched = tuple(tuple(int(v) for v in p)
+                           for p in s.prune_schedule)
+            r = A.pruned_search(
+                sched, eps_fn, verifier_fn, shape,
+                n_candidates=s.n_candidates, prune_schedule=psched,
+                clip_denoised=d.clip_denoised,
+                segment=_cli_segment(cfg, sched, eps_fn), generator=gen,
+                noise_fn=noise_fn)
+            psc, fsc = r.history["prune_scores"], r.history["final_scores"]
+            # "scores": the whole initial pool's x0-hat scores (round 0)
+            res = A.SearchResult(
+                r.best_noise, r.best_score, r.best_images,
+                {"scores": psc[0] if psc else fsc, "final_scores": fsc,
+                 "prune_scores": [a.cpu().numpy() for a in psc],
+                 "prune_schedule": list(psched)}, r.nfes)
+        elif s.algorithm == "smc":
+            rsteps = tuple(int(t) for t in s.smc_resample_steps)
+            r = A.smc_search(
+                sched, eps_fn, verifier_fn, shape,
+                n_particles=s.n_candidates, resample_steps=rsteps,
+                lambda_temp=s.smc_lambda,
+                ess_threshold=s.smc_ess_threshold,
+                lambda_scale=s.smc_lambda_scale,
+                clip_denoised=d.clip_denoised,
+                segment=_cli_segment(cfg, sched, eps_fn), generator=gen,
+                noise_fn=noise_fn)
+            ess = r.history["ess"].cpu().numpy()
+            resampled = r.history["resampled"].cpu().numpy()
+            # "scores": the initial pool's first-checkpoint x0-hat scores
+            res = A.SearchResult(
+                r.best_noise, r.best_score, r.best_images,
+                {"scores": r.history["scores"],
+                 "final_scores": r.history["final_scores"],
+                 "resample_scores": [a.cpu().numpy()
+                                     for a in r.history["resample_scores"]],
+                 "ess": ess, "resampled": resampled,
+                 "resample_steps": list(rsteps)}, r.nfes)
+            print(f"[search] smc ess per resample point: "
+                  f"{np.round(ess, 2).tolist()} "
+                  f"(resampled: {resampled.tolist()})")
+        elif s.algorithm == "gradient":
+            solver_steps = (min(d.ddim_steps, sched.T)
+                            if d.sampler == "dpm" else None)
+            res = A.gradient_search(
+                initial(), sched, eps_fn, verifier_fn,
+                n_iterations=s.n_iterations, lr=s.gradient_lr,
+                return_images=True, solver_steps=solver_steps,
+                clip_denoised=d.clip_denoised, generator=gen,
+                noise_fn=noise_fn)
+        else:
+            raise ValueError(f"unknown search algorithm: {s.algorithm!r}")
+
+    guard = None
+    if s.guard_proxy and res.best_images is not None:
+        guard = _guard(cfg, res, sched, eps_fn, denoise_fn, shape, device)
+
+    os.makedirs(cfg.sampled_dir, exist_ok=True)
+    if res.best_images is not None:
+        save_image_grid(res.best_images.float().cpu().numpy(),
+                        os.path.join(cfg.sampled_dir,
+                                     f"search_{s.algorithm}_best.png"),
+                        nrow=cfg.nrow)
+    return {"best_score": float(res.best_score), "nfes": res.nfes,
+            "guard": guard, "result": res}
 
 
 # ---------------------------------------------------------------------------

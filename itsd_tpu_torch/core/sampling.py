@@ -43,6 +43,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .process import EpsFn, p_sample_step
 from .schedules import DiffusionSchedule
@@ -84,25 +85,43 @@ def _scan_steps(sched: DiffusionSchedule, eps_fn: EpsFn, x: torch.Tensor,
                 t_hi: int, t_lo: int, *,
                 generator: Optional[torch.Generator] = None,
                 noise_fn: Optional[NoiseFn] = None,
-                clip_x0: bool = False) -> torch.Tensor:
-    """Run reverse steps for t = t_hi-1, ..., t_lo (inclusive)."""
+                clip_x0: bool = False, remat: bool = False) -> torch.Tensor:
+    """Run reverse steps for t = t_hi-1, ..., t_lo (inclusive).
+
+    ``remat`` checkpoints each step (``torch.utils.checkpoint``): its
+    activations are dropped after the forward and recomputed in the
+    backward, as ``jax.checkpoint`` does in JAX's scan. The checkpoint
+    restores only the global generators, so each step's noise is drawn
+    before the checkpointed call and passed in: the recompute then sees the
+    same noise, and the generator advances once a step."""
     B = x.shape[0]
     takes_step = getattr(eps_fn, "takes_step", False)
-    for i, t in enumerate(range(t_hi - 1, t_lo - 1, -1)):
+
+    def step(x, noise, t):
         tb = torch.full((B,), t, dtype=torch.int64, device=x.device)
         eps = eps_fn(x, tb, step=t) if takes_step else eps_fn(x, tb)
+        return p_sample_step(sched, x, tb, eps, noise, clip_x0=clip_x0)
+
+    for i, t in enumerate(range(t_hi - 1, t_lo - 1, -1)):
         noise = _draw(x, i, t, generator, noise_fn)
-        x = p_sample_step(sched, x, tb, eps, noise, clip_x0=clip_x0)
+        if remat:
+            # nothing inside draws, so no generator state to preserve
+            x = checkpoint(step, x, noise, t, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = step(x, noise, t)
     return x
 
 
 def sample(sched: DiffusionSchedule, eps_fn: EpsFn, x_T: torch.Tensor, *,
            generator: Optional[torch.Generator] = None,
            noise_fn: Optional[NoiseFn] = None, clip_output: bool = True,
-           clip_denoised: bool = False) -> torch.Tensor:
-    """Full ancestral sampling x_T -> x_0, clipped to [-1, 1]."""
+           clip_denoised: bool = False, remat: bool = False) -> torch.Tensor:
+    """Full ancestral sampling x_T -> x_0, clipped to [-1, 1]. ``remat``
+    recomputes each step's activations in the backward instead of holding
+    all T steps' (``_scan_steps``): gradient search's chain."""
     x = _scan_steps(sched, eps_fn, x_T, sched.T, 0, generator=generator,
-                    noise_fn=noise_fn, clip_x0=clip_denoised)
+                    noise_fn=noise_fn, clip_x0=clip_denoised, remat=remat)
     return x.clamp(-1.0, 1.0) if clip_output else x
 
 

@@ -1,4 +1,4 @@
-"""Flax UNet parameters -> a state dict for the port's UNet.
+"""Flax parameters -> state dicts for the port's UNet and SmallCNN.
 
 The inverse of the layout maps in ``itsd_tpu/models/torch_convert.py``,
 written for the port's module names (which follow the Flax names):
@@ -26,6 +26,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .classifier import ClassifierConfig, SmallCNN
 from .unet import UNet, UNetConfig
 
 
@@ -56,32 +57,44 @@ def _torch_entry(path, arr):
     raise ValueError(f"{'/'.join(path)}: unknown parameter {leaf!r}")
 
 
-def expected_shapes(cfg: UNetConfig) -> "OrderedDict[str, tuple]":
-    """The port's state-dict keys and shapes for ``cfg``, without
+def expected_shapes(cfg: UNetConfig, module=UNet) -> "OrderedDict":
+    """The port's state-dict keys and shapes of ``module(cfg)``, without
     allocating weights."""
     with torch.device("meta"):
-        model = UNet(cfg)
+        model = module(cfg)
     return OrderedDict((k, tuple(v.shape))
                        for k, v in model.state_dict().items())
+
+
+def _convert(params: Mapping, want: "OrderedDict", who: str) -> "OrderedDict":
+    if set(params) == {"params"}:
+        params = params["params"]
+    got = dict(_torch_entry(p, a) for p, a in _leaves(params))
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    if missing or extra:
+        raise KeyError(f"{who}: missing {missing}, extra {extra}")
+    out = OrderedDict()
+    for key, shape in want.items():
+        arr = got[key]
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"{who}: {key} has shape {tuple(arr.shape)}, "
+                             f"the model wants {shape}")
+        out[key] = torch.from_numpy(
+            np.ascontiguousarray(arr.astype(np.float32)))
+    return out
 
 
 def params_from_jax(params: Mapping, cfg: UNetConfig) -> "OrderedDict":
     """Convert a Flax UNet parameter tree into the port's state dict
     (float32 CPU tensors)."""
-    if set(params) == {"params"}:
-        params = params["params"]
-    got = dict(_torch_entry(p, a) for p, a in _leaves(params))
-    want = expected_shapes(cfg)
-    missing = sorted(set(want) - set(got))
-    extra = sorted(set(got) - set(want))
-    if missing or extra:
-        raise KeyError(f"params_from_jax: missing {missing}, extra {extra}")
-    out = OrderedDict()
-    for key, shape in want.items():
-        arr = got[key]
-        if tuple(arr.shape) != shape:
-            raise ValueError(f"params_from_jax: {key} has shape "
-                             f"{tuple(arr.shape)}, the UNet wants {shape}")
-        out[key] = torch.from_numpy(
-            np.ascontiguousarray(arr.astype(np.float32)))
-    return out
+    return _convert(params, expected_shapes(cfg), "params_from_jax")
+
+
+def classifier_params_from_jax(params: Mapping,
+                               cfg: ClassifierConfig) -> "OrderedDict":
+    """Convert a Flax SmallCNN parameter tree (``conv{i}a``, ``conv{i}b``,
+    ``head``) into the port's SmallCNN state dict (float32 CPU
+    tensors)."""
+    return _convert(params, expected_shapes(cfg, SmallCNN),
+                    "classifier_params_from_jax")

@@ -2,8 +2,8 @@
 
 Counterpart of ``itsd_tpu/train/trainer.py``: a thin, stateful wrapper over
 the runner's pipelines, for interactive use: ``fit``, ``sample``,
-``evaluate``, ``save`` and ``load``. ``search`` and the T-extension
-fine-tune are not yet ported and raise.
+``search``, ``evaluate``, ``save`` and ``load``. The T-extension fine-tune
+is not yet ported and raises.
 """
 
 from __future__ import annotations
@@ -81,7 +81,11 @@ class Trainer:
         return imgs.cpu().numpy()
 
     def search(self, verifier_fn=None) -> dict:
-        raise NotImplementedError("Trainer.search: search is not yet ported")
+        """``runner.run_search`` on the trainer's current weights (the
+        EMA where there is one)."""
+        return self._runner.run_search(self.cfg, params=self.params,
+                                       verifier_fn=verifier_fn,
+                                       device=self.device)
 
     def evaluate(self) -> dict:
         return self._runner.evaluate(self.cfg, params=self.params,

@@ -23,8 +23,11 @@ the private ``_flash_simt``, ``_flash_bwd_dq_simt`` and
 or ``-k simt``, the dq tests of one route with ``-k "dq and mma"``,
 ``-k "wide and cfg"`` or ``-k "routes and simt"``, the tests at the CFG
 UNet's widths and maps with ``-k cfg``, those at Picard's folded batches
-(400 and 800 rows) with ``-k picard``, and a batch at CUDA's gridDim.y
-cap and past it with ``-k grid_cap``.
+(400 and 800 rows) with ``-k picard``, a batch at CUDA's gridDim.y
+cap and past it with ``-k grid_cap``, and gradient search's backward
+batches (8 and the dual 16), its gradient through DPM-Solver++ and
+``gradient_search`` itself over the remat'd ancestral chain, kernels
+against plain, with ``-k gradient_search``.
 
 The backward kernels against ``attention_bwd_plain`` (the same formula and
 roundings): f32 2e-5 absolute on values O(1), sums in another order
@@ -701,3 +704,237 @@ def test_attention_at_the_grid_cap(cuda_device, dtype, C):
         limit = (BF16_RTOL * w.float().abs().max()
                  + BF16_RTOL * w.float().abs() + bound)
         assert (err <= limit).all()
+
+
+# Gradient search differentiates the sampler with respect to the noise: the
+# dq and dk/dv kernels run at eval-sized batches, 8 for the unconditional
+# UNet ([8, 256, 256]) and the dual CFG batch of 16 for the CFG UNet (its
+# six attention shapes).
+GRAD_SEARCH_ATTENTION = [(8, 256, 256), (16, 1024, 128), (16, 256, 512),
+                         (16, 64, 1024), (16, 16, 1024), (16, 4, 512),
+                         (16, 1, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,C", GRAD_SEARCH_ATTENTION)
+def test_backward_kernels_at_gradient_search_batches(cuda_device, B, N, C):
+    """dq and dk/dv on the route each dtype takes (bf16: mma or wide; f32:
+    simt) against the plain backward, without dlse (the UNet's attention
+    has none), at the tolerances above."""
+    gen = torch.Generator(device=cuda_device).manual_seed(B * 7 + N + C)
+    scale = C ** -0.5
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.randn((B, N, C), generator=gen,
+                                   device=cuda_device).to(dtype)
+                       for _ in range(4))
+        o, lse = attention.attention_with_lse(q, k, v, scale)
+        counts = _counts()
+        got = attention.attention_bwd(q, k, v, o, lse, do, scale)
+        want = attention.attention_bwd_plain(q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        which = attention.route(dtype, C, "dq")
+        assert which == attention.route(dtype, C, "dkv")
+        launched = _launched(counts)
+        assert launched[3:] == (1, int(which == "mma"),
+                                int(which == "wide"), 1,
+                                int(which == "mma"), int(which == "wide"))
+        if dtype == torch.float32:
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, atol=BWD_F32_TOL, rtol=0)
+            continue
+        bounds = (_dq_order_bound(q, k, v, do, lse, scale),
+                  _dk_order_bound(q, k, v, do, lse, scale), 0.0)
+        for name, g, w, bound in zip(("dq", "dk", "dv"), got, want, bounds):
+            err = (g.float() - w.float()).abs()
+            limit = (BF16_RTOL * w.float().abs().max()
+                     + BF16_RTOL * w.float().abs() + bound)
+            assert (err <= limit).all(), (
+                f"{name} {which}: max err {err.max().item():.3g}")
+
+
+def _plain_unet():
+    """Patches that send the UNet's GroupNorm and attention to their plain
+    versions (autograd then runs through plain PyTorch ops)."""
+    from unittest import mock
+
+    from itsd_tpu_torch.models import unet
+
+    return (mock.patch.object(unet, "groupnorm_swish",
+                              groupnorm.groupnorm_swish_plain),
+            mock.patch.object(unet, "spatial_attention",
+                              lambda q, k, v: attention.attention_plain(
+                                  q, k, v, q.shape[-1] ** -0.5)))
+
+
+# (config keys, batch): the unconditional UNet at full width (attention at
+# [8, 256, 256], mma in bf16) and a narrow conditional one guided by CFG
+# (dual batch 16; attention at C=32, 128 on mma and C=512 on wide in bf16).
+GRAD_SEARCH_MODELS = {
+    "uncond_b8": ["channel=128", "channel_mult=[1,2,2,2]", "attn=[1]"],
+    "cfg_b16": ["channel=32", "channel_mult=[1,4,16]", "num_res_blocks=1",
+                "model.num_labels=10", "w=1.8"]}
+# Relative L2 limits on the gradient of the score with respect to the
+# noise, kernels against plain: f32 differs by summation order (~1e-6 an
+# op); bf16 rounds every GroupNorm and attention output, and the gradient
+# carries roundings at neighbouring bf16 values (2^-8 relative) through
+# every layer and solver step, forward and back. Measured on an H100
+# (NVIDIA H100 80GB HBM3, 700 W): f32 3.2e-6 and 8.5e-6, bf16 0.0167 and
+# 0.0457 (uncond_b8, cfg_b16).
+GRAD_SEARCH_REL = {"float32": 5e-5, "bfloat16": 0.1}
+
+
+def _grad_search_setup(model, dtype, device, T=1000):
+    """(eps_fn, sched, noise) of GRAD_SEARCH_MODELS[model] on seeded
+    weights, batch 8 (CFG: dual 16), its weights frozen."""
+    from itsd_tpu_torch.cli import runner
+    from itsd_tpu_torch.models.embeddings import TINY_GAIN
+    from itsd_tpu_torch.utils import load_config
+
+    cfg = load_config(None, GRAD_SEARCH_MODELS[model] + [
+        f"T={T}", "img_size=32", f"model.dtype={dtype}", "dropout=0.0",
+        "train.eval_batch_size=8", "seed=3"])
+    net, conditional = runner.build_model(cfg)
+    for k, v in runner.init_params(cfg, net).items():
+        # the near-zero output layers at Xavier size, so that attention
+        # and GroupNorm move the output (as chip_smoke.py:seeded_params)
+        if k.endswith(("conv2.weight", "attn.proj.weight",
+                       "tail_conv.weight")):
+            v.mul_(1.0 / TINY_GAIN)
+    net.to(device).eval().requires_grad_(False)
+    eps_fn = runner.sampling_eps_fn(cfg, net, conditional, 8)
+    sched = runner.build_schedule(cfg, inference=True, device=device)
+    noise = torch.randn((8, 32, 32, 3),
+                        generator=torch.Generator(device=device)
+                        .manual_seed(4), device=device)
+    return eps_fn, sched, noise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("model", list(GRAD_SEARCH_MODELS))
+def test_gradient_search_kernels_match_plain(cuda_device, model, dtype):
+    """The gradient of a verifier's score with respect to the noise through
+    DPM-Solver++ (3 steps, gradient search's ``solver_steps`` chain), the
+    kernels against the plain path on the same seeded weights, within the
+    relative L2 limit of ``GRAD_SEARCH_REL``; every attention call of every
+    differentiated forward runs one dq and one dk/dv kernel. The score is
+    taken on the unclipped output divided by its largest magnitude: on
+    seeded weights the chain's output is O(100), and the sampler's clip
+    would pass the gradient of only the pixels left inside [-1, 1], a set
+    that bf16 rounding changes between the paths."""
+    from itsd_tpu_torch.core import dpm_solver_sample
+
+    eps_fn, sched, noise = _grad_search_setup(model, dtype, cuda_device)
+
+    def chain(x):
+        return dpm_solver_sample(sched, eps_fn, x, num_steps=3,
+                                 clip_output=False)
+
+    with torch.no_grad():
+        scale = chain(noise).abs().max().item()
+
+    def grad():
+        x = noise.clone().requires_grad_(True)
+        img = chain(x) / scale
+        return torch.autograd.grad(-(img - 0.2).square().mean(), x)[0]
+
+    counts = _counts()
+    got = grad()
+    launched = _launched(counts)
+    p_gn, p_attn = _plain_unet()
+    with p_gn, p_attn:
+        want = grad()
+    torch.cuda.synchronize()
+    assert launched[0] > 0 and launched[3] == launched[6] == launched[0]
+    rel = ((got - want).norm() / want.norm()).item()
+    print(f"gradient search {model} {dtype}: relative L2 {rel:.4g} (limit "
+          f"{GRAD_SEARCH_REL[dtype]})")
+    assert torch.isfinite(got).all() and want.norm() > 0
+    assert rel <= GRAD_SEARCH_REL[dtype], rel
+
+
+# gradient_search itself over its default chain, the ancestral one with each
+# step recomputed in the backward (T cut to 10), for 2 iterations, the
+# sampler's draws from one seed. The sampler clips its output to [-1, 1]
+# and the seeded UNets leave about half the pixels outside, so a pixel
+# within the paths' difference of +-1 passes its gradient on one path only:
+# bf16's limits, kernels against plain, are looser than f32's. Limits
+# (scores and best score absolute, gradient norms relative) about 5x the
+# largest first readings on an H100 (NVIDIA H100 80GB HBM3, 700 W): f32
+# 1.5e-8 and 1.2e-7, bf16 1.5e-5 and 1.04e-3. The remat'd gradient equals
+# the held chain's bit for bit under cuDNN's deterministic algorithms (by
+# default cuDNN's f32 convolution backward differs from run to run in the
+# last bits: 2.8e-6 relative between two held chains of the narrow CFG
+# UNet).
+GRAD_SEARCH_REMAT = {"float32": (1e-7, 1e-6), "bfloat16": (1e-4, 5e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("model", list(GRAD_SEARCH_MODELS))
+def test_gradient_search_remat_chain_matches_plain(cuda_device, model,
+                                                   dtype):
+    """``gradient_search`` (Adam and best tracking) over the remat'd
+    ancestral chain: its scores, best score and gradient norms, kernels
+    against plain; and on the kernels, the gradient through
+    ``sample(remat=True)`` against ``remat=False`` on the same draws, bit
+    for bit under cuDNN's deterministic algorithms, the remat'd backward
+    rerunning every step's forward (twice the forward
+    launches, one dq and one dk/dv per attention call of each step)."""
+    from itsd_tpu_torch.core.sampling import sample
+    from itsd_tpu_torch.search import algorithms as A
+
+    T, iters = 10, 2
+    score_tol, norm_tol = GRAD_SEARCH_REMAT[dtype]
+    eps_fn, sched, noise = _grad_search_setup(model, dtype, cuda_device, T)
+
+    def draws():
+        return torch.Generator(device=cuda_device).manual_seed(5)
+
+    def verifier(img):
+        return -(img / 2 - 0.2).square().mean()
+
+    def search():
+        return A.gradient_search(noise, sched, eps_fn, verifier,
+                                 n_iterations=iters, generator=draws())
+
+    got = search()
+    p_gn, p_attn = _plain_unet()
+    with p_gn, p_attn:
+        want = search()
+    gs, ws = (torch.cat([r.history["scores"], r.best_score[None]])
+              for r in (got, want))
+    gn, wn = (r.history["grad_norms"] for r in (got, want))
+    s_err = (gs - ws).abs().max().item()
+    n_rel = ((gn - wn).abs() / wn).max().item()
+
+    def grad(remat):
+        x = noise.clone().requires_grad_(True)
+        img = sample(sched, eps_fn, x, generator=draws(), remat=remat)
+        return torch.autograd.grad(verifier(img), x)[0]
+
+    launched = {}
+    grads = {}
+    for remat in (True, False):
+        counts = _counts()
+        torch.backends.cudnn.deterministic = True
+        try:
+            grads[remat] = grad(remat)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        launched[remat] = _launched(counts)
+    torch.cuda.synchronize()
+    rel = ((grads[True] - grads[False]).norm()
+           / grads[False].norm()).item()
+    print(f"gradient_search remat'd {model} {dtype}: scores {gs.tolist()} "
+          f"/ {ws.tolist()}, max err {s_err:.4g} (limit {score_tol}); "
+          f"gradient norms {gn.tolist()} / {wn.tolist()}, max relative err "
+          f"{n_rel:.4g} (limit {norm_tol}); remat against none, relative "
+          f"L2 {rel:.4g} (limit: bit for bit)")
+    assert gs[-1] == gs[:-1].max()
+    assert s_err <= score_tol and n_rel <= norm_tol
+    fwd, dq = launched[False][0], launched[False][3]
+    assert fwd > 0 and dq == fwd == launched[False][6]
+    assert launched[True][0] == 2 * fwd and launched[True][3] == dq
+    assert torch.isfinite(grads[True]).all() and grads[False].norm() > 0
+    assert torch.equal(grads[True], grads[False]), rel

@@ -350,6 +350,16 @@ def test_cli_eval_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("command", ["train", "search", "finetune-t",
                                      "inference-metrics"])
-def test_cli_other_commands_are_not_ported(command, capsys):
-    assert cli_main.main([command]) == 2
+def test_cli_other_commands_are_not_ported(command, capsys, tmp_path):
+    """What is not ported exits 2: finetune-t and inference-metrics;
+    train with its default tracked metrics; search with the CLIP
+    verifier, which needs the CLIP network."""
+    args = [command]
+    if command == "search":
+        cfg = load_config(None, TINY)
+        model, _ = runner.build_model(cfg)
+        torch.save(runner.init_params(cfg, model), tmp_path / "w.pt")
+        args += ["--device", "cpu", *TINY, f"save_weight_dir={tmp_path}",
+                 "test_load_weight=w.pt", "search.verifier=clip"]
+    assert cli_main.main(args) == 2
     assert "not yet ported" in capsys.readouterr().err

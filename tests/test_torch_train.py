@@ -579,8 +579,13 @@ def test_trainer_fit_sample_save_load(tmp_path):
         assert torch.equal(other.params[k], v)
     np.testing.assert_array_equal(other.sample(2), imgs)
     assert path.endswith("again")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tr.search()
+    # search runs on the trainer's weights (the EMA), as sampling does
+    out = tr.search()
+    res = out["result"]
+    assert out["nfes"] == 4 and np.isfinite(out["best_score"])
+    assert res.best_images.shape == (2, 8, 8, 3)
+    assert out["best_score"] == float(np.nanmax(res.history["scores"]))
+    assert (tmp_path / "s" / "search_random_best.png").is_file()
 
 
 def test_cli_train_on_cpu(tmp_path, capsys):
