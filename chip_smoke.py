@@ -26,7 +26,8 @@ Phases, each ending with one line that carries its elapsed seconds:
    unconditional UNet, 800 for the guided CFG UNet) and at phase 15's
    search folds (32 rows for the unconditional UNet: 4 chunked candidates,
    pruned survivors, paths or neighbours of batch 8; 64 and 32 for the CFG
-   UNet: 4 candidates and 2 survivors of the dual batch 16); phase 15
+   UNet: 4 candidates and 2 survivors of the dual batch 16) and phase
+   17's tracked batches (64 rows; the CFG UNet's dual 128); phase 15
    fails on an attention batch that this phase did not hold. The flash
    forward also at the 256x256 flagship's attention, [1, 4096, 384] (bf16: wide).
    GroupNorm also at the 256x256 flagship's largest spans (batch 1, spans
@@ -69,8 +70,9 @@ Phases, each ending with one line that carries its elapsed seconds:
 9. guided eval path: ``runner.evaluate`` of the conditional UNet at the
    full width of ``configs/cifar10_cfg.yaml`` (ch 128, ch_mult
    1,4,8,8,4,2, 548 M parameters, bf16) on seeded weights, batch 8: CFG
-   w=1.8 over the config's whole T=3000 chain, CFG on 30 <= t < 70 and
-   autoguidance (a second seeded weight file) over a chain cut to T=100;
+   w=1.8 over the config's T=3000 chain cut to its first 500 steps'
+   table rows (T=500), CFG on 30 <= t < 70 and autoguidance (a second
+   seeded weight file) over a chain cut to T=100;
    exact launches a step (78 GroupNorm and 13 flash forwards, 5 on mma
    and 8 on wide, at batch 16 inside the interval and 8 outside;
    autoguidance twice that at batch 8), no synchronizing CUDA operation
@@ -86,7 +88,7 @@ Phases, each ending with one line that carries its elapsed seconds:
 12. conditional train path: ``runner.train`` at the configuration of
     ``configs/cifar10_cfg.yaml`` on the shapes dataset with 10 labels
     (batch 256, bf16, no tracked metrics or representation extraction) for
-    200 steps; exactly 78/13/13/13 launches a step (the forward, dq and
+    96 steps; exactly 78/13/13/13 launches a step (the forward, dq and
     dk/dv each 5 on mma, 8 on wide and none on simt); a finite, falling
     loss; the checkpoint restored
     for one more step and, through the eval loader, for 100 guided steps
@@ -135,7 +137,28 @@ Phases, each ending with one line that carries its elapsed seconds:
     norms, kernels against plain) and the remat'd chain's gradient against
     the gradient of the chain that holds every step, on the same draws,
     bit for bit under cuDNN's deterministic algorithms; each reading
-    printed beside its limit.
+    printed beside its limit;
+17. FID / IS / CLIP tracking at full width, bf16, with a random-weight
+    Inception-V3 at 299, CLIP at the published ViT-B/32 shape (seeded
+    weights written in HuggingFace's layout, read through
+    ``$ITSD_CLIP_WEIGHTS``) and IS logits from phase 15's classifier
+    (found by ``train.is_logit_source=auto``): ``inference-metrics`` on
+    the unconditional UNet (``configs/cifar10_uncond.yaml`` on shapes,
+    T=1000, eval batch 64, a point every 100 steps) from phase 7's last
+    checkpoint; ``runner.train`` with tracked metrics every epoch for 2
+    epochs of phase 7's configuration (points every 250 steps); guided
+    ``inference-metrics`` on the CFG UNet (w=1.8, T cut to 100 as phase 9
+    cuts it, dual batch 128, a point every 10 steps); random N=4 search
+    over DDIM 50 with the ensemble and the clip verifiers. Exact launches
+    (1000 x 51 GroupNorm and 1000 x 6 mma forwards for the first), the
+    attention batch of every call, no synchronizing CUDA operation inside
+    a snapshot chain, finite FID, IS and CLIP at every point; the chain's
+    ms per step, ms per metric point, Inception's and CLIP's ms per image,
+    peak memory, wall seconds;
+18. tracked parity, f32: the tracked unconditional run at T=50 (batch 64),
+    kernel path against plain path, FID, IS and CLIP at every point; the
+    Inception-V3 and CLIP features on the card against the same modules
+    on the CPU.
 
 Then it prints the ``nvidia-smi`` line, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -143,13 +166,13 @@ the script then exits non-zero and prints no result. It also exits non-zero
 when there is no CUDA device or no ``itsd_tpu_torch`` beside it.
 
 Launch counts: every count is set to 0 just before a path is driven and
-read just after. The bf16 eval, train and search paths of the
-unconditional UNet (phases 3, 7, 13 and 15) run the mma kernels and
-GroupNorm; those of the CFG UNet (phases 9, 12, 13 and 15) the mma and
-wide kernels. The kernels' JSON
+read just after. The bf16 eval, train, search and tracked paths of the
+unconditional UNet (phases 3, 7, 13, 15 and 17) run the mma kernels and
+GroupNorm; those of the CFG UNet (phases 9, 12, 13, 15 and 17) the mma
+and wide kernels. The kernels' JSON
 line carries each kernel's launches summed over these paths, and per path;
 the simt forward, dq and dk/dv, which no bf16 path runs, carry their
-launches on the f32 kernel paths of phases 4, 6, 10, 11 and 14.
+launches on the f32 kernel paths of phases 4, 6, 10, 11, 14, 16 and 18.
 """
 
 from __future__ import annotations
@@ -194,8 +217,12 @@ TRAIN_PARITY_STEPS = 3
 CFG_PER_FORWARD = (78, 13, 5, 8)
 CFG_BATCH = 8               # train.eval_batch_size of the guided evals
 CFG_SHORT_T = 100           # the interval-CFG and autoguidance chains
+# The CFG chain of phase 9, cut from the config's T=3000 to keep the
+# script inside its time limit: on a slow host (45.9 ms a guided step on
+# an H100, NVIDIA H100 80GB HBM3, 700 W) the whole chain took 138 s.
+CFG_LONG_T = 500
 CFG_INTERVAL = (30, 70)     # 40 of their 100 steps guided
-COND_TRAIN_EPOCHS = 25      # 8 steps an epoch: 2048 shapes images, batch 256
+COND_TRAIN_EPOCHS = 12      # 8 steps an epoch: 2048 shapes images, batch 256
 COND_PARITY_BATCH = 128
 COND_LOSS_FALL = 0.5        # the last epoch's mean loss below this share
                             # of the first epoch's (measured: 0.04)
@@ -228,9 +255,32 @@ CFG_SEARCH_N = 4
 CFG_SEARCH_KEEP = 2
 # The remat'd ancestral gradient's chain, cut from T=1000: one iteration
 # at T=1000 took 122.3 s on an H100 (NVIDIA H100 80GB HBM3, 700 W; 40.8
-# ms a forward, recompute and backward included).
-REMAT_T = 250
+# ms a forward, recompute and backward included), at T=250 up to 46.2 s.
+REMAT_T = 100
 CFG_GRAD_STEPS = 10         # DPM-Solver++ steps of the CFG gradient parity
+# Phases 17 and 18: FID / IS / CLIP tracking. The tracked runs sample at
+# train.eval_batch_size unset: min(train.batch_size, 64) = 64 (the CFG
+# UNet's dual batch 128). Each metric point of a 2048-d feature space
+# costs a float64 Frechet distance on the host (~1 s), so the runs thin
+# their points: the T=1000 run every TRACKED_INTERVAL steps.
+UNCOND_YAML = os.path.join(ROOT, "configs", "cifar10_uncond.yaml")
+TRACKED_BATCH = 64
+TRACKED_INTERVAL = 100      # train.eval_metric_interval: 10 points
+TRACKED_TRAIN_EPOCHS = 2
+TRACKED_TRAIN_INTERVAL = 250  # train.metric_interval of its evals: 4
+CFG_TRACKED_INTERVAL = 10   # the guided T=CFG_SHORT_T run: 10 points
+TRACKED_SEARCH_N = 4        # random search over DDIM 50, ensemble and clip
+TRACKED_PARITY_T = 50
+TRACKED_PARITY_INTERVAL = 10
+# Phase 18 limits, about 5x the first readings on an H100 (NVIDIA H100
+# 80GB HBM3, 700 W). FID, IS and CLIP of the f32 kernel path against the
+# plain path, relative: the f32 paths differ by summation order, which
+# the T=50 chain carries to the snapshots as ~1e-7 (measured FID 1.4e-8,
+# IS 1.8e-7, CLIP 0). Inception-V3 and CLIP on the card against the same
+# modules on the CPU, relative to the largest CPU value: f32 with TF32
+# off, sums in another order (measured 1.2e-6 to 2.0e-6).
+METRIC_REL_TOL = 1e-6
+EXTRACTOR_REL_TOL = 1e-5
 # Phase 16 limits, kernels against plain on the same seeds, each 4-5x
 # the largest error of the first run on an H100 (NVIDIA H100 80GB HBM3,
 # 700 W). Scores: the classifier's mean log-probability of 8 images after
@@ -404,7 +454,8 @@ def card():
         fail(f"nvidia-smi failed ({smi.returncode}): {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
     log(f"card: {name} | nvidia-smi: {smi_line} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda} | devices {torch.cuda.device_count()}")
+        f"cuda {torch.version.cuda} | python {sys.version.split()[0]} | "
+        f"devices {torch.cuda.device_count()}")
     phase_done(0, "card", t0)
     return name, smi_line
 
@@ -1571,11 +1622,11 @@ def guided_eval(what, cfg, params, want_steps, want_batches, card_line):
 def guided_eval_path(cparams, tmpdir, card_line):
     """Phase 9: runner.evaluate of the conditional model at the full width
     of configs/cifar10_cfg.yaml on seeded weights, bf16, batch 8, guided
-    by w=1.8: CFG over the whole T=3000 chain; CFG restricted to the
+    by w=1.8: CFG over a chain of CFG_LONG_T steps; CFG restricted to the
     interval CFG_INTERVAL; autoguidance against a second seeded weight
-    file. The last two run a chain of CFG_SHORT_T steps (diffusion.T
-    overridden, the time table cut to its first rows), to stay inside the
-    script's time limit. Every guided eval clips the implied x_0 at each
+    file. The last two run a chain of CFG_SHORT_T steps. Each cuts the
+    config's T=3000 (diffusion.T overridden, the time table cut to its
+    first rows), to stay inside the script's time limit. Every guided eval clips the implied x_0 at each
     step (diffusion.clip_denoised), as long extrapolative-CFG chains need:
     on random weights the unclipped chain grows by ~1/sqrt(alpha_bar_T),
     ~1e9 at T=3000. Returns {run: launches}, {run: result}."""
@@ -1587,11 +1638,15 @@ def guided_eval_path(cparams, tmpdir, card_line):
     launches, results = {}, {}
     B = CFG_BATCH
 
-    cfg = cfg_config(tmpdir, "bfloat16", "diffusion.clip_denoised=true")
-    T = cfg.diffusion.T
+    T = CFG_LONG_T
+    cfg = cfg_config(tmpdir, "bfloat16", f"diffusion.T={T}",
+                     "diffusion.clip_denoised=true")
+    p_long = dict(cparams)
+    p_long["time_embedding.table"] = cparams["time_embedding.table"][:T]
     launches["cfg_eval"], results["cfg_eval"] = guided_eval(
-        f"CFG w={cfg.diffusion.w}", cfg, cparams, [(T, one)],
+        f"CFG w={cfg.diffusion.w}", cfg, p_long, [(T, one)],
         {2 * B: fwd * T}, card_line)
+    del p_long
 
     short = [f"diffusion.T={CFG_SHORT_T}", "diffusion.clip_denoised=true"]
     lo, hi = CFG_INTERVAL
@@ -2372,7 +2427,8 @@ def watch_search():
 
 
 def search_run(what, cfg, params, per_forward, forwards, grad_forwards,
-               batches, nfes, card_line, reads=0, recompute=0):
+               batches, nfes, card_line, reads=0, recompute=0,
+               verifier_syncs=False):
     """One ``runner.run_search``, watched: exact launches (``forwards``
     model forwards of ``per_forward`` launches each, plus ``recompute``
     forwards rerun by the remat'd backward, and one dq and one dk/dv per
@@ -2380,7 +2436,10 @@ def search_run(what, cfg, params, per_forward, forwards, grad_forwards,
     attention batch of every call (``batches``), no synchronizing CUDA
     operation inside an algorithm and ``reads`` between its calls (random
     search: one a chunk), the NFE of JAX's accounting (``nfes``), a finite
-    best score and images. Returns (launches, result)."""
+    best score and images. ``verifier_syncs``: the verifier reads back
+    inside the algorithm (the ensemble verifier's eigendecompositions check
+    their error flag on the host), so its syncs are counted, not refused.
+    Returns (launches, result)."""
     from itsd_tpu_torch.cli import runner
 
     B = cfg.train.eval_batch_size
@@ -2396,7 +2455,7 @@ def search_run(what, cfg, params, per_forward, forwards, grad_forwards,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     res = out["result"]
     inside = [s for call in seen["inside"] for s in call]
-    if inside:
+    if inside and not verifier_syncs:
         fail(f"{what}: a search algorithm made {len(inside)} synchronizing "
              f"CUDA operations, the first: {inside[0]}")
     if any(n != reads for n in seen["between"]):
@@ -2438,14 +2497,15 @@ def search_run(what, cfg, params, per_forward, forwards, grad_forwards,
              ms_per_forward=seen["seconds"] * 1e3 / model_fwd,
              peak_gb=peak_gb, best=best,
              median=float(np.nanmedian(scores)),
-             syncs_between=sum(seen["between"]), guard=out["guard"])
+             syncs_between=sum(seen["between"]), guard=out["guard"],
+             syncs_inside=len(inside))
     log(f"{what}: NFE {r['nfe']} ({forwards} forwards"
         f"{f' + {recompute} recomputed' if recompute else ''}, "
         f"{grad_forwards} differentiated), search {seen['seconds']:.3f} s "
         f"(run_search {seconds:.3f} s with set-up) = {r['ms_per_nfe']:.1f} "
         f"ms/NFE, {r['ms_per_forward']:.3f} ms/forward, peak "
         f"{peak_gb:.3f} GB, best score {best:.4f}, median candidate score "
-        f"{r['median']:.4f}, syncs: 0 in the algorithm, "
+        f"{r['median']:.4f}, syncs: {len(inside)} in the algorithm, "
         f"{r['syncs_between']} between its calls, on {card_line}; attention "
         f"batches {dict(collections.Counter(seen['batches']))}")
     return launches, r
@@ -2869,6 +2929,425 @@ def gradient_search_parity(params, clf, tmpdir, f32_launches):
         del model, got, want, grads
 
 
+# ---------------------------------------------------------------------------
+# FID / IS / CLIP tracking
+
+
+def seeded_clip_file(path: str) -> None:
+    """A HuggingFace-layout CLIPModel state dict at the published ViT-B/32
+    shape (``metrics.clip.CLIPConfig``'s defaults: vision 768 wide, 12
+    layers, 12 heads, patch 32, image 224; text 512 wide, 12 layers, 8
+    heads, vocab 49,408, context 77; projection 512) with seeded weights
+    (linear and patch kernels N(0, 1/fan_in), embeddings N(0, 0.02^2),
+    LayerNorm the identity, biases 0) and the position_ids buffers such
+    files carry, saved to ``path``."""
+    from itsd_tpu_torch.metrics.clip import CLIPConfig, CLIPModel
+
+    cfg = CLIPConfig()
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape)
+                  for k, v in CLIPModel(cfg).state_dict().items()}
+    gen = torch.Generator().manual_seed(17)
+    sd = {}
+    for k, shape in shapes.items():
+        if k == "logit_scale":
+            sd[k] = torch.tensor(float(np.log(1 / 0.07)))
+        elif "norm" in k:
+            sd[k] = (torch.ones(shape) if k.endswith("weight")
+                     else torch.zeros(shape))
+        elif k.endswith("bias"):
+            sd[k] = torch.zeros(shape)
+        elif "embedding" in k and "patch" not in k:
+            sd[k] = torch.randn(shape, generator=gen) * 0.02
+        else:
+            sd[k] = torch.randn(shape, generator=gen) * float(
+                np.prod(shape[1:])) ** -0.5
+    sd["vision_model.embeddings.position_ids"] = torch.arange(
+        (cfg.image_size // cfg.patch_size) ** 2 + 1)[None]
+    sd["text_model.embeddings.position_ids"] = torch.arange(
+        cfg.context_length)[None]
+    torch.save(sd, path)
+
+
+@contextlib.contextmanager
+def watch_tracked():
+    """Inside a tracked run: the batch of every attention call; each
+    snapshot chain's wall seconds (synchronized before and after) and the
+    synchronizing CUDA operations it makes, which PyTorch's sync debug mode
+    reports (the chain promises none); each metric point's seconds,
+    synchronized (its extractors on the card, one read back, the float64
+    statistics on the host)."""
+    from itsd_tpu_torch.cli import runner
+    from itsd_tpu_torch.models import unet
+
+    seen = dict(batches=[], chain_s=[], syncs=[], point_s=[])
+    attention_fn = unet.spatial_attention
+    chain_fn, point_fn = runner.sample_with_snapshots, runner._snapshot_metrics
+
+    def attention(q, k, v):
+        seen["batches"].append(q.shape[0])
+        return attention_fn(q, k, v)
+
+    def syncs(caught):
+        return [str(w.message) for w in caught
+                if "called a synchronizing" in str(w.message)]
+
+    def chain(*a, **kw):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                torch.ones(1, device=DEVICE).item()
+                if not syncs(caught):
+                    fail("sync debug mode reported no sync for .item()")
+                del caught[:]
+                t0 = time.perf_counter()
+                out = chain_fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        seen["chain_s"].append(time.perf_counter() - t0)
+        seen["syncs"].extend(syncs(caught))
+        return out
+
+    def point(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = point_fn(*a, **kw)
+        torch.cuda.synchronize()
+        seen["point_s"].append(time.perf_counter() - t0)
+        return out
+
+    with mock.patch.object(unet, "spatial_attention", attention), \
+            mock.patch.object(runner, "sample_with_snapshots", chain), \
+            mock.patch.object(runner, "_snapshot_metrics", point):
+        yield seen
+
+
+def tracked_run(what, fn, want_fn, batches_fn, card_line):
+    """One tracked run ``fn()``, watched: its launches must equal
+    ``want_fn(out)`` and its attention batches ``batches_fn(out)``, and no
+    chain may synchronize. Returns (launches, stats)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with watch_tracked() as seen:
+        out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if seen["syncs"]:
+        fail(f"{what}: the snapshot chain made {len(seen['syncs'])} "
+             f"synchronizing CUDA operations, the first: {seen['syncs'][0]}")
+    want = want_fn(out)
+    if launches != want:
+        fail(f"{what}: launches {launches}, want {want}")
+    batches = collections.Counter(seen["batches"])
+    if batches != batches_fn(out):
+        fail(f"{what}: attention batches {dict(batches)}, want "
+             f"{dict(batches_fn(out))}")
+    r = dict(wall_s=wall, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+             chain_s=seen["chain_s"], point_s=seen["point_s"], out=out)
+    log(f"{what}: {wall:.3f} s wall on {card_line}; chains "
+        f"{[round(c, 3) for c in seen['chain_s']]} s, 0 syncs inside; "
+        f"{len(seen['point_s'])} metric points, "
+        f"{1e3 * np.mean(seen['point_s']):.1f} ms a point (median "
+        f"{1e3 * np.median(seen['point_s']):.1f}); peak "
+        f"{r['peak_gb']:.3f} GB; launches {launches}; attention batches "
+        f"{dict(batches)}")
+    return launches, r
+
+
+def read_history(path, want_ts):
+    """The rows of a metrics_history JSON; fails unless its timesteps are
+    ``want_ts`` and every FID, IS and CLIP is finite."""
+    with open(path) as f:
+        rows = json.load(f)
+    ts = [r["t"] for r in rows]
+    bad = [r for r in rows if not all(np.isfinite(r[k])
+                                      for k in ("fid", "is", "clip"))]
+    if ts != list(want_ts) or bad:
+        fail(f"{path}: timesteps {ts} (want {list(want_ts)}), rows with a "
+             f"metric not finite: {bad}")
+    return rows
+
+
+def snapshot_ts(T, interval):
+    return list(range(T - interval, -1, -interval)) + (
+        [0] if T % interval else [])
+
+
+def tracked_path(wdir, ckpt, cparams, params, clf, tmpdir, card_line,
+                 timer):
+    """Phase 17: FID / IS / CLIP tracking at full width, bf16, on the
+    seeded extractors (random-weight Inception-V3 at 299, CLIP at the
+    ViT-B/32 shape written in HuggingFace's layout and read through
+    $ITSD_CLIP_WEIGHTS) and IS from the classifier of phase 15 (found by
+    is_logit_source=auto under JAX's name). (a) ``inference-metrics`` on
+    the unconditional UNet (``--config configs/cifar10_uncond.yaml``,
+    shapes, T=1000, eval batch 64) from ``wdir/ckpt``; (b) ``runner.train``
+    with tracked metrics every epoch for 2 epochs of phase 7's
+    configuration; (c) guided ``inference-metrics`` on the CFG UNet
+    (``configs/cifar10_cfg.yaml``, w=1.8, T cut to CFG_SHORT_T as phase 9
+    cuts it, dual batch 128); (d) random N=4 search over DDIM 50 with the
+    ensemble and the clip verifiers. Exact launches, no sync inside a
+    chain, finite metrics at every point. Returns ({run: launches},
+    the CLIP file's path)."""
+    import shutil
+
+    from itsd_tpu_torch.cli import main as cli_main
+    from itsd_tpu_torch.cli import runner
+    from itsd_tpu_torch.metrics import (make_clip_feature_fn,
+                                        make_inception_extractors)
+
+    t0 = time.perf_counter()
+    launches, T = {}, T_STEPS
+    clip_path = os.path.join(tmpdir, "clip_vit_b32.pt")
+    c0 = time.perf_counter()
+    seeded_clip_file(clip_path)
+    log(f"CLIP ViT-B/32-shaped seeded weights written in "
+        f"{time.perf_counter() - c0:.2f} s: {clip_path} "
+        f"({os.path.getsize(clip_path) / 1e9:.3f} GB)")
+    env = {"ITSD_CLIP_WEIGHTS": clip_path, "ITSD_INCEPTION_WEIGHTS": "",
+           "ITSD_PIXEL_FEATURES": ""}
+
+    def with_classifier(d):
+        os.makedirs(d, exist_ok=True)
+        shutil.copy(clf, os.path.join(d, "classifier_shapes32"))
+
+    # extractor costs on the card: a batch of 64 of phase 3's 32x32 images
+    feature_fn, _, _ = make_inception_extractors(device=DEVICE)
+    with mock.patch.dict(os.environ, env):
+        clip_fn = make_clip_feature_fn(device=DEVICE)
+    x = torch.rand((TRACKED_BATCH, 32, 32, 3), device=DEVICE,
+                   generator=torch.Generator(device=DEVICE).manual_seed(5))
+    with torch.inference_mode():
+        inc_ms, _ = timer(lambda: feature_fn.run_both(x), n=3, warmup=1)
+        clip_ms, _ = timer(lambda: clip_fn(x), n=3, warmup=1)
+    log(f"extractors at batch {TRACKED_BATCH} (32x32 in, f32, TF32 off) on "
+        f"{card_line}: Inception-V3 (bilinear to 299, features and logits) "
+        f"{inc_ms:.3f} ms = {inc_ms / TRACKED_BATCH:.4f} ms an image; CLIP "
+        f"ViT-B/32 (bicubic to 224) {clip_ms:.3f} ms = "
+        f"{clip_ms / TRACKED_BATCH:.4f} ms an image")
+
+    one = route_counts(gn=51, fwd=6, fwd_mma=6)
+    # (a) inference-metrics on the unconditional UNet
+    with_classifier(wdir)
+    mdir = os.path.join(tmpdir, "tracked", "metrics")
+    argv = ["inference-metrics", "--config", UNCOND_YAML, "--device", DEVICE,
+            "data.dataset=shapes", "seed=0",
+            f"train.eval_metric_interval={TRACKED_INTERVAL}",
+            f"save_weight_dir={wdir}", f"test_load_weight={ckpt}",
+            f"sampled_dir={tmpdir}/tracked/sampled",
+            f"metrics_save_dir={mdir}"]
+
+    def cli():
+        with mock.patch.dict(os.environ, env):
+            rc = cli_main.main(argv)
+        if rc != 0:
+            fail(f"inference-metrics exited {rc}")
+
+    launches["tracked_inference_metrics"], r = tracked_run(
+        f"inference-metrics, T={T}, batch {TRACKED_BATCH}", cli,
+        lambda _: scaled(one, T),
+        lambda _: collections.Counter({TRACKED_BATCH: 6 * T}), card_line)
+    rows = read_history(os.path.join(mdir, "metrics_history.json"),
+                        snapshot_ts(T, TRACKED_INTERVAL))
+    with open(os.path.join(mdir, "metrics_meta.json")) as f:
+        meta = json.load(f)
+    if (meta["feature_extractor"] != "random" or not meta["clip_tracking"]
+            or not meta["is_logit_source"].startswith("classifier:")):
+        fail(f"metrics_meta.json: {meta}")
+    log(f"inference-metrics: chain {r['chain_s'][0] / T * 1e3:.3f} ms/step "
+        f"at batch {TRACKED_BATCH}; history (t, FID, IS, CLIP): "
+        + ", ".join(f"({h['t']}, {h['fid']:.3f}, {h['is']:.4f}, "
+                    f"{h['clip']:.5f})" for h in rows))
+
+    # (b) tracked training: 2 epochs of phase 7's configuration
+    tdir = os.path.join(tmpdir, "tracked_train")
+    with_classifier(os.path.join(tdir, "ckpt"))
+    cfg = train_config(tmpdir, "bfloat16", "train.track_metrics=true",
+                       "train.eval_freq=1", "train.model_save_freq=1",
+                       f"train.epoch={TRACKED_TRAIN_EPOCHS}",
+                       f"train.metric_interval={TRACKED_TRAIN_INTERVAL}",
+                       f"save_weight_dir={tdir}/ckpt",
+                       f"sampled_dir={tdir}/sampled",
+                       f"metrics_save_dir={tdir}/metrics")
+    E = TRACKED_TRAIN_EPOCHS
+
+    def train():
+        with mock.patch.dict(os.environ, env):
+            return runner.train(cfg, device=DEVICE)
+
+    def train_want(out):
+        want = scaled(step_counts(51, 6, 6), out["steps"])
+        return {k: n + E * T * one[k] for k, n in want.items()}
+
+    launches["tracked_train"], r = tracked_run(
+        f"tracked train, {E} epochs", train, train_want,
+        lambda out: collections.Counter({TRAIN_BATCH: 6 * out["steps"],
+                                         TRAIN_GRID_BATCH: E * 6 * T}),
+        card_line)
+    for e in range(E):
+        rows = read_history(
+            os.path.join(tdir, "metrics", f"metrics_history_epoch_{e}.json"),
+            snapshot_ts(T, TRACKED_TRAIN_INTERVAL))
+        log(f"tracked train epoch {e}: (t, FID, IS, CLIP) "
+            + ", ".join(f"({h['t']}, {h['fid']:.3f}, {h['is']:.4f}, "
+                        f"{h['clip']:.5f})" for h in rows))
+    with open(os.path.join(tdir, "metrics", "train_metrics.jsonl")) as f:
+        evals = [json.loads(line) for line in f if "eval_fid" in line]
+    losses = np.asarray(r["out"]["losses"])
+    if [e["epoch"] for e in evals] != list(range(E)) or not np.isfinite(
+            losses).all():
+        fail(f"tracked train: eval records {evals}, losses finite "
+             f"{bool(np.isfinite(losses).all())}")
+    chain_ms = [round(c / T * 1e3, 3) for c in r["chain_s"]]
+    log(f"tracked train: {r['out']['steps']} steps, final loss "
+        f"{losses[-1]:.5f}; eval chains {chain_ms} ms/step at batch "
+        f"{TRAIN_GRID_BATCH}")
+
+    # (c) guided inference-metrics on the CFG UNet
+    gn, fwd, mma, wide = CFG_PER_FORWARD
+    cone = route_counts(gn=gn, fwd=fwd, fwd_mma=mma, fwd_wide=wide)
+    cdir = os.path.join(tmpdir, "cfg_tracked")
+    with_classifier(cdir)
+    p_short = dict(cparams)
+    p_short["time_embedding.table"] = cparams[
+        "time_embedding.table"][:CFG_SHORT_T].clone()
+    torch.save(p_short, os.path.join(cdir, "cfg.pt"))
+    del p_short
+    cmdir = os.path.join(cdir, "metrics")
+    cargv = ["inference-metrics", "--config", CFG_YAML, "--device", DEVICE,
+             "data.dataset=shapes", "seed=0", f"diffusion.T={CFG_SHORT_T}",
+             "diffusion.clip_denoised=true",
+             f"train.eval_metric_interval={CFG_TRACKED_INTERVAL}",
+             f"save_weight_dir={cdir}", "test_load_weight=cfg.pt",
+             f"sampled_dir={cdir}/sampled", f"metrics_save_dir={cmdir}"]
+
+    def cfg_cli():
+        with mock.patch.dict(os.environ, env):
+            rc = cli_main.main(cargv)
+        if rc != 0:
+            fail(f"guided inference-metrics exited {rc}")
+
+    CT = CFG_SHORT_T
+    launches["cfg_tracked_inference_metrics"], r = tracked_run(
+        f"guided inference-metrics, CFG w=1.8, T={CT}, dual batch "
+        f"{2 * TRACKED_BATCH}", cfg_cli, lambda _: scaled(cone, CT),
+        lambda _: collections.Counter({2 * TRACKED_BATCH: fwd * CT}),
+        card_line)
+    rows = read_history(os.path.join(cmdir, "metrics_history.json"),
+                        snapshot_ts(CT, CFG_TRACKED_INTERVAL))
+    log(f"guided inference-metrics: chain {r['chain_s'][0] / CT * 1e3:.3f} "
+        f"ms/step; history (t, FID, IS, CLIP): "
+        + ", ".join(f"({h['t']}, {h['fid']:.3f}, {h['is']:.4f}, "
+                    f"{h['clip']:.5f})" for h in rows))
+
+    # (d) search with the ensemble and the clip verifiers
+    N, n, B = TRACKED_SEARCH_N, FAST_STEPS, BATCH
+    for verifier in ("ensemble", "clip"):
+        cfg = eval_config(tmpdir, "bfloat16", f"search.verifier={verifier}",
+                          f"search.n_candidates={N}", "data.dataset=shapes",
+                          "diffusion.sampler=ddim",
+                          f"diffusion.ddim_steps={n}")
+        with mock.patch.dict(os.environ, env):
+            launches[f"search_{verifier}"], res = search_run(
+                f"random N={N}, DDIM {n}, {verifier} verifier", cfg, params,
+                one, n, 0, collections.Counter({N * B: 6 * n}), N, card_line,
+                verifier_syncs=verifier == "ensemble")
+    phase_done(17, "FID / IS / CLIP tracking", t0)
+    return launches, clip_path
+
+
+def tracked_parity(params, clf, clip_path, tmpdir):
+    """Phase 18, in f32: ``sample_with_metrics`` of the unconditional UNet
+    at T=TRACKED_PARITY_T (batch 64, a point every 10 steps), kernel path
+    against plain path, with the same extractors, real features and draws:
+    every FID, IS and CLIP within METRIC_REL_TOL, relative. Then the
+    random-weight Inception-V3 and the ViT-B/32-shaped CLIP on the card
+    against the same modules on the CPU, on 8 of the shapes images:
+    features (and Inception's logits) within EXTRACTOR_REL_TOL of the
+    largest CPU value. Returns the kernel path's launches (simt in
+    f32)."""
+    from itsd_tpu_torch.cli import runner
+    from itsd_tpu_torch.data import shapes_dataset
+    from itsd_tpu_torch.metrics import (make_clip_feature_fn,
+                                        make_inception_extractors)
+    from itsd_tpu_torch.metrics.clip import load_clip
+    from itsd_tpu_torch.metrics.features import (RANDOM_SEED,
+                                                 clip_image_feature_fn)
+    from itsd_tpu_torch.metrics.inception import (inception_from_state_dict,
+                                                  init_random_params)
+    from itsd_tpu_torch.models import load_classifier_extractors
+
+    t0 = time.perf_counter()
+    T = TRACKED_PARITY_T
+    cfg = eval_config(tmpdir, "float32", f"diffusion.T={T}",
+                      f"train.eval_batch_size={TRACKED_BATCH}",
+                      f"train.eval_metric_interval={TRACKED_PARITY_INTERVAL}",
+                      f"metrics_save_dir={tmpdir}/tracked_parity")
+    feature_fn, _, _ = make_inception_extractors(device=DEVICE)
+    _, logit_fn, _ = load_classifier_extractors(clf, DEVICE)
+    clip_fn = make_clip_feature_fn(clip_path, device=DEVICE)
+    images, _ = shapes_dataset(n=512, img_size=32, seed=0)
+    unit = (images + 1.0) / 2.0
+    real = runner.compute_real_features(unit, feature_fn, device=DEVICE)
+    real_clip = runner.compute_real_features(unit, clip_fn, device=DEVICE)
+    hist = {}
+    for path in ("kernels", "plain"):
+        reset_launches()
+        with contextlib.ExitStack() as stack:
+            if path == "plain":
+                for p in plain_path():
+                    stack.enter_context(p)
+            out = runner.sample_with_metrics(
+                cfg, params, feature_fn=feature_fn, logit_fn=logit_fn,
+                real_features=real, clip_feature_fn=clip_fn,
+                real_clip_features=real_clip, tag=path, device=DEVICE)
+        hist[path] = out["history"]
+        if path == "kernels":
+            f32_launches = read_launches()
+    worst = [0.0, 0.0, 0.0]
+    for k, p in zip(hist["kernels"], hist["plain"]):
+        if k[0] != p[0]:
+            fail(f"tracked parity: timesteps {k[0]} and {p[0]}")
+        for i in range(3):
+            rel = abs(k[i + 1] - p[i + 1]) / abs(p[i + 1])
+            worst[i] = max(worst[i], rel)
+    log(f"tracked parity (f32, T={T}, batch {TRACKED_BATCH}, "
+        f"{len(hist['plain'])} points): largest relative difference FID "
+        f"{worst[0]:.3e}, IS {worst[1]:.3e}, CLIP {worst[2]:.3e} (limit "
+        f"{METRIC_REL_TOL}); plain history "
+        + ", ".join(f"({h[0]}, {h[1]:.4f}, {h[2]:.5f}, {h[3]:.6f})"
+                    for h in hist["plain"]))
+    if not all(np.isfinite(w) and w <= METRIC_REL_TOL for w in worst):
+        fail(f"tracked parity: kernels against plain {worst}, limit "
+             f"{METRIC_REL_TOL}")
+
+    x = torch.from_numpy(unit[:8])
+    inc = inception_from_state_dict(init_random_params(
+        torch.Generator().manual_seed(RANDOM_SEED)))
+    clip_cpu = clip_image_feature_fn(load_clip(clip_path))
+    with torch.inference_mode():
+        pairs = {"Inception features": (feature_fn.run_both(x.to(DEVICE))[0],
+                                        inc(x)[0]),
+                 "Inception logits": (feature_fn.run_both(x.to(DEVICE))[1],
+                                      inc(x)[1]),
+                 "CLIP features": (clip_fn(x.to(DEVICE)), clip_cpu(x))}
+    for what, (card, cpu) in pairs.items():
+        rel = float((card.cpu() - cpu).abs().max() / cpu.abs().max())
+        log(f"{what} on the card against the CPU: {rel:.3e} of the largest "
+            f"(limit {EXTRACTOR_REL_TOL})")
+        if not rel <= EXTRACTOR_REL_TOL:
+            fail(f"{what}: card against CPU {rel}, limit "
+                 f"{EXTRACTOR_REL_TOL}")
+    phase_done(18, "tracked parity", t0)
+    return f32_launches
+
+
 def cuda_tests():
     """Phase 8: the CUDA tests in a subprocess, against the library that
     phase 1 built (the same sources hash to the same build directory)."""
@@ -2887,8 +3366,8 @@ def cuda_tests():
 
 
 # The paths whose launches the kernels' JSON line carries: the bf16 runs of
-# runner.evaluate, runner.train and runner.run_search (phases 3, 7, 9, 12,
-# 13 and 15).
+# runner.evaluate, runner.train, runner.run_search and the tracked entry
+# points (phases 3, 7, 9, 12, 13, 15 and 17).
 MAIN_PATHS = ("eval", "train", "cfg_eval", "cfg_interval_eval", "auto_eval",
               "cond_train", "ddim_eval", "ddim_eta1_eval", "dpm_eval",
               "restart_eval", "picard_eval",
@@ -2897,7 +3376,9 @@ MAIN_PATHS = ("eval", "train", "cfg_eval", "cfg_interval_eval", "auto_eval",
               "search_pruned", "search_path", "search_zero_order",
               "search_smc", "search_gradient_dpm", "search_gradient_remat",
               "cfg_search_random", "cfg_search_pruned",
-              "cfg_search_gradient_dpm")
+              "cfg_search_gradient_dpm", "tracked_inference_metrics",
+              "tracked_train", "cfg_tracked_inference_metrics",
+              "search_ensemble", "search_clip")
 WORK = {"train": "one train step of configs/cifar10_uncond.yaml (batch 128, "
                  "bf16)",
         "cond_train": "one train step of configs/cifar10_cfg.yaml (batch "
@@ -2939,11 +3420,11 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
     C=512 and C=1024 (the simt kernels there through forced calls on the
     same inputs); the sums over the other paths' steps stand beside them.
     ``launches`` sums the kernel's launches over the bf16 runs of
-    runner.evaluate, runner.train and runner.run_search
-    (``launches_by_path``); the simt forward, dq and dk/dv, which no bf16
-    path sends there, count their launches on the f32 kernel paths of the
-    parity phases 4, 6, 10, 11, 14 and 16 (``launches_f32_parity``, kept
-    for every kernel)."""
+    runner.evaluate, runner.train, runner.run_search and the tracked entry
+    points (``launches_by_path``); the simt forward, dq and dk/dv, which no
+    bf16 path sends there, count their launches on the f32 kernel paths of
+    the parity phases 4, 6, 10, 11, 14, 16 and 18
+    (``launches_f32_parity``, kept for every kernel)."""
     entries = []
     for name, (source, replaces, work) in KERNELS.items():
         by_tag = fwd[name] if name in fwd else bwd[name]
@@ -2954,7 +3435,8 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
                                      "flash_bwd_dq_simt",
                                      "flash_bwd_dkv_simt"):
             launches = f32_launches[name]
-            counted_on = "f32 kernel paths of phases 4, 6, 10, 11, 14, 16"
+            counted_on = ("f32 kernel paths of phases 4, 6, 10, 11, 14, 16, "
+                          "18")
         if not launches:
             fail(f"{name} was not launched on its paths")
         entry = dict(name=name, route="cuda", source=source,
@@ -2990,18 +3472,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="itsd_chip_smoke_") as tmpdir:
         cfg = eval_config(tmpdir)
         params = seeded_params(cfg)
-        (eval_shapes, train_shapes, picard_shapes,
-         search_shapes) = path_shapes(
+        (eval_shapes, train_shapes, picard_shapes, search_shapes,
+         tracked_shapes) = path_shapes(
             cfg, params, dev, (BATCH, TRAIN_BATCH, FAST_STEPS * BATCH,
-                               SEARCH_FOLD * BATCH))
+                               SEARCH_FOLD * BATCH, TRACKED_BATCH))
         ccfg = cfg_config(tmpdir)
         cparams = seeded_params(ccfg)
         (cfg_shapes, cfg_b8_shapes, cond_shapes, cfg_picard_shapes,
-         cfg_search_shapes, cfg_pruned_shapes) = path_shapes(
+         cfg_search_shapes, cfg_pruned_shapes,
+         cfg_tracked_shapes) = path_shapes(
             ccfg, cparams, dev,
             (2 * CFG_BATCH, CFG_BATCH, ccfg.train.batch_size,
              2 * FAST_STEPS * CFG_BATCH, 2 * CFG_SEARCH_N * CFG_BATCH,
-             2 * CFG_SEARCH_KEEP * CFG_BATCH))
+             2 * CFG_SEARCH_KEEP * CFG_BATCH, 2 * TRACKED_BATCH))
         from itsd_tpu_torch.kernels import attention
         fwd_routes = collections.Counter(
             attention.route(torch.bfloat16, C, "forward")
@@ -3024,15 +3507,17 @@ def main() -> int:
             "search": (search_shapes, 10, False),
             "cfg_search": (cfg_search_shapes, 5, False),
             "cfg_search_pruned": (cfg_pruned_shapes, 5, False),
+            "tracked": (tracked_shapes, 10, False),
+            "cfg_tracked": (cfg_tracked_shapes, 5, False),
             "flagship": (FLAGSHIP_ATTENTION, 10, True)}, dev, timer)
         # the attention batches phase 2 held, for phase 15's search runs
         held = {model: {B for _, attn in paths for B, _, _ in attn}
                 for model, paths in (
                     ("uncond", (eval_shapes, train_shapes, picard_shapes,
-                                search_shapes)),
+                                search_shapes, tracked_shapes)),
                     ("cfg", (cfg_shapes, cfg_b8_shapes, cond_shapes,
                              cfg_picard_shapes, cfg_search_shapes,
-                             cfg_pruned_shapes)))}
+                             cfg_pruned_shapes, cfg_tracked_shapes)))}
         eval_launches = eval_path(
             params, tmpdir, smi_line, len(eval_shapes[0]),
             len(eval_shapes[1]), timer)
@@ -3057,6 +3542,11 @@ def main() -> int:
                                        held)
         paths.update(searched)
         f32.append(search_parity(params, cparams, clf, tmpdir))
+        tracked, clip_path = tracked_path(
+            os.path.join(tmpdir, "ckpt"), f"ckpt_{TRAIN_EPOCHS - 1}",
+            cparams, params, clf, tmpdir, smi_line, timer)
+        paths.update(tracked)
+        f32.append(tracked_parity(params, clf, clip_path, tmpdir))
         del params, cparams
         paths["cond_train"] = cond_train_path(tmpdir, smi_line)
     cuda_tests()

@@ -1,13 +1,13 @@
 """Command line of the port.
 
 Usage:
-    python -m itsd_tpu_torch.cli.main {train|eval|search} [--config c.yaml]
-        [--device cuda] [key=value ...]
+    python -m itsd_tpu_torch.cli.main {train|eval|search|inference-metrics}
+        [--config c.yaml] [--device cuda] [key=value ...]
 
 Overrides take dotted keys (``diffusion.T=50``) and the reference's flat keys
 (``T=50``, ``channel_mult=[1,2]``), as the JAX package's CLI. The other
-subcommands of that CLI, and the options of ``train``, ``eval`` and
-``search`` that are not yet ported, exit with status 2 and say so.
+subcommand of that CLI (``finetune-t``), and the options that are not yet
+ported, exit with status 2 and say so.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import sys
 from ..utils import load_config, to_dict
 
 COMMANDS = ["train", "eval", "search", "finetune-t", "inference-metrics"]
-PORTED = ("train", "eval", "search")
+PORTED = ("train", "eval", "search", "inference-metrics")
 
 
 def _parse(argv):
@@ -28,7 +28,9 @@ def _parse(argv):
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     p.add_argument("overrides", nargs="*", help="key=value overrides")
-    return p.parse_args(argv)
+    # intermixed: overrides may follow --config and --device (the plain
+    # parser of older Python 3.12 releases rejects them there)
+    return p.parse_intermixed_args(argv)
 
 
 def main(argv=None) -> int:
@@ -50,6 +52,10 @@ def main(argv=None) -> int:
         elif args.command == "eval":
             out = runner.evaluate(cfg, device=args.device)
             print(f"sampled grid: {out['path']}")
+        elif args.command == "inference-metrics":
+            out = runner.inference_metrics(cfg, device=args.device)
+            print(f"tracked {len(out['history'])} metric points; the last "
+                  f"(t, FID, IS, CLIP): {out['history'][-1]}")
         else:
             out = runner.run_search(cfg, device=args.device)
             print(f"best score: {out['best_score']} (NFE={out['nfes']})")

@@ -1,4 +1,5 @@
-"""End-to-end pipelines of the port: ``train`` and ``evaluate``.
+"""End-to-end pipelines of the port: ``train``, ``evaluate``,
+``inference_metrics`` and ``run_search``.
 
 Counterpart of ``itsd_tpu/cli/runner.py`` (``build_model``,
 ``build_schedule``, ``load_dataset`` and ``init_params`` at 49-135,
@@ -7,12 +8,16 @@ Counterpart of ``itsd_tpu/cli/runner.py`` (``build_model``,
 ``make_eps_fn`` and ``load_weak_params`` 277-319, ``make_train_key`` and
 ``resolve_track_metrics`` 322-350, ``train`` 389-600,
 ``_sample_grid_during_training`` 639-662, ``evaluate`` 668-712,
+``compute_real_features``, ``resolve_is_logit_fn``,
+``sample_with_metrics`` and ``inference_metrics`` 715-922,
 ``build_cli_verifier`` 927-1007 and ``run_search`` 1010-1338), with the
-conditional model, classifier-free guidance, autoguidance, every sampler
-and noise search. Spatial meshes, metric-tracked training, profiling,
-representation extraction, the CLIP and ensemble verifiers, the cross-T
-surgery of a table time embedding and the T-extension fine-tune are not
-yet ported and raise.
+conditional model, classifier-free guidance, autoguidance, every sampler,
+noise search and FID / IS / CLIP tracking. Spatial meshes, profiling,
+representation extraction, the cross-T surgery of a table time embedding
+and the T-extension fine-tune are not yet ported and raise.
+
+Unlike JAX's, the metric-tracked path swallows no error of a metric: a
+metric is NaN only when its extractor or its real features are absent.
 
 Entry points run on ``device="cuda"`` unless the caller passes another.
 """
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import json
 import os
 import sys
 import time
@@ -31,17 +37,20 @@ import torch
 
 from ..core import (ddim_sample, dpm_solver_sample, linear_schedule,
                     make_segment_denoiser, parallel_picard_sample,
-                    restart_sample, sample)
+                    restart_sample, sample, sample_with_snapshots)
 from ..core.process import make_autoguidance_eps_fn, make_cfg_eps_fn
 from ..data import (BatchIterator, load_cifar10, load_image_folder,
                     prefetch_to_device, shapes_dataset, synthetic_dataset,
                     threaded_prefetch)
+from ..metrics.frechet import frechet_from, gaussian_stats
+from ..metrics.is_score import inception_score_from_probs, softmax_probs
 from ..models import UNet, cond_unet_config, uncond_unet_config
 from ..train import (OptimizerConfig, create_train_state, make_optimizer,
                      make_train_step)
 from ..train.checkpoint import (AsyncCheckpointManager, is_full_checkpoint,
                                 restore_params, save_checkpoint)
 from ..utils import Config, MetricsLogger, save_image_grid
+from ..utils.plotting import plot_loss_curve, plot_metrics_curves
 
 
 def _not_ported(what: str):
@@ -322,17 +331,245 @@ def evaluate(cfg: Config, params=None, device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Metric-tracked inference
+
+
+def compute_real_features(images_unit: np.ndarray, feature_fn,
+                          num_samples: int = 5000, batch_size: int = 64,
+                          device="cuda") -> np.ndarray:
+    """Features of the first ``num_samples`` images (numpy, in [0, 1]),
+    through ``feature_fn`` on ``device`` in batches, gathered on the
+    host."""
+    n = min(num_samples, len(images_unit))
+    feats = []
+    with torch.inference_mode():
+        for i in range(0, n, batch_size):
+            x = torch.from_numpy(np.ascontiguousarray(
+                images_unit[i:min(i + batch_size, n)], np.float32))
+            feats.append(feature_fn(x.to(device)).float().cpu().numpy())
+    return np.concatenate(feats)
+
+
+def resolve_is_logit_fn(cfg: Config, inception_logit_fn,
+                        inception_provenance: str, device="cuda"):
+    """The logit source of tracked IS (``train.is_logit_source``):
+    "inception"; "auto", which takes pretrained Inception, else the
+    port's SmallCNN checkpoint ``classifier_{dataset}{img_size}`` in
+    ``save_weight_dir`` when one is there, else the Inception proxy as it
+    is; or the path of a SmallCNN checkpoint. Returns (logit_fn,
+    provenance)."""
+    src = (cfg.train.is_logit_source or "auto").strip()
+    if src == "inception":
+        return inception_logit_fn, inception_provenance
+    if src == "auto":
+        if inception_provenance == "pretrained":
+            return inception_logit_fn, inception_provenance
+        cand = os.path.join(
+            cfg.save_weight_dir,
+            f"classifier_{cfg.data.dataset}{cfg.data.img_size}")
+        if not os.path.exists(cand):
+            return inception_logit_fn, inception_provenance
+        src = cand
+    from ..models import load_classifier_extractors
+    _, logit_fn, provenance = load_classifier_extractors(src, device)
+    return logit_fn, provenance
+
+
+def _host(*tensors) -> list:
+    """Float32 numpy copies of ``tensors``: one device-to-host read."""
+    flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
+    out, at = [], 0
+    host = flat.cpu().numpy()
+    for t in tensors:
+        out.append(host[at:at + t.numel()].reshape(tuple(t.shape)))
+        at += t.numel()
+    return out
+
+
+def _snapshot_metrics(unit, feature_fn, logit_fn, clip_fn, fid_to_real,
+                      real_clip, is_splits: int):
+    """(FID, IS, CLIP) of one snapshot ``unit`` in [0, 1] on the device:
+    the extractors run there and their outputs come back in one read. A
+    metric whose extractor or real features are absent is NaN."""
+    names, outs = [], []
+    run_both = getattr(feature_fn, "run_both", None)
+    shared = run_both is not None and run_both is getattr(
+        logit_fn, "run_both", None) and fid_to_real is not None
+    if shared:
+        feats, logits = run_both(unit)
+        names += ["feats", "probs"]
+        outs += [feats, torch.softmax(logits.float(), dim=-1)]
+    else:
+        if feature_fn is not None and fid_to_real is not None:
+            names.append("feats")
+            outs.append(feature_fn(unit))
+        if logit_fn is not None:
+            names.append("probs")
+            outs.append(softmax_probs(logit_fn, unit))
+    if clip_fn is not None and real_clip is not None:
+        names.append("clip")
+        outs.append(clip_fn(unit))
+    got = dict(zip(names, _host(*outs))) if outs else {}
+    fid = is_mean = clip_s = float("nan")
+    if "feats" in got:
+        fid = fid_to_real(*gaussian_stats(got["feats"]))
+    if "probs" in got:
+        # the split protocol, clamped so that no split is empty
+        splits = max(1, min(is_splits, len(unit)))
+        is_mean, _ = inception_score_from_probs(got["probs"], splits)
+    if "clip" in got:
+        # the mean fake-real cosine of CLIP features
+        f = got["clip"]
+        f = f / (np.linalg.norm(f, axis=-1, keepdims=True) + 1e-8)
+        r = np.asarray(real_clip)
+        r = r / (np.linalg.norm(r, axis=-1, keepdims=True) + 1e-8)
+        clip_s = float((f @ r.T).mean())
+    return fid, is_mean, clip_s
+
+
+def sample_with_metrics(cfg: Config, params, feature_fn=None,
+                        logit_fn=None, real_features=None,
+                        clip_feature_fn=None, real_clip_features=None,
+                        tag: str = "", device="cuda", x_T=None,
+                        noise_fn=None) -> dict:
+    """Sample ``eval_batch_size`` images with the ancestral chain (guided
+    as ``evaluate`` guides the conditional model) and track FID, IS and
+    CLIP every ``train.eval_metric_interval`` (else ``metric_interval``)
+    steps. The chain keeps its snapshots on the device
+    (``core.sample_with_snapshots``) and reads nothing back; the
+    extractors then score each snapshot there, and the float64 statistics
+    run on the host. Writes ``metrics_history{_tag}.json`` (and its
+    curves) under ``metrics_save_dir`` and the final grid under
+    ``sampled_dir``. ``x_T`` and ``noise_fn(i, t)`` replace the draws of
+    the generator seeded ``cfg.seed``. Returns ``{"images", "history"}``,
+    the history rows ``(t, fid, is, clip)``."""
+    if cfg.diffusion.restart_intervals:
+        raise ValueError(
+            "diffusion.restart_intervals is not supported on the "
+            "metric-tracked sampling path (inference-metrics / training "
+            "tracked eval) — restart chains re-traverse intervals, so "
+            "per-step snapshots would not be the monotone t-history the "
+            "metrics report. Use `eval` or `search` with restarts, or "
+            "clear restart_intervals here.")
+    if cfg.train.spatial_shard > 1:
+        raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
+    model, conditional = build_model(cfg)
+    weak = load_weak_params(cfg, conditional) if conditional else None
+    load_weights(cfg, model, params)
+    model.to(device).eval()
+    sched = build_schedule(cfg, inference=True, device=device)
+    eval_bs = cfg.train.eval_batch_size or min(cfg.train.batch_size, 64)
+    size = cfg.data.img_size
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    if x_T is None:
+        x_T = torch.randn((eval_bs, size, size, 3), generator=gen,
+                          device=device)
+    eps_fn = sampling_eps_fn(cfg, model, conditional, eval_bs, weak)
+    interval = cfg.train.eval_metric_interval or cfg.train.metric_interval
+    with torch.inference_mode():
+        x0, ts, snaps = sample_with_snapshots(
+            sched, eps_fn, x_T.to(device), interval,
+            clip_denoised=cfg.diffusion.clip_denoised, generator=gen,
+            noise_fn=noise_fn)
+        fid_to_real = (None if real_features is None
+                       else frechet_from(*gaussian_stats(real_features)))
+        history = []
+        for t, snap in zip(ts.tolist(), snaps):
+            unit = (snap.float().clamp(-1.0, 1.0) + 1.0) / 2.0
+            history.append((int(t),) + _snapshot_metrics(
+                unit, feature_fn, logit_fn, clip_feature_fn, fid_to_real,
+                real_clip_features, cfg.train.is_splits))
+
+    os.makedirs(cfg.metrics_save_dir, exist_ok=True)
+    suffix = f"_{tag}" if tag else ""
+    with open(os.path.join(cfg.metrics_save_dir,
+                           f"metrics_history{suffix}.json"), "w") as f:
+        json.dump([{"t": h[0], "fid": h[1], "is": h[2], "clip": h[3]}
+                   for h in history], f, indent=2, default=float)
+    plot_metrics_curves(history, os.path.join(
+        cfg.metrics_save_dir, f"metrics_curves{suffix}.png"), T=sched.T)
+    final_fid = history[-1][1] if history else float("nan")
+    stamp = time.strftime("%Y%m%d_%H%M%S")
+    name = (f"sampled{suffix}_T{sched.T}_bs{eval_bs}"
+            f"_fid{final_fid:.2f}_{stamp}.png")
+    images = x0.float().cpu().numpy()
+    save_image_grid(images, os.path.join(cfg.sampled_dir, name),
+                    nrow=cfg.nrow)
+    return {"images": images, "history": history}
+
+
+def inference_metrics(cfg: Config, feature_fn=None, logit_fn=None,
+                      clip_feature_fn=None, device="cuda") -> dict:
+    """Metric-tracked sampling from the checkpoint ``test_load_weight``
+    (a full checkpoint's EMA weights, or a weights-only one): the default
+    extractors unless given (``metrics.default_extractors``, the IS logits
+    from ``resolve_is_logit_fn``, CLIP from ``$ITSD_CLIP_WEIGHTS``), the
+    real features of the configured dataset, then
+    ``sample_with_metrics``. When the dataset is not on disk (its loader
+    raises FileNotFoundError or NotImplementedError) FID and CLIP are NaN.
+    Writes ``metrics_meta.json`` beside the history."""
+    params = load_eval_params(cfg)
+    provenance = is_provenance = "custom"
+    if feature_fn is None:
+        from ..metrics import default_extractors
+        feature_fn, default_logit_fn, provenance = default_extractors(
+            device=device)
+        if logit_fn is None:
+            logit_fn, is_provenance = resolve_is_logit_fn(
+                cfg, default_logit_fn, provenance, device)
+        print(f"feature extractor: {provenance}; IS logits: "
+              f"{is_provenance}")
+    if clip_feature_fn is None:
+        from ..metrics import make_clip_feature_fn
+        clip_feature_fn = make_clip_feature_fn(device=device)
+
+    real_features = real_clip_features = None
+    try:
+        images, _ = load_dataset(cfg)
+    except (FileNotFoundError, NotImplementedError) as e:
+        print(f"no real dataset available ({e}); FID/CLIP will be NaN")
+        images = None
+    if images is not None:
+        unit = (images + 1.0) / 2.0
+        if feature_fn is not None:
+            real_features = compute_real_features(
+                unit, feature_fn, num_samples=cfg.train.fid_num_real_samples,
+                device=device)
+        if clip_feature_fn is not None:
+            real_clip_features = compute_real_features(
+                unit, clip_feature_fn,
+                num_samples=cfg.train.clip_num_real_samples, device=device)
+    out = sample_with_metrics(
+        cfg, params, feature_fn=feature_fn, logit_fn=logit_fn,
+        real_features=real_features, clip_feature_fn=clip_feature_fn,
+        real_clip_features=real_clip_features, device=device)
+    with open(os.path.join(cfg.metrics_save_dir, "metrics_meta.json"),
+              "w") as f:
+        json.dump({"feature_extractor": provenance,
+                   "is_logit_source": is_provenance,
+                   "clip_tracking": clip_feature_fn is not None,
+                   "is_splits": cfg.train.is_splits,
+                   "comparable_to_published_fid":
+                       provenance == "pretrained"}, f, indent=2)
+    out["provenance"] = provenance
+    out["is_logit_source"] = is_provenance
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Search
 
 
 def build_cli_verifier(cfg: Config, conditional: bool, eval_bs: int,
                        device="cuda"):
     """The verifier ``search.verifier`` names: the heuristics (oracle,
-    self_supervised, aesthetic) or classifier (a SmallCNN checkpoint,
+    self_supervised, aesthetic), classifier (a SmallCNN checkpoint,
     ``search.classifier_ckpt``, scoring ``search.target_label`` or, for the
-    conditional model, the classes of the sampler's labels). clip and
-    ensemble need the CLIP and Inception networks, which are not yet
-    ported."""
+    conditional model, the classes of the sampler's labels), clip (CLIP
+    image features from ``$ITSD_CLIP_WEIGHTS`` against
+    ``search.clip_text_features``, else their mean norm) or ensemble
+    (-FID + ``ensemble_is_weight`` * IS from one Inception forward, the
+    FID against ``ensemble_num_real`` dataset images)."""
     from ..search import (aesthetic_score, batch_pixel_variance_score,
                           classifier_verifier, self_supervised_verifier)
 
@@ -370,10 +607,37 @@ def build_cli_verifier(cfg: Config, conditional: bool, eval_bs: int,
                              f"({ccfg.num_classes})")
         return classifier_verifier(logit_fn, targets.to(device))
 
-    if s.verifier in ("clip", "ensemble"):
-        net = "CLIP" if s.verifier == "clip" else "Inception"
-        raise _not_ported(f"search.verifier={s.verifier} (the {net} "
-                          "network)")
+    if s.verifier == "clip":
+        from ..metrics import make_clip_feature_fn
+        from ..search import supervised_verifier
+        clip_fn = make_clip_feature_fn(device=device)
+        if clip_fn is None:
+            raise ValueError(
+                "search.verifier=clip needs CLIP weights: set "
+                "$ITSD_CLIP_WEIGHTS to an OpenAI CLIP state dict")
+        text_feats = None
+        if s.clip_text_features:
+            text_feats = torch.from_numpy(
+                np.load(s.clip_text_features)).to(device)
+        # with text features the text-image cosine; without, the mean
+        # feature norm (the reference's no-prompt proxy)
+        return supervised_verifier(clip_fn, text_feats)
+
+    if s.verifier == "ensemble":
+        from ..metrics import make_inception_extractors
+        from ..search import ensemble_fid_is_verifier
+        feature_fn, _, provenance = make_inception_extractors(device=device)
+        images, _ = load_dataset(cfg)
+        real_feats = compute_real_features(
+            (images + 1.0) / 2.0, feature_fn,
+            num_samples=s.ensemble_num_real, device=device)
+        print(f"[search] ensemble verifier: -FID + {s.ensemble_is_weight}"
+              f"*IS, inception={provenance}, "
+              f"{len(real_feats)} real images")
+        # one Inception forward feeds both the FID features and IS logits
+        return ensemble_fid_is_verifier(
+            feature_fn.run_both, torch.from_numpy(real_feats).to(device),
+            is_weight=s.ensemble_is_weight)
 
     raise ValueError(
         f"unknown search.verifier {s.verifier!r}; expected oracle | "
@@ -636,11 +900,6 @@ def resolve_track_metrics(cfg: Config) -> bool:
 
 def _check_train_options(cfg: Config) -> None:
     t = cfg.train
-    if resolve_track_metrics(cfg):
-        raise _not_ported(
-            "metric-tracked eval during training (train.track_metrics, on "
-            "by default for every dataset but synthetic; set "
-            "train.track_metrics=false)")
     if t.spatial_shard > 1:
         raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
     if t.profile_steps > 0:
@@ -654,17 +913,25 @@ def train(cfg: Config, max_steps: Optional[int] = None,
           device="cuda") -> dict:
     """The training loop: ``cfg.train.epoch`` epochs (or ``max_steps``
     steps) over ``cfg.data``, writing ``train_metrics.jsonl`` (one record a
-    step with its loss and pre-clip gradient norm, one an epoch) under
-    ``metrics_save_dir``, full checkpoints ``ckpt_{epoch}`` under
-    ``save_weight_dir`` every ``model_save_freq`` epochs and at the end,
-    and a sample grid ``epoch_{epoch}_sampled.png`` under ``sampled_dir``
-    every ``eval_freq`` epochs. Returns the final loss, the step count, the
-    checkpoint paths, the per-step losses and the ``TrainState``."""
+    step with its loss and pre-clip gradient norm, one an epoch) and the
+    loss curve under ``metrics_save_dir`` and full checkpoints
+    ``ckpt_{epoch}`` under ``save_weight_dir`` every ``model_save_freq``
+    epochs and at the end. Every ``eval_freq`` epochs it samples from the
+    EMA weights: with tracked metrics (``resolve_track_metrics``)
+    ``sample_with_metrics`` against a held-out val split, logging
+    ``eval_fid``, ``eval_is`` and ``eval_clip``; else a grid
+    ``epoch_{epoch}_sampled.png`` under ``sampled_dir``. Returns the final
+    loss, the step count, the checkpoint paths, the per-step losses, the
+    metric histories and the ``TrainState``."""
     _check_train_options(cfg)
     model, conditional = build_model(cfg)
     weak = load_weak_params(cfg, conditional) if conditional else None
     sched = build_schedule(cfg, device=device)
     images, labels = load_dataset(cfg)
+    track = resolve_track_metrics(cfg)
+    if track:
+        images, labels, tracked = _tracked_eval_setup(cfg, images, labels,
+                                                      device)
     it = BatchIterator(images, labels if conditional else None,
                        cfg.train.batch_size, seed=cfg.data.seed)
     if len(it) == 0:
@@ -698,6 +965,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
                 else prefetch_to_device)
     ckpt_mgr = AsyncCheckpointManager() if cfg.train.async_checkpoint else None
     losses, ckpts, step, t0 = [], [], 0, time.time()
+    metrics_history = []
     for epoch in range(cfg.train.epoch):
         metrics = []  # device scalars: synced once an epoch, not a step
         for batch in prefetch(it, size=2, device=device):
@@ -726,15 +994,64 @@ def train(cfg: Config, max_steps: Optional[int] = None,
                 save_checkpoint(path, state)
             ckpts.append(path)
         if (epoch + 1) % cfg.train.eval_freq == 0:
-            _sample_grid_during_training(cfg, state, epoch, device,
-                                         conditional, weak)
+            if track:
+                out = sample_with_metrics(
+                    cfg, state.ema_state_dict(), **tracked,
+                    tag=f"epoch_{epoch}", device=device)
+                metrics_history.append({"epoch": epoch,
+                                        "history": out["history"]})
+                if out["history"]:
+                    _, fid, is_mean, clip_s = out["history"][-1]
+                    logger.log({"epoch": epoch, "eval_fid": fid,
+                                "eval_is": is_mean, "eval_clip": clip_s})
+            else:
+                _sample_grid_during_training(cfg, state, epoch, device,
+                                             conditional, weak)
         if max_steps is not None and step >= max_steps:
             break
     if ckpt_mgr is not None:
         ckpt_mgr.close()
+    if losses:
+        plot_loss_curve(losses, os.path.join(cfg.metrics_save_dir,
+                                             "loss_curve.png"))
     logger.close()
     return {"final_loss": losses[-1] if losses else None, "steps": step,
-            "checkpoints": ckpts, "losses": losses, "state": state}
+            "checkpoints": ckpts, "losses": losses, "state": state,
+            "metrics_history": metrics_history}
+
+
+def _tracked_eval_setup(cfg: Config, images, labels, device):
+    """The tracked eval of ``train``: a val split of ``data.val_ratio``
+    (held out of training when ``train.use_val_for_eval``, else only
+    read), the extractors and the val split's real features. Returns
+    (train images, train labels, ``sample_with_metrics``' extractor
+    keywords)."""
+    from ..metrics import default_extractors, make_clip_feature_fn
+
+    n_val = max(1, int(len(images) * cfg.data.val_ratio))
+    perm = np.random.default_rng(cfg.data.seed).permutation(len(images))
+    val_unit = (images[perm[:n_val]] + 1.0) / 2.0
+    if cfg.train.use_val_for_eval:
+        images = images[perm[n_val:]]
+        if labels is not None:
+            labels = labels[perm[n_val:]]
+    feature_fn, logit_fn, provenance = default_extractors(device=device)
+    logit_fn, is_provenance = resolve_is_logit_fn(cfg, logit_fn, provenance,
+                                                  device)
+    clip_fn = make_clip_feature_fn(device=device)
+    print(f"[train] tracked-metric extractor: {provenance}; "
+          f"IS logits: {is_provenance}")
+    real = compute_real_features(
+        val_unit, feature_fn, num_samples=cfg.train.fid_num_real_samples,
+        device=device)
+    real_clip = None
+    if clip_fn is not None:
+        real_clip = compute_real_features(
+            val_unit, clip_fn, num_samples=cfg.train.clip_num_real_samples,
+            device=device)
+    return images, labels, dict(
+        feature_fn=feature_fn, logit_fn=logit_fn, real_features=real,
+        clip_feature_fn=clip_fn, real_clip_features=real_clip)
 
 
 def _sample_grid_during_training(cfg: Config, state, epoch: int,

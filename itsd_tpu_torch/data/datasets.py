@@ -5,16 +5,20 @@ arrays ``images [N, H, W, C] float32 in [-1, 1]`` (and labels), batched by
 ``BatchIterator`` with the random horizontal flip, and moved to the device
 by ``prefetch_to_device`` or ``threaded_prefetch``. ``synthetic_dataset``
 and ``shapes_dataset`` are numpy-only copies of the JAX package's, so the
-same seed gives the same images.
+same seed gives the same images. ``load_cifar10`` reads the standard
+``cifar-10-batches-py`` pickles (or their ``.tar.gz``) with the standard
+library alone.
 
-``load_cifar10`` and ``load_image_folder`` are not yet ported: they read
-files that are not in the repository, and the image folder needs Pillow.
+``load_image_folder`` is not yet ported: it needs Pillow.
 """
 
 from __future__ import annotations
 
 import collections
+import os
+import pickle
 import queue as queue_mod
+import tarfile
 import threading
 from typing import Iterator, Optional, Tuple
 
@@ -62,9 +66,41 @@ def _not_ported(what: str):
         "data.dataset=shapes or synthetic)")
 
 
-def load_cifar10(root: str, train: bool = True, subset_ratio=None,
-                 seed: int = 0):
-    raise _not_ported("load_cifar10")
+def load_cifar10(root: str, train: bool = True,
+                 subset_ratio: Optional[float] = None,
+                 seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """CIFAR-10 from ``root/cifar-10-batches-py`` (extracted first from
+    ``root/cifar-10-python.tar.gz`` when only that exists): the five
+    training batches or the test batch. Returns (images [N,32,32,3]
+    float32 in [-1,1], labels [N] int32); ``subset_ratio`` keeps a seeded
+    random share."""
+    base = os.path.join(root, "cifar-10-batches-py")
+    if not os.path.isdir(base):
+        tgz = os.path.join(root, "cifar-10-python.tar.gz")
+        if os.path.isfile(tgz):
+            with tarfile.open(tgz) as tf:
+                tf.extractall(root, filter="data")
+    if not os.path.isdir(base):
+        raise FileNotFoundError(
+            f"CIFAR-10 not found under {root!r}; expected "
+            "cifar-10-batches-py/ or cifar-10-python.tar.gz (nothing is "
+            "downloaded)")
+    files = ([f"data_batch_{i}" for i in range(1, 6)] if train
+             else ["test_batch"])
+    xs, ys = [], []
+    for f in files:
+        with open(os.path.join(base, f), "rb") as fh:
+            d = pickle.load(fh, encoding="bytes")
+        xs.append(d[b"data"])
+        ys.append(np.asarray(d[b"labels"]))
+    x = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    y = np.concatenate(ys)
+    x = (x.astype(np.float32) / 255.0) * 2.0 - 1.0
+    if subset_ratio is not None and subset_ratio < 1.0:
+        n = max(1, int(len(x) * subset_ratio))
+        idx = np.random.default_rng(seed).permutation(len(x))[:n]
+        x, y = x[idx], y[idx]
+    return x, y.astype(np.int32)
 
 
 def load_image_folder(root: str, img_size: int = 256, subset_ratio=None,

@@ -1,9 +1,10 @@
 """Fréchet distance between two Gaussians (the core of FID).
 
-Counterpart of ``itsd_tpu/metrics/frechet.py:23-81``: ``frechet_distance``
-in float64 numpy on the host, ``frechet_distance_torch`` (JAX's
-``frechet_distance_jax``) in float32 torch for use inside a verifier, and
-``gaussian_stats``. Both distances take the symmetric route
+Counterpart of ``itsd_tpu/metrics/frechet.py``: ``frechet_distance``
+in float64 numpy on the host (``frechet_from`` keeps the first Gaussian's
+square root for many calls), ``frechet_distance_torch`` (JAX's
+``frechet_distance_jax``) in float32 torch for use inside a verifier,
+``gaussian_stats`` and ``compute_fid``. Both distances take the symmetric route
 
     tr sqrt(S1 S2) = tr sqrt( sqrt(S1) S2 sqrt(S1) ),
 
@@ -22,23 +23,35 @@ def _sqrtm_psd_numpy(mat: np.ndarray, eps: float) -> np.ndarray:
     return (vecs * np.sqrt(vals + eps)) @ vecs.T
 
 
+def frechet_from(mu1, sigma1, eps: float = 1e-6):
+    """The Fréchet distance to the Gaussian (mu1, sigma1), as a function
+    of another's (mu2, sigma2): float64 on the host, each covariance
+    regularised by ``eps * I``. The square root of ``sigma1`` is taken
+    once, for every call (a tracked run measures many snapshots against
+    one set of real statistics)."""
+    mu1 = np.asarray(mu1, dtype=np.float64)
+    sigma1 = np.asarray(sigma1, dtype=np.float64)
+    s1_half = _sqrtm_psd_numpy(sigma1 + eps * np.eye(len(sigma1)), 0.0)
+    tr1 = np.trace(sigma1)
+
+    def distance(mu2, sigma2) -> float:
+        mu2 = np.asarray(mu2, dtype=np.float64)
+        sigma2 = np.asarray(sigma2, dtype=np.float64)
+        diff = mu1 - mu2
+        inner = s1_half @ (sigma2 + eps * np.eye(len(sigma2))) @ s1_half
+        inner = (inner + inner.T) / 2.0
+        vals = np.clip(np.linalg.eigvalsh(inner), 0.0, None)
+        tr_sqrt = float(np.sqrt(vals).sum())
+        fid = float(diff @ diff + tr1 + np.trace(sigma2) - 2.0 * tr_sqrt)
+        return max(fid, 0.0)
+
+    return distance
+
+
 def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
     """FID between two Gaussians, float64 on the host, each covariance
     regularised by ``eps * I``."""
-    mu1 = np.asarray(mu1, dtype=np.float64)
-    mu2 = np.asarray(mu2, dtype=np.float64)
-    sigma1 = np.asarray(sigma1, dtype=np.float64)
-    sigma2 = np.asarray(sigma2, dtype=np.float64)
-
-    diff = mu1 - mu2
-    s1_half = _sqrtm_psd_numpy(sigma1 + eps * np.eye(len(sigma1)), 0.0)
-    inner = s1_half @ (sigma2 + eps * np.eye(len(sigma2))) @ s1_half
-    inner = (inner + inner.T) / 2.0
-    vals = np.clip(np.linalg.eigvalsh(inner), 0.0, None)
-    tr_sqrt = float(np.sqrt(vals).sum())
-    fid = float(diff @ diff + np.trace(sigma1) + np.trace(sigma2)
-                - 2.0 * tr_sqrt)
-    return max(fid, 0.0)
+    return frechet_from(mu1, sigma1, eps)(mu2, sigma2)
 
 
 def frechet_distance_torch(mu1: torch.Tensor, sigma1: torch.Tensor,
@@ -71,3 +84,11 @@ def gaussian_stats(features, biased: bool = True):
     denom = len(feats) if biased else len(feats) - 1
     sigma = (d.T @ d) / denom
     return mu, sigma
+
+
+def compute_fid(real_features, fake_features, eps: float = 1e-6) -> float:
+    """FID between two feature matrices [N, D]: the Fréchet distance of
+    their Gaussians (biased covariances), float64 on the host."""
+    mu_r, s_r = gaussian_stats(real_features)
+    mu_f, s_f = gaussian_stats(fake_features)
+    return frechet_distance(mu_r, s_r, mu_f, s_f, eps)

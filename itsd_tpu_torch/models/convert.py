@@ -1,4 +1,5 @@
-"""Flax parameters -> state dicts for the port's UNet and SmallCNN.
+"""JAX parameters -> state dicts for the port's UNet, SmallCNN,
+Inception-V3 and CLIP.
 
 The inverse of the layout maps in ``itsd_tpu/models/torch_convert.py``,
 written for the port's module names (which follow the Flax names):
@@ -16,6 +17,11 @@ written for the port's module names (which follow the Flax names):
 Takes the Flax tree as nested dicts of numpy arrays (optionally under a
 top-level ``"params"``), so it needs no JAX. Raises on a missing key, an
 extra key or a shape that does not fit.
+
+``inception_params_from_jax`` and ``clip_params_from_jax`` convert the
+pytrees of the JAX package's functional Inception-V3 and CLIP
+(``itsd_tpu/metrics/inception.py``, ``clip.py``) into torchvision's and
+HuggingFace's key layouts, which the port's modules carry.
 """
 
 from __future__ import annotations
@@ -98,3 +104,82 @@ def classifier_params_from_jax(params: Mapping,
     tensors)."""
     return _convert(params, expected_shapes(cfg, SmallCNN),
                     "classifier_params_from_jax")
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def inception_params_from_jax(params: Mapping) -> "OrderedDict":
+    """The JAX package's Inception-V3 pytree (each BasicConv2d ``{"kernel":
+    HWIO, "bn": {scale, bias, mean, var}}``, blocks nested by name, ``fc``)
+    -> the torchvision-layout state dict of ``metrics.inception.
+    InceptionV3``."""
+    from ..metrics.inception import _conv_specs
+
+    sd = OrderedDict()
+    for path in _conv_specs():
+        node = params
+        for part in path.split("."):
+            node = node[part]
+        bn = node["bn"]
+        sd[f"{path}.conv.weight"] = _f32(
+            np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"{path}.bn.weight"] = _f32(bn["scale"])
+        sd[f"{path}.bn.bias"] = _f32(bn["bias"])
+        sd[f"{path}.bn.running_mean"] = _f32(bn["mean"])
+        sd[f"{path}.bn.running_var"] = _f32(bn["var"])
+        sd[f"{path}.bn.num_batches_tracked"] = torch.tensor(0)
+    if "fc" in params:
+        sd["fc.weight"] = _f32(np.asarray(params["fc"]["kernel"]).T)
+        sd["fc.bias"] = _f32(params["fc"]["bias"])
+    return sd
+
+
+def clip_params_from_jax(params: Mapping) -> "OrderedDict":
+    """The JAX package's CLIP pytree (``vision``, ``text``, the
+    projections, ``logit_scale``) -> the HuggingFace-layout state dict of
+    ``metrics.clip.CLIPModel``. The head counts stay in the pytree
+    (``params[tower]["layers"][i]["attn"]["num_heads"]``): pass them to
+    ``clip_from_state_dict``."""
+    sd = OrderedDict()
+
+    def ln(prefix, p):
+        sd[f"{prefix}.weight"] = _f32(p["scale"])
+        sd[f"{prefix}.bias"] = _f32(p["bias"])
+
+    def dense(prefix, p):
+        sd[f"{prefix}.weight"] = _f32(np.asarray(p["kernel"]).T)
+        sd[f"{prefix}.bias"] = _f32(p["bias"])
+
+    def layers(prefix, ps):
+        for i, p in enumerate(ps):
+            lp = f"{prefix}.encoder.layers.{i}"
+            ln(f"{lp}.layer_norm1", p["ln1"])
+            ln(f"{lp}.layer_norm2", p["ln2"])
+            for name in ("q", "k", "v", "out"):
+                dense(f"{lp}.self_attn.{name}_proj", p["attn"][name])
+            dense(f"{lp}.mlp.fc1", p["fc1"])
+            dense(f"{lp}.mlp.fc2", p["fc2"])
+
+    v, t = params["vision"], params["text"]
+    sd["vision_model.embeddings.patch_embedding.weight"] = _f32(
+        np.asarray(v["patch_embedding"]).transpose(3, 2, 0, 1))
+    sd["vision_model.embeddings.class_embedding"] = _f32(v["class_embedding"])
+    sd["vision_model.embeddings.position_embedding.weight"] = _f32(
+        v["position_embedding"])
+    ln("vision_model.pre_layrnorm", v["pre_ln"])
+    layers("vision_model", v["layers"])
+    ln("vision_model.post_layernorm", v["post_ln"])
+    sd["text_model.embeddings.token_embedding.weight"] = _f32(
+        t["token_embedding"])
+    sd["text_model.embeddings.position_embedding.weight"] = _f32(
+        t["position_embedding"])
+    layers("text_model", t["layers"])
+    ln("text_model.final_layer_norm", t["final_ln"])
+    for name in ("visual_projection", "text_projection"):
+        if name in params:
+            sd[f"{name}.weight"] = _f32(np.asarray(params[name]).T)
+    if "logit_scale" in params:
+        sd["logit_scale"] = _f32(params["logit_scale"])
+    return sd

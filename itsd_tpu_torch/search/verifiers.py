@@ -29,6 +29,7 @@ import torch
 from ..metrics.frechet import (frechet_distance, frechet_distance_torch,
                                gaussian_stats)
 from ..metrics.is_score import is_score
+from ..utils.resize import resize_weights
 
 # feature_fn(images [B,H,W,C] in [0,1]) -> [B, D] features
 FeatureFn = Callable[[torch.Tensor], torch.Tensor]
@@ -43,26 +44,6 @@ def _l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return x / (torch.linalg.vector_norm(x, dim=dim, keepdim=True) + 1e-8)
 
 
-def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """[n_in, n_out] float32 weights of JAX's ``jax.image.resize(...,
-    "linear")`` along one axis (``compute_weight_mat`` with the triangle
-    kernel, scale n_out / n_in, no translation): antialiased, so a shrink
-    widens the kernel by n_in / n_out."""
-    inv_scale = np.float32(1.0) / np.float32(n_out / n_in)
-    kernel_scale = max(inv_scale, np.float32(1.0))
-    sample_f = ((np.arange(n_out, dtype=np.float32) + np.float32(0.5))
-                * inv_scale - np.float32(0.5))
-    x = (np.abs(sample_f[None, :]
-                - np.arange(n_in, dtype=np.float32)[:, None])
-         / kernel_scale)
-    w = np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                 w / np.where(total != 0, total, 1), 0)
-    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
-    return np.where(inside[None, :], w, 0).astype(np.float32)
-
-
 def adaptive_avg_pool(images: torch.Tensor, out_hw: int = 8) -> torch.Tensor:
     """Adaptive average pool of NHWC ``images`` to (out_hw, out_hw): block
     means when out_hw divides H and W, else JAX's antialiased linear resize
@@ -71,7 +52,7 @@ def adaptive_avg_pool(images: torch.Tensor, out_hw: int = 8) -> torch.Tensor:
     if H % out_hw == 0 and W % out_hw == 0:
         x = images.reshape(B, out_hw, H // out_hw, out_hw, W // out_hw, C)
         return x.mean(dim=(2, 4))
-    wh, ww = (torch.from_numpy(_resize_weights(n, out_hw)).to(
+    wh, ww = (torch.from_numpy(resize_weights(n, out_hw)).to(
         device=images.device, dtype=images.dtype) for n in (H, W))
     return torch.einsum("bhwc,hi,wj->bijc", images, wh, ww)
 

@@ -27,7 +27,9 @@ UNet's widths and maps with ``-k cfg``, those at Picard's folded batches
 cap and past it with ``-k grid_cap``, and gradient search's backward
 batches (8 and the dual 16), its gradient through DPM-Solver++ and
 ``gradient_search`` itself over the remat'd ancestral chain, kernels
-against plain, with ``-k gradient_search``.
+against plain, with ``-k gradient_search``. The metric networks
+(Inception-V3 and CLIP, no kernel of ours) on the card against the same
+modules on the CPU: ``-k extractor``.
 
 The backward kernels against ``attention_bwd_plain`` (the same formula and
 roundings): f32 2e-5 absolute on values O(1), sums in another order
@@ -938,3 +940,80 @@ def test_gradient_search_remat_chain_matches_plain(cuda_device, model,
     assert launched[True][0] == 2 * fwd and launched[True][3] == dq
     assert torch.isfinite(grads[True]).all() and grads[False].norm() > 0
     assert torch.equal(grads[True], grads[False]), rel
+
+
+# ---------------------------------------------------------------------------
+# The metric networks: plain PyTorch (cuDNN convolutions, cuBLAS products)
+# in f32 with TF32 off. The card and the CPU sum in other orders: features
+# within 1e-4 of the largest CPU value.
+
+EXTRACTOR_REL_TOL = 1e-4
+
+
+def _rel_to_cpu(card, cpu):
+    return float((card.float().cpu() - cpu).abs().max() / cpu.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [32, 299, 320])
+def test_inception_extractor_on_the_card_matches_the_cpu(cuda_device, size):
+    """The seeded random-weight Inception-V3 (the FID/IS proxy), features
+    and logits, from images that preprocess grows, keeps or shrinks."""
+    from itsd_tpu_torch.metrics.inception import (inception_from_state_dict,
+                                                  init_random_params)
+
+    sd = init_random_params(torch.Generator().manual_seed(42))
+    cpu = inception_from_state_dict(sd)
+    card = inception_from_state_dict(sd).to(cuda_device)
+    x = torch.rand((4, size, size, 3),
+                   generator=torch.Generator().manual_seed(size))
+    with torch.inference_mode():
+        f_cpu, l_cpu = cpu(x)
+        f_card, l_card = card(x.to(cuda_device))
+    assert _rel_to_cpu(f_card, f_cpu) <= EXTRACTOR_REL_TOL
+    assert _rel_to_cpu(l_card, l_cpu) <= EXTRACTOR_REL_TOL
+
+
+def _seeded_clip(cfg):
+    from itsd_tpu_torch.metrics.clip import CLIPModel
+
+    model = CLIPModel(cfg)
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" in name:
+                p.copy_(1 + 0.1 * torch.randn(p.shape, generator=gen)
+                        if name.endswith("weight")
+                        else 0.1 * torch.randn(p.shape, generator=gen))
+            elif p.dim() >= 2:
+                fan_in = p[0].numel() if "embedding" not in name else 50
+                p.copy_(torch.randn(p.shape, generator=gen) * fan_in ** -0.5)
+            else:
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    return model.eval().requires_grad_(False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [32, 256])
+def test_clip_extractor_on_the_card_matches_the_cpu(cuda_device, size):
+    """A 4-layer CLIP of ViT-B/32's patch and image size: image features
+    (bicubic from 32 and 256), text features."""
+    from itsd_tpu_torch.metrics.clip import CLIPConfig, preprocess
+
+    cfg = CLIPConfig(vision_width=256, vision_layers=4, vision_heads=4,
+                     vision_mlp=1024, text_width=256, text_layers=4,
+                     text_heads=4, text_mlp=1024, vocab_size=1000,
+                     context_length=16, projection_dim=128)
+    cpu = _seeded_clip(cfg)
+    card = _seeded_clip(cfg).to(cuda_device)
+    x = torch.rand((4, size, size, 3),
+                   generator=torch.Generator().manual_seed(size))
+    ids = torch.randint(1, 999, (4, 16),
+                        generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        img_cpu = cpu.image_features(preprocess(x, 224))
+        img_card = card.image_features(preprocess(x.to(cuda_device), 224))
+        txt_cpu = cpu.text_features(ids)
+        txt_card = card.text_features(ids.to(cuda_device))
+    assert _rel_to_cpu(img_card, img_cpu) <= EXTRACTOR_REL_TOL
+    assert _rel_to_cpu(txt_card, txt_cpu) <= EXTRACTOR_REL_TOL

@@ -176,11 +176,23 @@ def test_trainer_search_and_the_guard(weights, tmp_path):
 
 @pytest.mark.parametrize("verifier", ["clip", "ensemble"])
 def test_cli_clip_and_ensemble_verifiers_are_not_ported(weights, tmp_path,
-                                                        capsys, verifier):
-    rc = cli_main.main(["search", *_args(weights, tmp_path, "uncond",
-                                         f"search.verifier={verifier}")])
-    assert rc == 2
-    assert "not yet ported" in capsys.readouterr().err
+                                                        capsys, verifier,
+                                                        monkeypatch):
+    """Both are ported: clip with a tiny CLIP in HuggingFace's layout
+    (``$ITSD_CLIP_WEIGHTS``), ensemble with the seeded random-weight
+    Inception-V3 against 8 real images."""
+    from test_torch_clip import hf_state_dict
+
+    torch.save(hf_state_dict(), tmp_path / "clip.pt")
+    monkeypatch.setenv("ITSD_CLIP_WEIGHTS", str(tmp_path / "clip.pt"))
+    rc = cli_main.main(["search", *_args(
+        weights, tmp_path, "uncond", "search.n_candidates=2",
+        "search.ensemble_num_real=8", f"search.verifier={verifier}")])
+    assert rc == 0
+    out = capsys.readouterr().out
+    m = re.search(r"best score: (\S+) \(NFE=2\)", out)
+    assert m and np.isfinite(float(m.group(1))), out[-2000:]
+    assert (verifier == "ensemble") == ("ensemble verifier: -FID" in out)
 
 
 @pytest.mark.parametrize("extra,match", [

@@ -472,11 +472,44 @@ def test_prefetch_keeps_order_and_raises_producer_errors(prefetch):
         list(fn(broken(), size=2, device="cpu"))
 
 
-def test_dataset_loaders_that_read_files_are_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        datasets.load_cifar10("./datasets")
+def test_dataset_loaders_that_read_files_are_not_ported(tmp_path):
+    """The image folder (it needs Pillow) is not ported; load_cifar10 is,
+    and says where it looked when the batches are not there."""
+    with pytest.raises(FileNotFoundError, match="CIFAR-10 not found"):
+        datasets.load_cifar10(str(tmp_path / "none"))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         datasets.load_image_folder("./images")
+
+
+def test_load_cifar10_matches_jax_on_synthesized_batches(tmp_path):
+    """The cifar-10-batches-py pickles (synthesized: no CIFAR-10 is in
+    the repository), in the directory and as the .tar.gz, read as JAX's
+    load_cifar10 reads them: equal arrays."""
+    import pickle
+    import tarfile
+
+    base = tmp_path / "cifar-10-batches-py"
+    base.mkdir()
+    rng = np.random.default_rng(0)
+    for name, n in [(f"data_batch_{i}", 20) for i in range(1, 6)] + [
+            ("test_batch", 10)]:
+        d = {b"data": rng.integers(0, 256, (n, 3072), dtype=np.uint8),
+             b"labels": rng.integers(0, 10, n).tolist()}
+        with open(base / name, "wb") as f:
+            pickle.dump(d, f)
+    for kw in ({}, {"train": False}, {"subset_ratio": 0.5, "seed": 3}):
+        x, y = datasets.load_cifar10(str(tmp_path), **kw)
+        jx, jy = jax_datasets.load_cifar10(str(tmp_path), **kw)
+        np.testing.assert_array_equal(x, jx)
+        np.testing.assert_array_equal(y, jy)
+        assert x.dtype == np.float32 and y.dtype == np.int32
+    assert x.shape == (50, 32, 32, 3) and -1 <= x.min() <= x.max() <= 1
+    tgz_root = tmp_path / "tgz"
+    tgz_root.mkdir()
+    with tarfile.open(tgz_root / "cifar-10-python.tar.gz", "w:gz") as tf:
+        tf.add(base, arcname="cifar-10-batches-py")
+    x3, _ = datasets.load_cifar10(str(tgz_root))
+    assert x3.shape == (100, 32, 32, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -554,9 +587,20 @@ def test_cond_train_on_cpu_carries_labels_and_samples_guided_grids(
     "train.profile_steps=1",
     "train.extract_representation_freq=1", "data.dataset=cifar10",
     "data.dataset=imagefolder"])
-def test_unported_train_options_raise(tmp_path, override):
-    cfg = _cfg(tmp_path, override)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+def test_unported_train_options_raise(tmp_path, override, monkeypatch):
+    """What is not ported raises "not yet ported". Tracked metrics (on by
+    default, "none") are ported and train; CIFAR-10 is read from disk and
+    raises FileNotFoundError when it is not there."""
+    monkeypatch.setenv("ITSD_PIXEL_FEATURES", "1")
+    cfg = _cfg(tmp_path, override, f"data.root={tmp_path}/none")
+    if override == "train.track_metrics=none":
+        assert runner.resolve_track_metrics(cfg)
+        assert runner.train(cfg, max_steps=1, device="cpu")["steps"] == 1
+        return
+    error, match = ((FileNotFoundError, "CIFAR-10 not found")
+                    if override == "data.dataset=cifar10"
+                    else (NotImplementedError, "not yet ported"))
+    with pytest.raises(error, match=match):
         runner.train(cfg, max_steps=1, device="cpu")
 
 
