@@ -32,7 +32,12 @@ Phases, each ending with one line that carries its elapsed seconds:
    forward also at the 256x256 flagship's attention, [1, 4096, 384] (bf16: wide).
    GroupNorm also at the 256x256 flagship's largest spans (batch 1, spans
    of up to 786,432 elements, split over a thread-block cluster): forward
-   and backward in f32 and bf16, two launches equal bit for bit, timed;
+   and backward in f32 and bf16, two launches equal bit for bit, timed.
+   Then at phase 19's fine-tune shapes (the flagship at batch 48: every
+   GroupNorm of its forward, attention at [48, 4096, 384] and
+   [48, 1024, 512], wide in bf16) and phase 20's ViT (12 heads of 64
+   folded into the batch: [192, 256, 64] at train batch 16, [96, 256, 64]
+   at eval batch 8; mma in bf16);
 3. eval path: ``runner.evaluate`` at the full width of the CIFAR-10 UNet
    (ch 128, ch_mult 1,2,2,2, attention at 16x16, batch 8, 32x32, bf16,
    T=1000) on seeded weights; the kernels' launch counts must be exactly
@@ -58,11 +63,13 @@ Phases, each ending with one line that carries its elapsed seconds:
    |dparam|;
 7. train path: ``runner.train`` at the configuration of
    ``configs/cifar10_uncond.yaml`` on the shapes dataset (batch 128, lr
-   2e-4, dropout 0.1, bf16) for 160 steps; exactly 6/6/6/51 launches a step
+   2e-4, dropout 0.1, bf16) for 128 steps; exactly 6/6/6/51 launches a step
    of flash forward / dq / dk-dv / GroupNorm, the forwards, dq and dk/dv all
    on the mma route; a finite, falling loss; the checkpoint restored for one
    more step and for an eval; ms per step, images/s, peak memory and the
-   device's busy share (``torch.profiler``);
+   device's busy share (``torch.profiler``); ``train.profile_steps=2``
+   writes a Chrome trace of the first two steps (regions step_0 and
+   step_1, with the card's kernels);
 8. CUDA tests: ``python -m pytest --noconftest -m cuda -q
    tests/test_torch_cuda.py`` in a subprocess, against the library built in
    phase 1; its pass count is printed and a failure fails the run (it runs
@@ -70,8 +77,8 @@ Phases, each ending with one line that carries its elapsed seconds:
 9. guided eval path: ``runner.evaluate`` of the conditional UNet at the
    full width of ``configs/cifar10_cfg.yaml`` (ch 128, ch_mult
    1,4,8,8,4,2, 548 M parameters, bf16) on seeded weights, batch 8: CFG
-   w=1.8 over the config's T=3000 chain cut to its first 500 steps'
-   table rows (T=500), CFG on 30 <= t < 70 and autoguidance (a second
+   w=1.8 over the config's T=3000 chain cut to its first 250 steps'
+   table rows (T=250), CFG on 30 <= t < 70 and autoguidance (a second
    seeded weight file) over a chain cut to T=100;
    exact launches a step (78 GroupNorm and 13 flash forwards, 5 on mma
    and 8 on wide, at batch 16 inside the interval and 8 outside;
@@ -87,10 +94,13 @@ Phases, each ending with one line that carries its elapsed seconds:
     and label-dropout masks, in f32 and bf16;
 12. conditional train path: ``runner.train`` at the configuration of
     ``configs/cifar10_cfg.yaml`` on the shapes dataset with 10 labels
-    (batch 256, bf16, no tracked metrics or representation extraction) for
-    96 steps; exactly 78/13/13/13 launches a step (the forward, dq and
-    dk/dv each 5 on mma, 8 on wide and none on simt); a finite, falling
-    loss; the checkpoint restored
+    (batch 256, bf16, no tracked metrics, the config's representation
+    extraction every 50 batches) for 64 steps; exactly 78/13/13/13
+    launches a step (the forward, dq and dk/dv each 5 on mma, 8 on wide
+    and none on simt) besides the extraction's forwards; a finite, falling
+    loss; the representations' .npz files, one an epoch, and the
+    statistics of ``python -m itsd_tpu_torch.cli.analyze`` on them; the
+    checkpoint restored
     for one more step and, through the eval loader, for 100 guided steps
     of its T=3000 chain; ms per step, images/s, peak memory and the
     device's busy share (it runs after phase 16);
@@ -114,10 +124,11 @@ Phases, each ending with one line that carries its elapsed seconds:
 15. search: a SmallCNN classifier trained here on shapes (32x32) with the
     port's ``train_classifier``, then ``runner.run_search`` at full width,
     bf16, batch 8, scored by it (``search.verifier=classifier``): the
-    unconditional UNet through random N=16 over the ancestral T=1000
-    chain (128 rows, BASELINE.md workload 3), random N=16 in chunks of 4
-    over DDIM 50 with the verifier-hacking guard, pruned 16 -> 4 at t=500,
-    path 4/2 at t=400, zero-order 4 x 2 over DDIM 50, SMC with 16
+    unconditional UNet through random N=16 over the ancestral chain cut
+    to T=250 (128 rows; BASELINE.md workload 3 runs T=1000), random N=16
+    in chunks of 4 over DDIM 50 with the verifier-hacking guard, pruned
+    16 -> 4 at t=125 and path 4/2 at t=100 (ancestral, T=250), zero-order
+    4 x 2 over DDIM 50, SMC with 16
     particles over DDIM 50 segments, gradient search through DPM-Solver++
     20 (2 iterations) and through the remat'd ancestral chain (1
     iteration); the CFG UNet (w=1.8, dual batch) through random N=4 and
@@ -144,13 +155,14 @@ Phases, each ending with one line that carries its elapsed seconds:
     ``$ITSD_CLIP_WEIGHTS``) and IS logits from phase 15's classifier
     (found by ``train.is_logit_source=auto``): ``inference-metrics`` on
     the unconditional UNet (``configs/cifar10_uncond.yaml`` on shapes,
-    T=1000, eval batch 64, a point every 100 steps) from phase 7's last
-    checkpoint; ``runner.train`` with tracked metrics every epoch for 2
-    epochs of phase 7's configuration (points every 250 steps); guided
+    T cut to 250, eval batch 64, a point every 50 steps) from phase 7's
+    last checkpoint; ``runner.train`` with tracked metrics every epoch for
+    2 epochs of phase 7's configuration (its evals at inference_T=250,
+    points every 125 steps); guided
     ``inference-metrics`` on the CFG UNet (w=1.8, T cut to 100 as phase 9
-    cuts it, dual batch 128, a point every 10 steps); random N=4 search
+    cuts it, dual batch 128, a point every 20 steps); random N=4 search
     over DDIM 50 with the ensemble and the clip verifiers. Exact launches
-    (1000 x 51 GroupNorm and 1000 x 6 mma forwards for the first), the
+    (250 x 51 GroupNorm and 250 x 6 mma forwards for the first), the
     attention batch of every call, no synchronizing CUDA operation inside
     a snapshot chain, finite FID, IS and CLIP at every point; the chain's
     ms per step, ms per metric point, Inception's and CLIP's ms per image,
@@ -158,7 +170,27 @@ Phases, each ending with one line that carries its elapsed seconds:
 18. tracked parity, f32: the tracked unconditional run at T=50 (batch 64),
     kernel path against plain path, FID, IS and CLIP at every point; the
     Inception-V3 and CLIP features on the card against the same modules
-    on the CPU.
+    on the CPU;
+19. the T-extension fine-tune at the 256x256 flagship's full width:
+    ``finetune-t --config configs/fine_tune_config.yaml`` (ch 128, ch_mult
+    1,2,3,4, T=1000 -> 2000 by interpolation, lr 1e-5; batch 48, the
+    largest that fits: the config's 64 does not) with a table time
+    embedding, bf16, the shapes dataset at 256x256 and remat,
+    from a weights-only T=1000 checkpoint of seeded weights, for 3 steps:
+    every parameter outside the time embedding bit for bit the loaded one,
+    2000 rows whose first and last are the old rows 0 and 999, the time
+    embedding moved, a finite loss, exact launches a step (the forward,
+    remat's recompute, dq and dk/dv; every attention call on wide), the
+    checkpoint restored; DDIM 20 at batch 8 from the fine-tuned checkpoint
+    (T=2000) and from the T=1000 checkpoint at inference_T=2000 (the
+    surgery at load); ms a step, images/s, peak memory (and at batch 8
+    with and without remat), busy share;
+20. the ViT backbone at full width (``configs/imagenet256_uncond.yaml``
+    with model.backbone=vit: ViT-B/16 at 256x256, bf16): 4 train steps at
+    batch 16 (exactly 12 flash forwards, 12 dq and 12 dk/dv a step, on mma
+    at C=64), DDIM 50 at batch 8 from its checkpoint (12 forwards a model
+    evaluation), finite loss and images, and one f32 (simt) and one bf16
+    forward of the kernel path against the plain path ("xla").
 
 Then it prints the ``nvidia-smi`` line, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -169,10 +201,12 @@ Launch counts: every count is set to 0 just before a path is driven and
 read just after. The bf16 eval, train, search and tracked paths of the
 unconditional UNet (phases 3, 7, 13, 15 and 17) run the mma kernels and
 GroupNorm; those of the CFG UNet (phases 9, 12, 13, 15 and 17) the mma
-and wide kernels. The kernels' JSON
+and wide kernels; the fine-tune (phase 19) the wide kernels and
+GroupNorm; the ViT (phase 20) the mma kernels at C=64. The kernels' JSON
 line carries each kernel's launches summed over these paths, and per path;
 the simt forward, dq and dk/dv, which no bf16 path runs, carry their
-launches on the f32 kernel paths of phases 4, 6, 10, 11, 14, 16 and 18.
+launches on the f32 kernel paths of phases 4, 6, 10, 11, 14, 16, 18 and
+20.
 """
 
 from __future__ import annotations
@@ -205,9 +239,12 @@ T_STEPS = 1000
 BATCH = 8
 PARITY_STEPS = 20
 TRAIN_BATCH = 128
-TRAIN_EPOCHS = 10           # 16 steps an epoch on the 2048 shapes images
+TRAIN_EPOCHS = 8            # 16 steps an epoch on the 2048 shapes images
+                            # (10 until the fine-tune and the ViT came)
 TRAIN_SAVE_FREQ = 5
-TRAIN_GRID_BATCH = 8        # the epoch grid: T=1000 steps at batch 8
+TRAIN_GRID_BATCH = 8        # the epoch grid at batch 8, over GRID_T steps
+# (inference_T; the whole T=1000 chain until the fine-tune and the ViT came)
+GRID_T = 250
 TRAIN_PARITY_STEPS = 3
 # The guided path (configs/cifar10_cfg.yaml). One forward of its UNet makes
 # 78 GroupNorm calls and 13 attention calls, all on the tensor cores in
@@ -219,10 +256,11 @@ CFG_BATCH = 8               # train.eval_batch_size of the guided evals
 CFG_SHORT_T = 100           # the interval-CFG and autoguidance chains
 # The CFG chain of phase 9, cut from the config's T=3000 to keep the
 # script inside its time limit: on a slow host (45.9 ms a guided step on
-# an H100, NVIDIA H100 80GB HBM3, 700 W) the whole chain took 138 s.
-CFG_LONG_T = 500
+# an H100, NVIDIA H100 80GB HBM3, 700 W) the whole chain took 138 s; T=500
+# until the fine-tune and the ViT came.
+CFG_LONG_T = 250
 CFG_INTERVAL = (30, 70)     # 40 of their 100 steps guided
-COND_TRAIN_EPOCHS = 12      # 8 steps an epoch: 2048 shapes images, batch 256
+COND_TRAIN_EPOCHS = 8       # 8 steps an epoch: 2048 shapes images, batch 256
 COND_PARITY_BATCH = 128
 COND_LOSS_FALL = 0.5        # the last epoch's mean loss below this share
                             # of the first epoch's (measured: 0.04)
@@ -244,8 +282,7 @@ CLF_MIN_ACC = 0.9
 # nothing to search for; class 0 is far from saturated.
 TARGET = 0
 SMC_STEPS = (700, 400, 150)
-PRUNE_AT = 500              # pruned 16 -> 4 at this timestep (uncond)
-INJECT_AT = 400             # path search's injection step (uncond)
+PRUNE_AT = 500              # phase 16: pruned 16 -> 4 at this timestep
 CFG_PRUNE_AT = 1500         # pruned 4 -> 2 (CFG UNet, T=3000)
 # Candidates folded into the batch: 4 of batch 8 (the unconditional
 # UNet's chunks, pruned survivors, paths and neighbours: 32 rows); the CFG
@@ -257,6 +294,13 @@ CFG_SEARCH_KEEP = 2
 # at T=1000 took 122.3 s on an H100 (NVIDIA H100 80GB HBM3, 700 W; 40.8
 # ms a forward, recompute and backward included), at T=250 up to 46.2 s.
 REMAT_T = 100
+# Random N=16, pruned 16 -> 4 and path 4/2 over the ancestral chain cut
+# from T=1000 to SEARCH_T (random N=16 took 16.8-21.7 s at T=1000 on an
+# H100, NVIDIA H100 80GB HBM3, 700 W), pruned at SEARCH_PRUNE_AT and the
+# paths injected at SEARCH_INJECT_AT (500 and 400 of 1000 until then).
+SEARCH_T = 250
+SEARCH_PRUNE_AT = 125
+SEARCH_INJECT_AT = 100
 CFG_GRAD_STEPS = 10         # DPM-Solver++ steps of the CFG gradient parity
 # Phases 17 and 18: FID / IS / CLIP tracking. The tracked runs sample at
 # train.eval_batch_size unset: min(train.batch_size, 64) = 64 (the CFG
@@ -265,13 +309,49 @@ CFG_GRAD_STEPS = 10         # DPM-Solver++ steps of the CFG gradient parity
 # their points: the T=1000 run every TRACKED_INTERVAL steps.
 UNCOND_YAML = os.path.join(ROOT, "configs", "cifar10_uncond.yaml")
 TRACKED_BATCH = 64
-TRACKED_INTERVAL = 100      # train.eval_metric_interval: 10 points
+# The unconditional tracked chains, cut from the config's T=1000 (the
+# script ran 894 s of its 1200 s before the fine-tune and the ViT came):
+# inference-metrics over diffusion.T=TRACKED_T, the tracked train's evals
+# over inference_T=TRACKED_T.
+TRACKED_T = 250
+TRACKED_INTERVAL = 50       # train.eval_metric_interval: 5 points
 TRACKED_TRAIN_EPOCHS = 2
-TRACKED_TRAIN_INTERVAL = 250  # train.metric_interval of its evals: 4
-CFG_TRACKED_INTERVAL = 10   # the guided T=CFG_SHORT_T run: 10 points
+TRACKED_TRAIN_INTERVAL = 125  # train.metric_interval of its evals: 2
+CFG_TRACKED_INTERVAL = 20   # the guided T=CFG_SHORT_T run: 5 points
 TRACKED_SEARCH_N = 4        # random search over DDIM 50, ensemble and clip
 TRACKED_PARITY_T = 50
 TRACKED_PARITY_INTERVAL = 10
+# Phase 19: the T-extension fine-tune at the 256x256 flagship's width
+# (configs/fine_tune_config.yaml: ch 128, ch_mult 1,2,3,4, attention at
+# 64x64 = 4096 tokens of C=384 and at the middle's 32x32 = 1024 of C=512,
+# T=1000 -> 2000, "interpolate", lr 1e-5, batch 64). FT_STEPS steps on
+# FT_STEPS batches of the shapes dataset at 256x256. The config's batch 64
+# does not fit in the card's 80 GB, even with remat (a step ran out of
+# memory in the GroupNorm backward's float32 recompute); 48 does (60.4 GB
+# peak), and 32 (40.4 GB): NVIDIA H100 80GB HBM3, 700 W.
+FT_YAML = os.path.join(ROOT, "configs", "fine_tune_config.yaml")
+FT_OLD_T = 1000
+FT_BATCH = 48
+FT_STEPS = 3
+FT_REMAT = True             # per-ResBlock recompute, which batch 48 needs
+FT_MEM_BATCH = 8            # peak memory with and without remat
+FT_TIMED_STEPS = 2
+FT_EVAL_STEPS = 20          # DDIM 20 at batch 8 from both checkpoints
+FT_EVAL_BATCH = 8
+# Phase 20: the ViT backbone (configs/imagenet256_uncond.yaml with
+# model.backbone=vit: ModelCfg's ViT-B/16 defaults, patch 16, embed 768,
+# depth 12, 12 heads of 64, 256 tokens at 256x256), bf16.
+IMAGENET_YAML = os.path.join(ROOT, "configs", "imagenet256_uncond.yaml")
+VIT_BATCH = 16
+VIT_STEPS = 4
+VIT_EVAL_BATCH = 8
+VIT_EVAL_STEPS = 50         # DDIM 50
+# Phase 20 limits, a ViT forward (|eps| up to ~1.7) of the kernel path
+# against the plain path ("xla") on the same weights, about 5x the first
+# readings on an H100 (NVIDIA H100 80GB HBM3, 700 W): f32 sums in another
+# order (3.1e-6); bf16 rounds each attention output, which the later
+# blocks carry (0.0234).
+VIT_EPS_TOL = {"float32": 1.5e-5, "bfloat16": 0.1}
 # Phase 18 limits, about 5x the first readings on an H100 (NVIDIA H100
 # 80GB HBM3, 700 W). FID, IS and CLIP of the f32 kernel path against the
 # plain path, relative: the f32 paths differ by summation order, which
@@ -547,8 +627,9 @@ def path_shapes(cfg, params, dev, batches):
                                           a[0].shape[2] * a[0].shape[3],
                                           a[0].shape[1])))
     out = []
+    size = cfg.data.img_size
     for batch in batches:
-        x = torch.randn((batch, 32, 32, 3), device=dev)
+        x = torch.randn((batch, size, size, 3), device=dev)
         t = torch.full((batch,), cfg.diffusion.T // 2, device=dev,
                        dtype=torch.int64)
         labels = (torch.arange(batch, device=dev) % 10 + 1
@@ -879,10 +960,11 @@ def check_forward_kernels(paths, dev, timer):
 def check_backward_kernels(paths, dev, timer):
     """Phase 5: the dq and dk/dv kernels against their plain versions at
     the attention shapes of each train path of ``paths`` (tag ->
-    ((gn_calls, attn_calls), more shapes)), in bf16 and f32 (with a random
-    dO, and a nonzero dlse at a path's first shape), and, where bf16 routes
-    either to a tensor-core kernel, the simt dq and dk/dv kernels on the
-    bf16 inputs too; times at bf16 of the route's kernels and the simt
+    ((gn_calls, attn_calls), more shapes[, timing reps])), in bf16 and f32
+    (with a random dO, and a nonzero dlse at a path's first shape), and,
+    where bf16 routes either to a tensor-core kernel, the simt dq and dk/dv
+    kernels on the bf16 inputs too; times at bf16 of the route's kernels
+    and the simt
     ones, on the same inputs, beside the plain versions, the backward of
     SDPA and the bound (rows: the route's kernels, and the simt dq's and
     dk/dv's forced calls where bf16 takes wide). Then the GroupNorm
@@ -921,8 +1003,9 @@ def check_backward_kernels(paths, dev, timer):
             worst[f"flash_bwd_dkv_{routes[1]}"], *e[1:])
 
     nan = (float("nan"), float("nan"))
-    for tag, ((gn_calls, attn_calls), more) in paths.items():
+    for tag, ((gn_calls, attn_calls), more, *reps) in paths.items():
         log(f"-- shapes of one {tag} step")
+        n = reps[0] if reps else 10
         worst = dict.fromkeys(kernels, 0.0)
         rows = {k: [] for k in kernels}
         counts = collections.Counter(attn_calls)
@@ -975,7 +1058,6 @@ def check_backward_kernels(paths, dev, timer):
             o, lse = attention.attention_with_lse(q, k, v, scale)
             dd = attention.row_dd(o, do).contiguous()
             args = (q, k, v, do, lse, dd, scale)
-            n = 10
             dq_ms, dq_host = (timer(lambda: attention.flash_bwd_dq(*args),
                                     n=n)
                               if bf16_routes[0] != "simt" else nan)
@@ -1027,13 +1109,14 @@ def check_backward_kernels(paths, dev, timer):
         for k in kernels:
             out[k][tag] = (worst[k], rows[k])
         if gn_calls:
-            check_groupnorm_backward(tag, gn_calls, gen, dev, timer)
+            check_groupnorm_backward(tag, gn_calls, gen, dev, timer,
+                                     min(n, 5))
     phase_done(5, "backward kernels against their plain versions", t0,
                "(all within tolerance)")
     return out
 
 
-def check_groupnorm_backward(tag, gn_calls, gen, dev, timer):
+def check_groupnorm_backward(tag, gn_calls, gen, dev, timer, n=5):
     """The GroupNorm backward: the kernel path's autograd.Function (kernel
     forward, plain recompute in the backward) against autograd of the
     plain version, and its time beside F.group_norm's autograd."""
@@ -1063,14 +1146,14 @@ def check_groupnorm_backward(tag, gn_calls, gen, dev, timer):
                 for name, g, w_ in zip(("dx", "dw", "db"), got, want)]
         ms, _ = timer(lambda: torch.autograd.grad(
             groupnorm.groupnorm_swish(x, w, b, G, act=act), (x, w, b), gy),
-            n=5)
+            n=n)
 
         def lib():
             y = F.group_norm(x, G, w.to(x.dtype), b.to(x.dtype), 1e-5)
             return torch.autograd.grad(F.silu(y) if act else y, (x, w, b),
                                        gy)
 
-        l_ms, _ = timer(lib, n=5)
+        l_ms, _ = timer(lib, n=n)
         gn_ms += calls * ms
         gn_lib_ms += calls * l_ms
         log(f"  {list(shape)} act={int(act)} x{calls} | "
@@ -1193,7 +1276,7 @@ def plain_path():
     from itsd_tpu_torch.kernels import attention, groupnorm
     from itsd_tpu_torch.models import unet
 
-    def plain_attention(q, k, v):
+    def plain_attention(q, k, v, impl="auto"):
         return attention.attention_plain(q, k, v, q.shape[-1] ** -0.5)
 
     return (mock.patch.object(unet, "groupnorm_swish",
@@ -1403,7 +1486,8 @@ def train_path(tmpdir, card_line):
 
     t0 = time.perf_counter()
     dev = torch.device(DEVICE)
-    cfg = train_config(tmpdir)
+    cfg = train_config(tmpdir, "bfloat16", "train.profile_steps=2",
+                       f"diffusion.inference_T={GRID_T}")
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     out = runner.train(cfg, device=DEVICE)
@@ -1414,13 +1498,13 @@ def train_path(tmpdir, card_line):
     steps = out["steps"]
     losses = np.asarray(out["losses"])
     grids = TRAIN_EPOCHS // cfg.train.eval_freq
-    grid_steps = grids * T_STEPS  # each grid: T=1000 sampler steps
+    grid_steps = grids * GRID_T  # each grid: GRID_T sampler steps
     grid_launches = route_counts(gn=51 * grid_steps, fwd=6 * grid_steps,
                                  fwd_mma=6 * grid_steps)
     per_step = {k: (n - grid_launches[k]) / steps
                 for k, n in launches.items()}
     log(f"train: {steps} steps of batch {TRAIN_BATCH} in {seconds:.2f} s "
-        f"(dataset, checkpoints and {grids} sample grid(s) of T={T_STEPS} at "
+        f"(dataset, checkpoints and {grids} sample grid(s) of T={GRID_T} at "
         f"batch {TRAIN_GRID_BATCH} included); launches {launches}; per train "
         f"step {per_step}")
     if per_step != step_counts(51, 6, 6):
@@ -1433,6 +1517,19 @@ def train_path(tmpdir, card_line):
             or not last < 0.5 * first):
         fail("the train loss is not finite or did not fall to half of its "
              "first epoch's mean")
+    trace = os.path.join(cfg.metrics_save_dir, "trace", "trace.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    names = collections.Counter(e.get("name") for e in events)
+    n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"train.profile_steps=2: {trace} ({os.path.getsize(trace) / 1e6:.2f} "
+        f"MB, {len(events)} events, {n_kernels} kernels; regions step_0 "
+        f"{names['step_0']}, step_1 {names['step_1']})")
+    if (out["trace"] != trace or not n_kernels or not names["step_0"]
+            or not names["step_1"] or names["step_2"]):
+        fail(f"the trace of train.profile_steps=2: {out['trace']}, "
+             f"{n_kernels} kernels, regions {names['step_0']} "
+             f"{names['step_1']} {names['step_2']}")
     want_ckpts = [os.path.join(cfg.save_weight_dir, f"ckpt_{e}")
                   for e in (TRAIN_SAVE_FREQ - 1, TRAIN_EPOCHS - 1)]
     grid = os.path.join(cfg.sampled_dir, f"epoch_{TRAIN_EPOCHS - 1}"
@@ -1518,13 +1615,14 @@ def cfg_config(tmpdir: str, dtype: str = "bfloat16", *extra):
     """configs/cifar10_cfg.yaml (ch 128, ch_mult 1,4,8,8,4,2, 10 labels,
     table time embedding, T=3000, w=1.8, batch 256, lr 5e-5, sum/B^2 loss)
     in ``dtype``, on the shapes dataset (the repository's stand-in for
-    CIFAR-10) with its 10 labels, no tracked metrics and no representation
-    extraction (neither is ported), guided evals at batch 8."""
+    CIFAR-10) with its 10 labels, the config's representation extraction
+    (every 50 batches), no tracked metrics (phase 17 tracks the guided
+    path), guided evals at batch 8."""
     from itsd_tpu_torch.utils import load_config
 
     return load_config(CFG_YAML, [
         f"model.dtype={dtype}", "seed=0", "data.dataset=shapes",
-        "train.track_metrics=false", "train.extract_representation_freq=0",
+        "train.track_metrics=false",
         f"train.eval_batch_size={CFG_BATCH}",
         f"save_weight_dir={tmpdir}/cfg_ckpt",
         f"sampled_dir={tmpdir}/cfg_sampled",
@@ -1546,9 +1644,9 @@ def watch_sampling():
     batches, seconds, syncs = [], [], []
     attention_fn, sampler_fn = unet.spatial_attention, runner.run_sampler
 
-    def attention(q, k, v):
+    def attention(q, k, v, impl="auto"):
         batches.append(q.shape[0])
-        return attention_fn(q, k, v)
+        return attention_fn(q, k, v, impl)
 
     def reported_syncs(fn):
         with warnings.catch_warnings(record=True) as caught:
@@ -1853,6 +1951,32 @@ def cond_train_parity(cparams, tmpdir):
     return results, f32_launches
 
 
+def check_representations(rep_dir, epochs, rows, width):
+    """The .npz files of a conditional train's representation extraction:
+    one an epoch, ``rows`` finite representations of ``width`` and their
+    labels; then the analysis CLI's statistics over them (its plots need
+    scikit-learn and matplotlib, which the card's machine lacks: it says
+    so and draws none)."""
+    from itsd_tpu_torch.cli import analyze
+
+    per_epoch = analyze.load_representations(rep_dir)
+    bad = [e for e, (r, lab) in per_epoch.items()
+           if r.shape != (rows, width) or lab.shape != (rows,)
+           or r.dtype != np.float32 or not np.isfinite(r).all()
+           or lab.min() < 0 or lab.max() > 9]
+    if sorted(per_epoch) != list(range(epochs)) or bad:
+        fail(f"representations in {rep_dir}: epochs {sorted(per_epoch)}, "
+             f"want {epochs} of [{rows}, {width}]; bad {bad}")
+    first, last = (analyze.representation_stats(*per_epoch[e])
+                   for e in (0, epochs - 1))
+    log(f"representations: {epochs} files of [{rows}, {width}]; epoch 0 "
+        f"{first}; epoch {epochs - 1} {last}")
+    rc = analyze.main(["--repr-dir", rep_dir, "--out-dir",
+                       os.path.join(rep_dir, "analysis")])
+    if rc != 0:
+        fail(f"python -m itsd_tpu_torch.cli.analyze exited {rc}")
+
+
 def cond_train_path(tmpdir, card_line):
     """Phase 12: runner.train at the full configuration of
     configs/cifar10_cfg.yaml on the shapes dataset (batch 256, bf16) for
@@ -1886,11 +2010,18 @@ def cond_train_path(tmpdir, card_line):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = out["steps"]
     losses = np.asarray(out["losses"])
-    per_step = {k: n / steps for k, n in launches.items()}
     gn, fwd, mma, wide = CFG_PER_FORWARD
+    # the config's representation extraction: one forward (no gradient) on
+    # every extract_representation_freq-th batch of an epoch
+    freq = cfg.train.extract_representation_freq
+    per_epoch_reps = -(-per_epoch // freq)
+    extracted = scaled(route_counts(gn=gn, fwd=fwd, fwd_mma=mma,
+                                    fwd_wide=wide), E * per_epoch_reps)
+    per_step = {k: (n - extracted[k]) / steps for k, n in launches.items()}
     log(f"cond train: {steps} steps of batch {B} in {seconds:.2f} s "
-        f"(dataset, model set-up and checkpoint included); launches "
-        f"{launches}; per step {per_step}")
+        f"(dataset, model set-up, checkpoint and {E * per_epoch_reps} "
+        f"representation forwards included); launches {launches}; per step "
+        f"{per_step}")
     if per_step != step_counts(gn, fwd, mma, wide):
         fail(f"launches per cond train step {per_step}, want 78/13/13/13, 5 "
              "of each attention kernel's on mma, the other 8 on wide and "
@@ -1909,6 +2040,9 @@ def cond_train_path(tmpdir, card_line):
             os.path.isfile(p) for p in (ckpt, metrics)):
         fail(f"missing outputs: checkpoints {out['checkpoints']}, metrics "
              f"{os.path.isfile(metrics)}")
+    check_representations(os.path.join(cfg.save_weight_dir,
+                                       "representations"),
+                          E, per_epoch_reps * B, cfg.model.channel)
 
     model, _ = runner.build_model(cfg)
     model.to(dev)
@@ -1958,7 +2092,7 @@ def cond_train_path(tmpdir, card_line):
     del ev_model
 
     walls = []
-    for _ in range(12):
+    for _ in range(7):
         torch.cuda.synchronize()
         s0 = time.perf_counter()
         step(state, batch, gen)
@@ -1971,7 +2105,7 @@ def cond_train_path(tmpdir, card_line):
         cats[_category(k)] += v
     dev_ms = sum(kernels.values())
     log(f"cond train step (batch {B}, bf16) on {card_line}: median "
-        f"{step_ms:.2f} ms wall (steps 3-12: "
+        f"{step_ms:.2f} ms wall (steps 3-7: "
         f"{[round(w, 1) for w in walls[2:]]}), {B / step_ms * 1e3:.1f} "
         f"images/s; peak memory {peak_gb:.3f} GB "
         f"(torch.cuda.max_memory_allocated over runner.train)")
@@ -2384,9 +2518,9 @@ def watch_search():
     attention_fn = unet.spatial_attention
     ends = []
 
-    def attention(q, k, v):
+    def attention(q, k, v, impl="auto"):
         seen["batches"].append(q.shape[0])
-        return attention_fn(q, k, v)
+        return attention_fn(q, k, v, impl)
 
     def syncs(caught):
         return [str(w.message) for w in caught
@@ -2515,9 +2649,10 @@ def search_path(params, cparams, tmpdir, card_line, held):
     """Phase 15: runner.run_search at full width, bf16, batch 8, on the
     seeded weights, scored by the classifier verifier (a SmallCNN trained
     here on shapes). Unconditional UNet (T=1000, target class TARGET): random
-    N=16 over the ancestral chain (128 rows, BASELINE workload 3); random
-    N=16 in chunks of 4 over DDIM 50, with the verifier-hacking guard;
-    pruned 16 -> 4 at t=500 and path search 4/2 at t=400 (ancestral);
+    N=16 over the ancestral chain cut to SEARCH_T (128 rows; BASELINE
+    workload 3 at T=1000); random N=16 in chunks of 4 over DDIM 50, with the
+    verifier-hacking guard; pruned 16 -> 4 at SEARCH_PRUNE_AT and path
+    search 4/2 at SEARCH_INJECT_AT (ancestral, SEARCH_T);
     zero-order 4 neighbours x 2 iterations over DDIM 50; SMC, 16 particles
     weighed at 700, 400 and 150 (spread scaling, lambda 10), over DDIM 50
     segments; gradient search
@@ -2564,9 +2699,10 @@ def search_path(params, cparams, tmpdir, card_line, held):
         run("uncond", tag, what, cfg, params, one, forwards, grad_forwards,
             batches, nfes, **kw)
 
-    N = 16
-    uncond("search_random", f"random N={N}, ancestral T={T}",
-           [f"search.n_candidates={N}"], T, 0, {N * B: T}, N)
+    N, ST = 16, SEARCH_T
+    uncond("search_random", f"random N={N}, ancestral T={ST}",
+           [f"search.n_candidates={N}", f"diffusion.T={ST}"], ST, 0,
+           {N * B: ST}, N)
     chunk, draws = SEARCH_FOLD, 4
     uncond("search_random_chunked",
            f"random N={N} in chunks of {chunk}, DDIM {n}, guard",
@@ -2584,20 +2720,23 @@ def search_path(params, cparams, tmpdir, card_line, held):
     if len(g["baseline_fid_proxy_draws"]) != draws or not np.isfinite(
             g["winner_fid_proxy"]):
         fail(f"the guard gave {g}")
-    keep, t_p = SEARCH_FOLD, PRUNE_AT
-    uncond("search_pruned", f"pruned {N} -> {keep} at t={t_p}, ancestral",
+    keep, t_p = SEARCH_FOLD, SEARCH_PRUNE_AT
+    uncond("search_pruned", f"pruned {N} -> {keep} at t={t_p}, ancestral "
+           f"T={ST}",
            [f"search.n_candidates={N}", "search.algorithm=pruned",
-            f"search.prune_schedule=[[{t_p},{keep}]]"],
-           T - t_p + 1 + t_p, 0, {N * B: T - t_p + 1, keep * B: t_p},
-           pruned_search_nfes(T, N, [(t_p, keep)]))
-    paths, active, t_inj, delta = SEARCH_FOLD, 2, INJECT_AT, 50
-    uncond("search_path", f"path {paths}/{active} at t={t_inj}, ancestral",
+            f"search.prune_schedule=[[{t_p},{keep}]]", f"diffusion.T={ST}"],
+           ST - t_p + 1 + t_p, 0, {N * B: ST - t_p + 1, keep * B: t_p},
+           pruned_search_nfes(ST, N, [(t_p, keep)]))
+    paths, active, t_inj, delta = SEARCH_FOLD, 2, SEARCH_INJECT_AT, 50
+    uncond("search_path", f"path {paths}/{active} at t={t_inj}, ancestral "
+           f"T={ST}",
            ["search.algorithm=path", f"search.n_paths={paths}",
             f"search.n_active={active}",
-            f"search.injection_steps=[{t_inj}]", f"search.delta_f={delta}"],
-           T - t_inj + 1 + min(t_inj + delta, T), 0,
-           {paths * B: T - t_inj + 1 + min(t_inj + delta, T)},
-           path_search_nfes(T, paths, [t_inj], delta))
+            f"search.injection_steps=[{t_inj}]", f"search.delta_f={delta}",
+            f"diffusion.T={ST}"],
+           ST - t_inj + 1 + min(t_inj + delta, ST), 0,
+           {paths * B: ST - t_inj + 1 + min(t_inj + delta, ST)},
+           path_search_nfes(ST, paths, [t_inj], delta))
     nb, it = SEARCH_FOLD, 2
     uncond("search_zero_order",
            f"zero-order {nb} neighbours x {it} iterations, DDIM {n}",
@@ -2984,9 +3123,9 @@ def watch_tracked():
     attention_fn = unet.spatial_attention
     chain_fn, point_fn = runner.sample_with_snapshots, runner._snapshot_metrics
 
-    def attention(q, k, v):
+    def attention(q, k, v, impl="auto"):
         seen["batches"].append(q.shape[0])
-        return attention_fn(q, k, v)
+        return attention_fn(q, k, v, impl)
 
     def syncs(caught):
         return [str(w.message) for w in caught
@@ -3087,10 +3226,11 @@ def tracked_path(wdir, ckpt, cparams, params, clf, tmpdir, card_line,
     $ITSD_CLIP_WEIGHTS) and IS from the classifier of phase 15 (found by
     is_logit_source=auto under JAX's name). (a) ``inference-metrics`` on
     the unconditional UNet (``--config configs/cifar10_uncond.yaml``,
-    shapes, T=1000, eval batch 64) from ``wdir/ckpt``; (b) ``runner.train``
-    with tracked metrics every epoch for 2 epochs of phase 7's
-    configuration; (c) guided ``inference-metrics`` on the CFG UNet
-    (``configs/cifar10_cfg.yaml``, w=1.8, T cut to CFG_SHORT_T as phase 9
+    shapes, T cut to TRACKED_T, eval batch 64) from ``wdir/ckpt``; (b)
+    ``runner.train`` with tracked metrics every epoch for 2 epochs of phase
+    7's configuration, evaluated at inference_T=TRACKED_T; (c) guided
+    ``inference-metrics`` on the CFG UNet (``configs/cifar10_cfg.yaml``,
+    w=1.8, T cut to CFG_SHORT_T as phase 9
     cuts it, dual batch 128); (d) random N=4 search over DDIM 50 with the
     ensemble and the clip verifiers. Exact launches, no sync inside a
     chain, finite metrics at every point. Returns ({run: launches},
@@ -3103,7 +3243,7 @@ def tracked_path(wdir, ckpt, cparams, params, clf, tmpdir, card_line,
                                         make_inception_extractors)
 
     t0 = time.perf_counter()
-    launches, T = {}, T_STEPS
+    launches, T = {}, TRACKED_T
     clip_path = os.path.join(tmpdir, "clip_vit_b32.pt")
     c0 = time.perf_counter()
     seeded_clip_file(clip_path)
@@ -3137,7 +3277,7 @@ def tracked_path(wdir, ckpt, cparams, params, clf, tmpdir, card_line,
     with_classifier(wdir)
     mdir = os.path.join(tmpdir, "tracked", "metrics")
     argv = ["inference-metrics", "--config", UNCOND_YAML, "--device", DEVICE,
-            "data.dataset=shapes", "seed=0",
+            "data.dataset=shapes", "seed=0", f"diffusion.T={T}",
             f"train.eval_metric_interval={TRACKED_INTERVAL}",
             f"save_weight_dir={wdir}", f"test_load_weight={ckpt}",
             f"sampled_dir={tmpdir}/tracked/sampled",
@@ -3172,6 +3312,7 @@ def tracked_path(wdir, ckpt, cparams, params, clf, tmpdir, card_line,
                        "train.eval_freq=1", "train.model_save_freq=1",
                        f"train.epoch={TRACKED_TRAIN_EPOCHS}",
                        f"train.metric_interval={TRACKED_TRAIN_INTERVAL}",
+                       f"diffusion.inference_T={T}",
                        f"save_weight_dir={tdir}/ckpt",
                        f"sampled_dir={tdir}/sampled",
                        f"metrics_save_dir={tdir}/metrics")
@@ -3348,6 +3489,383 @@ def tracked_parity(params, clf, clip_path, tmpdir):
     return f32_launches
 
 
+# ---------------------------------------------------------------------------
+# the T-extension fine-tune (phase 19) and the ViT (phase 20)
+
+
+def ft_overrides(tmpdir: str, *extra):
+    """The overrides of configs/fine_tune_config.yaml (the 256x256
+    flagship, T=2000, lr 1e-5) that phase 19 runs: a table time embedding
+    (so that the surgery runs), bf16 (as configs/imagenet256_uncond.yaml
+    sets), batch FT_BATCH (the config's 64 does not fit) with remat, and
+    the shapes dataset at 256x256 (no ImageNet folder offline): FT_STEPS
+    batches of it, one epoch; the T=1000 checkpoint ``ckpt_T1000.pt`` to
+    start from."""
+    n_images = FT_STEPS * FT_BATCH
+    return [
+        "model.time_embed=table", "model.dtype=bfloat16",
+        "data.dataset=shapes", "data.use_full_dataset=false",
+        f"data.train_subset_ratio={n_images / max(FT_BATCH * 8, 2048)}",
+        f"batch_size={FT_BATCH}", "train.epoch=1", f"model.remat={FT_REMAT}",
+        "seed=0", "test_load_weight=ckpt_T1000.pt",
+        f"train.eval_batch_size={FT_EVAL_BATCH}",
+        f"save_weight_dir={tmpdir}/ft_ckpt",
+        f"sampled_dir={tmpdir}/ft_sampled",
+        f"metrics_save_dir={tmpdir}/ft_metrics", *extra]
+
+
+def ft_config(tmpdir: str, *extra):
+    from itsd_tpu_torch.utils import load_config
+
+    return load_config(FT_YAML, ft_overrides(tmpdir, *extra))
+
+
+def vit_config(tmpdir: str, *extra):
+    """configs/imagenet256_uncond.yaml with model.backbone=vit (ViT-B/16
+    at 256x256, bf16, the shapes dataset): VIT_STEPS batches of 16, one
+    epoch, no grid; evals at batch 8."""
+    from itsd_tpu_torch.utils import load_config
+
+    n_images = VIT_STEPS * VIT_BATCH
+    return load_config(IMAGENET_YAML, [
+        "model.backbone=vit", "data.use_full_dataset=false",
+        f"data.train_subset_ratio={n_images / max(VIT_BATCH * 8, 2048)}",
+        f"batch_size={VIT_BATCH}", "train.epoch=1",
+        "train.track_metrics=false", "train.eval_freq=1000000",
+        "train.model_save_freq=1", "seed=0",
+        f"train.eval_batch_size={VIT_EVAL_BATCH}",
+        f"save_weight_dir={tmpdir}/vit_ckpt",
+        f"sampled_dir={tmpdir}/vit_sampled",
+        f"metrics_save_dir={tmpdir}/vit_metrics", *extra])
+
+
+def vit_attention_shapes(cfg, batch):
+    """([], the [B*H, N, D] of every attention call of one ViT forward at
+    ``batch``): the heads folded into the batch, in path_shapes' layout."""
+    m = cfg.model
+    n = (cfg.data.img_size // m.patch_size) ** 2
+    return [], [(batch * m.num_heads, n, m.embed_dim // m.num_heads)] * \
+        m.depth
+
+
+def _peak_step_gb(cfg, params, batch, dev):
+    """Peak device memory (GB) of one frozen fine-tune step of ``cfg``'s
+    model from ``params`` at ``batch``."""
+    from itsd_tpu_torch.cli import runner
+    from itsd_tpu_torch.train import (OptimizerConfig, create_train_state,
+                                      make_optimizer, make_train_step)
+    from itsd_tpu_torch.train.surgery import freeze_except_time_embedding
+
+    model, _ = runner.build_model(cfg)
+    runner.load_weights(cfg, model, params)
+    model.to(dev)
+    tx = make_optimizer(OptimizerConfig(lr=cfg.train.fine_tune_lr,
+                                        ema_decay=None),
+                        freeze_except_time_embedding(model))
+    state = create_train_state(model, tx, ema=False)
+    step = make_train_step(runner.build_schedule(cfg, device=dev),
+                           ema_decay=None)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    size = cfg.data.img_size
+    x = torch.randn((batch, size, size, 3), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = step(state, {"image": x}, gen)["loss"].item()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, tx, state, x
+    torch.cuda.empty_cache()
+    if not np.isfinite(loss):
+        fail(f"memory probe at batch {batch}: loss {loss}")
+    return peak
+
+
+def finetune_path(ft_params, ft_shapes, tmpdir, card_line):
+    """Phase 19: ``finetune-t`` at the flagship's full width, as a user runs
+    it (``python -m itsd_tpu_torch.cli.main finetune-t --config
+    configs/fine_tune_config.yaml`` with the overrides of ``ft_config``),
+    from a weights-only T=1000 checkpoint of seeded weights: FT_STEPS steps
+    at batch FT_BATCH (remat on), the table extended to T=2000 by
+    interpolation.
+    Checks: every parameter outside the time embedding bit for bit the
+    loaded one; 2000 rows, rows 0 and 1999 the old rows 0 and 999; the
+    time embedding moved; a finite loss; exact launches a step (forward,
+    remat's recompute, dq and dk/dv; every attention call on wide); the
+    checkpoint restores. Then DDIM 20 at batch 8 from the fine-tuned
+    checkpoint at T=2000 and from the T=1000 checkpoint at
+    inference_T=2000 (the surgery at load). Reports ms a step, images/s,
+    peak memory (and at batch FT_MEM_BATCH with and without remat) and
+    the busy share. Returns {run: launches}."""
+    from itsd_tpu_torch.cli import main as cli_main
+    from itsd_tpu_torch.cli import runner
+    from itsd_tpu_torch.data import shapes_dataset
+    from itsd_tpu_torch.train import make_train_step
+    from itsd_tpu_torch.train.checkpoint import restore_params
+    from itsd_tpu_torch.train.surgery import extend_time_embedding
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    cfg = ft_config(tmpdir)
+    T = cfg.diffusion.T
+    os.makedirs(cfg.save_weight_dir, exist_ok=True)
+    torch.save(ft_params, os.path.join(cfg.save_weight_dir,
+                                       "ckpt_T1000.pt"))
+    extended = extend_time_embedding(ft_params, T)
+    old, new = (p["time_embedding.table"] for p in (ft_params, extended))
+    if (tuple(new.shape) != (T, old.shape[1])
+            or not torch.equal(new[0], old[0])
+            or not torch.equal(new[-1], old[-1])):
+        fail(f"the extended table: {tuple(new.shape)}, rows 0 and "
+             f"{T - 1} equal to the old rows 0 and {FT_OLD_T - 1}: "
+             f"{torch.equal(new[0], old[0])}, "
+             f"{torch.equal(new[-1], old[-1])}")
+
+    gn_fwd, attn = ft_shapes
+    gn, n_attn = len(gn_fwd), len(attn)
+    routes = {attention_route(C) for _, _, C in attn}
+    if routes != {"wide"}:
+        fail(f"the fine-tune's attention takes routes {routes}, want wide")
+    k = 2 if FT_REMAT else 1
+    # the forward, then remat's recompute of every ResBlock (all but the
+    # tail's GroupNorm)
+    per_step = route_counts(gn=k * gn - (k - 1), fwd=k * n_attn,
+                            fwd_wide=k * n_attn, dq=n_attn, dq_wide=n_attn,
+                            dkv=n_attn, dkv_wide=n_attn)
+    argv = ["finetune-t", "--config", FT_YAML, "--device", DEVICE,
+            *ft_overrides(tmpdir)]
+    out = {}
+    real = runner.finetune_extended_T
+
+    def keep(*a, **kw):
+        out.update(real(*a, **kw))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    s0 = time.perf_counter()
+    with mock.patch.object(runner, "finetune_extended_T", keep):
+        rc = cli_main.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - s0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0:
+        fail(f"finetune-t exited {rc}")
+    steps = out["steps"]
+    losses = np.asarray(out["losses"])
+    got_per_step = {key: n / max(steps, 1) for key, n in launches.items()}
+    log(f"finetune-t: {steps} steps of batch {FT_BATCH} (T {FT_OLD_T} -> "
+        f"{T}, remat {FT_REMAT}) in {seconds:.2f} s (dataset, weights and "
+        f"checkpoint included); ckpt T detected {out['ckpt_T_detected']}; "
+        f"losses {[round(float(x), 5) for x in losses]}; launches "
+        f"{launches}; "
+        f"per step {got_per_step}")
+    if got_per_step != per_step:
+        fail(f"launches per fine-tune step {got_per_step}, want {per_step}")
+    if (steps != FT_STEPS or out["ckpt_T_detected"] != FT_OLD_T
+            or not np.isfinite(losses).all()):
+        fail(f"fine-tune: {steps} steps, ckpt T {out['ckpt_T_detected']}, "
+             f"losses {losses}")
+    trained = {key: v.detach().cpu() for key, v in
+               out["state"].model.state_dict().items()}
+    changed = [key for key, v in trained.items()
+               if not torch.equal(v, extended[key])]
+    frozen_moved = [key for key in changed
+                    if not key.startswith("time_embedding.")]
+    if frozen_moved or len(changed) != 5:
+        fail(f"fine-tune moved {changed}: want the 5 time-embedding "
+             f"tensors only")
+    ckpt = os.path.join(cfg.save_weight_dir, f"fine_tuned_T{T}_epoch_0")
+    saved = restore_params(ckpt)
+    if out["checkpoints"] != [ckpt] or saved.keys() != trained.keys() or \
+            not all(torch.equal(saved[key], v) for key, v in trained.items()):
+        fail(f"the checkpoint {out['checkpoints']} does not restore the "
+             "fine-tuned weights")
+    log(f"frozen: {len(trained) - 5} tensors bit for bit the loaded ones; "
+        f"moved: {sorted(changed)}; table "
+        f"{tuple(trained['time_embedding.table'].shape)}; {ckpt} restores")
+
+    # the steady-state step, its busy share, and peak memory with and
+    # without remat at a batch where both fit
+    state = out["state"]
+    del out, trained, saved
+    step = make_train_step(runner.build_schedule(cfg, device=dev),
+                           ema_decay=None)
+    size = cfg.data.img_size
+    images, _ = shapes_dataset(n=FT_BATCH, img_size=size, seed=43)
+    batch = {"image": torch.from_numpy(images).to(dev)}
+    gen = torch.Generator(device=dev).manual_seed(44)
+    walls = []
+    for _ in range(FT_TIMED_STEPS):
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - w0) * 1e3)
+    step_ms = float(np.median(walls))
+    kernels, prof_ms = profile_steps(step, state, batch, gen, n=1)
+    dev_ms = sum(kernels.values())
+    cats = collections.Counter()
+    for name, v in kernels.items():
+        cats[_category(name)] += v
+    del state, batch, step
+    torch.cuda.empty_cache()
+    peaks = {remat: _peak_step_gb(ft_config(tmpdir, f"model.remat={remat}"),
+                                  ft_params, FT_MEM_BATCH, dev)
+             for remat in (False, True)}
+    log(f"fine-tune step (batch {FT_BATCH}, bf16, remat {FT_REMAT}) on "
+        f"{card_line}: median {step_ms:.2f} ms wall "
+        f"({[round(w, 1) for w in walls]}), {FT_BATCH / step_ms * 1e3:.2f} "
+        f"images/s; peak memory {peak_gb:.3f} GB over finetune-t; at batch "
+        f"{FT_MEM_BATCH} one step peaks at {peaks[False]:.3f} GB without "
+        f"remat, {peaks[True]:.3f} GB with")
+    log(f"profiler: {dev_ms:.2f} ms of kernels a step ({prof_ms:.2f} ms "
+        f"wall under the profiler): busy {100 * dev_ms / step_ms:.1f}% of "
+        f"the median step; by category (ms): " + ", ".join(
+            f"{c} {v:.2f}" for c, v in cats.most_common()))
+
+    # DDIM 20 at batch 8: the fine-tuned checkpoint at T=2000, and the
+    # T=1000 checkpoint at inference_T=2000 (the surgery at load)
+    one = route_counts(gn=gn, fwd=n_attn, fwd_wide=n_attn)
+    evals = {}
+    for tag, extra in (
+            ("finetune_eval", [f"test_load_weight=fine_tuned_T{T}_epoch_0"]),
+            ("finetune_surgery_eval", [f"diffusion.T={FT_OLD_T}",
+                                       f"diffusion.inference_T={T}"])):
+        ecfg = ft_config(tmpdir, "diffusion.sampler=ddim",
+                         f"diffusion.ddim_steps={FT_EVAL_STEPS}", *extra)
+        reset_launches()
+        with watch_sampling() as (batches, sampler_s, syncs):
+            imgs = runner.evaluate(ecfg, device=DEVICE)["images"]
+        evals[tag] = read_launches()
+        if evals[tag] != scaled(one, FT_EVAL_STEPS) or syncs or \
+                collections.Counter(batches) != {FT_EVAL_BATCH:
+                                                 n_attn * FT_EVAL_STEPS}:
+            fail(f"{tag}: launches {evals[tag]}, syncs {len(syncs)}, "
+                 f"attention batches {collections.Counter(batches)}")
+        if (imgs.shape != (FT_EVAL_BATCH, size, size, 3)
+                or not np.isfinite(imgs).all()):
+            fail(f"{tag}: images {imgs.shape}, finite "
+                 f"{bool(np.isfinite(imgs).all())}")
+        log(f"{tag}: DDIM {FT_EVAL_STEPS} at T={T}, batch {FT_EVAL_BATCH}: "
+            f"sampler {sampler_s[0]:.3f} s = "
+            f"{sampler_s[0] / FT_EVAL_STEPS * 1e3:.2f} ms a step; images "
+            f"std {imgs.std():.3f}")
+    phase_done(19, "T-extension fine-tune (finetune-t)", t0)
+    return {"finetune": launches, **evals}
+
+
+def attention_route(C):
+    from itsd_tpu_torch.kernels import attention
+
+    routes = {attention.route(torch.bfloat16, C, k)
+              for k in attention.KERNELS}
+    return routes.pop() if len(routes) == 1 else routes
+
+
+def vit_path(tmpdir, card_line):
+    """Phase 20: the ViT backbone at full width (ViT-B/16 at 256x256,
+    bf16, seeded weights): ``runner.train`` for VIT_STEPS steps at batch
+    16 (exactly 12 flash forwards, 12 dq and 12 dk/dv a step, all on mma
+    at C=64, no GroupNorm), then ``runner.evaluate`` through DDIM 50 at
+    batch 8 from its checkpoint (12 forwards a model evaluation on mma);
+    finite loss and images; one f32 (simt) and one bf16 (mma) forward of
+    the kernel path against the plain path ("xla") on the same weights.
+    Returns ({run: launches}, the f32 forward's launches)."""
+    from itsd_tpu_torch.cli import runner
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    cfg = vit_config(tmpdir)
+    depth = cfg.model.depth
+    if attention_route(cfg.model.embed_dim // cfg.model.num_heads) != "mma":
+        fail("the ViT's attention does not route to mma")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    s0 = time.perf_counter()
+    out = runner.train(cfg, max_steps=VIT_STEPS, device=DEVICE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - s0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps, losses = out["steps"], np.asarray(out["losses"])
+    per_step = {k: n / max(steps, 1) for k, n in launches.items()}
+    log(f"ViT train: {steps} steps of batch {VIT_BATCH} in {seconds:.2f} s "
+        f"(dataset, model set-up and checkpoint included); losses "
+        f"{[round(float(x), 5) for x in losses]}; peak {peak_gb:.3f} GB; "
+        f"per step "
+        f"{per_step}")
+    if per_step != step_counts(0, depth, depth):
+        fail(f"ViT launches a step {per_step}, want {depth} forwards, dq "
+             "and dk/dv on mma, no GroupNorm")
+    if steps != VIT_STEPS or not np.isfinite(losses).all():
+        fail(f"ViT train: {steps} steps, losses {losses}")
+    ecfg = vit_config(tmpdir, "test_load_weight=ckpt_0",
+                      "diffusion.sampler=ddim",
+                      f"diffusion.ddim_steps={VIT_EVAL_STEPS}")
+    reset_launches()
+    with watch_sampling() as (_, sampler_s, syncs):
+        imgs = runner.evaluate(ecfg, device=DEVICE)["images"]
+    eval_launches = read_launches()
+    want = route_counts(fwd=depth * VIT_EVAL_STEPS,
+                        fwd_mma=depth * VIT_EVAL_STEPS)
+    if eval_launches != want or syncs:
+        fail(f"ViT eval: launches {eval_launches}, want {want}; syncs "
+             f"{len(syncs)}")
+    size = cfg.data.img_size
+    if imgs.shape != (VIT_EVAL_BATCH, size, size, 3) or \
+            not np.isfinite(imgs).all():
+        fail(f"ViT eval: images {imgs.shape}")
+    log(f"ViT eval: DDIM {VIT_EVAL_STEPS}, batch {VIT_EVAL_BATCH}, on "
+        f"{card_line}: sampler {sampler_s[0]:.3f} s = "
+        f"{sampler_s[0] / VIT_EVAL_STEPS * 1e3:.2f} ms a step, "
+        f"{VIT_EVAL_BATCH / sampler_s[0]:.3f} images/s; images std "
+        f"{imgs.std():.3f}")
+
+    # kernel path against plain path, one forward in f32 and in bf16
+    params = {k: v.detach().cpu() for k, v in out["state"].model.state_dict(
+    ).items()}
+    del out
+    gen = torch.Generator(device=dev).manual_seed(51)
+    x = torch.randn((VIT_EVAL_BATCH, size, size, 3), generator=gen,
+                    device=dev)
+    t = torch.linspace(0, cfg.diffusion.T - 1, VIT_EVAL_BATCH,
+                       device=dev).round().long()
+    f32_launches = None
+    for dtype in ("float32", "bfloat16"):
+        outs = {}
+        for impl in ("auto", "xla"):
+            m, _ = runner.build_model(vit_config(
+                tmpdir, f"model.dtype={dtype}",
+                f"model.attention_impl={impl}"))
+            m.load_state_dict(params)
+            m.to(dev).eval()
+            reset_launches()
+            with torch.inference_mode():
+                outs[impl] = m(x, t)
+            torch.cuda.synchronize()
+            n = read_launches()
+            if impl == "auto":
+                want = route_counts(fwd=depth, fwd_mma=depth * (
+                    dtype == "bfloat16"))
+                if n != want:
+                    fail(f"ViT {dtype} kernel path launched {n}")
+                if dtype == "float32":
+                    f32_launches = n
+            elif sum(n.values()):
+                fail(f"ViT {dtype} plain path launched {n}")
+        err = (outs["auto"] - outs["xla"]).abs().max().item()
+        ok = np.isfinite(err) and err <= VIT_EPS_TOL[dtype]
+        log(f"ViT path parity {dtype}: max_abs_err {err:.3g} (tol "
+            f"{VIT_EPS_TOL[dtype]}), max |plain| "
+            f"{outs['xla'].abs().max().item():.3f} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"ViT path parity {dtype}: {err:.3g}")
+    phase_done(20, "ViT backbone (train, eval)", t0)
+    return {"vit_train": launches, "vit_eval": eval_launches}, f32_launches
+
+
 def cuda_tests():
     """Phase 8: the CUDA tests in a subprocess, against the library that
     phase 1 built (the same sources hash to the same build directory)."""
@@ -3366,8 +3884,9 @@ def cuda_tests():
 
 
 # The paths whose launches the kernels' JSON line carries: the bf16 runs of
-# runner.evaluate, runner.train, runner.run_search and the tracked entry
-# points (phases 3, 7, 9, 12, 13, 15 and 17).
+# runner.evaluate, runner.train, runner.run_search, the tracked entry
+# points, finetune-t and the ViT's train and eval (phases 3, 7, 9, 12, 13,
+# 15, 17, 19 and 20).
 MAIN_PATHS = ("eval", "train", "cfg_eval", "cfg_interval_eval", "auto_eval",
               "cond_train", "ddim_eval", "ddim_eta1_eval", "dpm_eval",
               "restart_eval", "picard_eval",
@@ -3378,7 +3897,8 @@ MAIN_PATHS = ("eval", "train", "cfg_eval", "cfg_interval_eval", "auto_eval",
               "cfg_search_random", "cfg_search_pruned",
               "cfg_search_gradient_dpm", "tracked_inference_metrics",
               "tracked_train", "cfg_tracked_inference_metrics",
-              "search_ensemble", "search_clip")
+              "search_ensemble", "search_clip", "finetune", "finetune_eval",
+              "finetune_surgery_eval", "vit_train", "vit_eval")
 WORK = {"train": "one train step of configs/cifar10_uncond.yaml (batch 128, "
                  "bf16)",
         "cond_train": "one train step of configs/cifar10_cfg.yaml (batch "
@@ -3436,7 +3956,7 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
                                      "flash_bwd_dkv_simt"):
             launches = f32_launches[name]
             counted_on = ("f32 kernel paths of phases 4, 6, 10, 11, 14, 16, "
-                          "18")
+                          "18, 20")
         if not launches:
             fail(f"{name} was not launched on its paths")
         entry = dict(name=name, route="cuda", source=source,
@@ -3485,6 +4005,16 @@ def main() -> int:
             (2 * CFG_BATCH, CFG_BATCH, ccfg.train.batch_size,
              2 * FAST_STEPS * CFG_BATCH, 2 * CFG_SEARCH_N * CFG_BATCH,
              2 * CFG_SEARCH_KEEP * CFG_BATCH, 2 * TRACKED_BATCH))
+        # the fine-tune's shapes (the flagship at batch FT_BATCH, 256x256) and
+        # the ViT's (heads folded into the batch)
+        ft_params = seeded_params(ft_config(tmpdir,
+                                            f"diffusion.T={FT_OLD_T}"))
+        (ft_shapes,) = path_shapes(
+            ft_config(tmpdir, f"diffusion.T={FT_OLD_T}"), ft_params, dev,
+            (FT_BATCH,))
+        vcfg = vit_config(tmpdir)
+        vit_train_shapes = vit_attention_shapes(vcfg, VIT_BATCH)
+        vit_eval_shapes = vit_attention_shapes(vcfg, VIT_EVAL_BATCH)
         from itsd_tpu_torch.kernels import attention
         fwd_routes = collections.Counter(
             attention.route(torch.bfloat16, C, "forward")
@@ -3497,10 +4027,10 @@ def main() -> int:
                  f"{CFG_PER_FORWARD}")
         timer = DeviceTimer()
         fwd = check_forward_kernels({
-            "eval": (eval_shapes, 50, False),
+            "eval": (eval_shapes, 20, False),
             "train": (train_shapes, 10, True),
-            "cfg_eval": (cfg_shapes, 50, False),
-            "cfg_eval_b8": (cfg_b8_shapes, 50, False),
+            "cfg_eval": (cfg_shapes, 20, False),
+            "cfg_eval_b8": (cfg_b8_shapes, 20, False),
             "cond_train": (cond_shapes, 10, True),
             "picard": (picard_shapes, 5, False),
             "cfg_picard": (cfg_picard_shapes, 5, False),
@@ -3509,7 +4039,10 @@ def main() -> int:
             "cfg_search_pruned": (cfg_pruned_shapes, 5, False),
             "tracked": (tracked_shapes, 10, False),
             "cfg_tracked": (cfg_tracked_shapes, 5, False),
-            "flagship": (FLAGSHIP_ATTENTION, 10, True)}, dev, timer)
+            "flagship": (FLAGSHIP_ATTENTION, 10, True),
+            "finetune": (ft_shapes, 1, True),
+            "vit_train": (vit_train_shapes, 10, True),
+            "vit_eval": (vit_eval_shapes, 10, False)}, dev, timer)
         # the attention batches phase 2 held, for phase 15's search runs
         held = {model: {B for _, attn in paths for B, _, _ in attn}
                 for model, paths in (
@@ -3528,7 +4061,11 @@ def main() -> int:
             "cond_train": (cond_shapes, []),
             "grad_search": (([], eval_shapes[1]), []),
             "cfg_grad_search": (([], cfg_shapes[1]), []),
-            "flagship": (FLAGSHIP_ATTENTION, [])}, dev, timer)
+            "flagship": (FLAGSHIP_ATTENTION, []),
+            # attention only: the fine-tune's GroupNorm backward (a plain
+            # recompute, no kernel) is timed whole in phase 19's profile
+            "finetune": (([], ft_shapes[1]), [], 1),
+            "vit_train": (vit_train_shapes, [])}, dev, timer)
         f32.append(train_parity(tmpdir)[1])
         paths["train"], _ = train_path(tmpdir, smi_line)
         guided, _ = guided_eval_path(cparams, tmpdir, smi_line)
@@ -3548,6 +4085,11 @@ def main() -> int:
         paths.update(tracked)
         f32.append(tracked_parity(params, clf, clip_path, tmpdir))
         del params, cparams
+        paths.update(finetune_path(ft_params, ft_shapes, tmpdir, smi_line))
+        del ft_params
+        vit, vit_f32 = vit_path(tmpdir, smi_line)
+        paths.update(vit)
+        f32.append(vit_f32)
         paths["cond_train"] = cond_train_path(tmpdir, smi_line)
     cuda_tests()
     f32_launches = {k: sum(n[k] for n in f32) for k in f32[0]}

@@ -1,13 +1,14 @@
 """Command line of the port.
 
 Usage:
-    python -m itsd_tpu_torch.cli.main {train|eval|search|inference-metrics}
+    python -m itsd_tpu_torch.cli.main
+        {train|eval|search|finetune-t|inference-metrics}
         [--config c.yaml] [--device cuda] [key=value ...]
 
 Overrides take dotted keys (``diffusion.T=50``) and the reference's flat keys
-(``T=50``, ``channel_mult=[1,2]``), as the JAX package's CLI. The other
-subcommand of that CLI (``finetune-t``), and the options that are not yet
-ported, exit with status 2 and say so.
+(``T=50``, ``channel_mult=[1,2]``), as the JAX package's CLI. The options
+that are not yet ported (the multi-device ones) exit with status 2 and say
+so.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ import sys
 from ..utils import load_config, to_dict
 
 COMMANDS = ["train", "eval", "search", "finetune-t", "inference-metrics"]
-PORTED = ("train", "eval", "search", "inference-metrics")
 
 
 def _parse(argv):
@@ -35,10 +35,6 @@ def _parse(argv):
 
 def main(argv=None) -> int:
     args = _parse(argv if argv is not None else sys.argv[1:])
-    if args.command not in PORTED:
-        print(f"[itsd_tpu_torch] {args.command}: not yet ported",
-              file=sys.stderr)
-        return 2
     cfg = load_config(args.config, args.overrides)
     print(f"[itsd_tpu_torch] {args.command} on {args.device} with config:")
     print(to_dict(cfg))
@@ -52,6 +48,10 @@ def main(argv=None) -> int:
         elif args.command == "eval":
             out = runner.evaluate(cfg, device=args.device)
             print(f"sampled grid: {out['path']}")
+        elif args.command == "finetune-t":
+            out = runner.finetune_extended_T(cfg, device=args.device)
+            print(f"final loss: {out['final_loss']} "
+                  f"(ckpt T detected: {out['ckpt_T_detected']})")
         elif args.command == "inference-metrics":
             out = runner.inference_metrics(cfg, device=args.device)
             print(f"tracked {len(out['history'])} metric points; the last "

@@ -1,5 +1,5 @@
 """End-to-end pipelines of the port: ``train``, ``evaluate``,
-``inference_metrics`` and ``run_search``.
+``inference_metrics``, ``run_search`` and ``finetune_extended_T``.
 
 Counterpart of ``itsd_tpu/cli/runner.py`` (``build_model``,
 ``build_schedule``, ``load_dataset`` and ``init_params`` at 49-135,
@@ -10,11 +10,17 @@ Counterpart of ``itsd_tpu/cli/runner.py`` (``build_model``,
 ``_sample_grid_during_training`` 639-662, ``evaluate`` 668-712,
 ``compute_real_features``, ``resolve_is_logit_fn``,
 ``sample_with_metrics`` and ``inference_metrics`` 715-922,
-``build_cli_verifier`` 927-1007 and ``run_search`` 1010-1338), with the
-conditional model, classifier-free guidance, autoguidance, every sampler,
-noise search and FID / IS / CLIP tracking. Spatial meshes, profiling,
-representation extraction, the cross-T surgery of a table time embedding
-and the T-extension fine-tune are not yet ported and raise.
+``build_cli_verifier`` 927-1007, ``run_search`` 1010-1338 and
+``finetune_extended_T`` 1345-1405), with the UNet (unconditional and
+conditional) and the ViT, classifier-free guidance, autoguidance, every
+sampler, noise search, FID / IS / CLIP tracking, the cross-T surgery of a
+table time embedding, representation extraction and profiling. Spatial
+meshes (``train.spatial_shard``) are not yet ported and raise.
+
+Unlike JAX's, the model that samples is built with the time-table rows
+it samples (``build_model(cfg, inference=True)``), so that a checkpoint
+extended to ``inference_T`` loads into it: JAX builds the table from
+``diffusion.T`` and fails there (ROADMAP.md, Queue 3).
 
 Unlike JAX's, the metric-tracked path swallows no error of a metric: a
 metric is NaN only when its extractor or its real features are absent.
@@ -24,7 +30,6 @@ Entry points run on ``device="cuda"`` unless the caller passes another.
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import json
 import os
@@ -44,38 +49,47 @@ from ..data import (BatchIterator, load_cifar10, load_image_folder,
                     threaded_prefetch)
 from ..metrics.frechet import frechet_from, gaussian_stats
 from ..metrics.is_score import inception_score_from_probs, softmax_probs
-from ..models import UNet, cond_unet_config, uncond_unet_config
+from ..models import (UNet, ViT, ViTConfig, cond_unet_config,
+                      uncond_unet_config)
 from ..train import (OptimizerConfig, create_train_state, make_optimizer,
                      make_train_step)
 from ..train.checkpoint import (AsyncCheckpointManager, is_full_checkpoint,
-                                restore_params, save_checkpoint)
+                                restore_params, save_checkpoint,
+                                save_params)
+from ..train.surgery import (detect_checkpoint_T, extend_time_embedding,
+                             freeze_except_time_embedding)
 from ..utils import Config, MetricsLogger, save_image_grid
 from ..utils.plotting import plot_loss_curve, plot_metrics_curves
+from ..utils.profiling import trace_steps
 
 
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not yet ported")
 
 
-def build_model(cfg: Config):
-    """(model, conditional) for ``cfg.model``: the unconditional UNet, or
-    the conditional one when ``model.num_labels`` is set (its table time
-    embedding has ``diffusion.T`` rows, unless ``model.time_embed`` is
-    "functional"). Sampling a table embedding at another ``inference_T``
-    needs the cross-T surgery, which is not yet ported: that raises here,
-    from the config alone."""
+def build_model(cfg: Config, inference: bool = False):
+    """(model, conditional) for ``cfg.model``: the ViT
+    (``model.backbone=vit``, unconditional), the unconditional UNet, or
+    the conditional one when ``model.num_labels`` is set. A table time
+    embedding has ``diffusion.T`` rows, or with ``inference`` the rows the
+    sampler walks, ``inference_T or T``; ``load_weights`` extends a
+    checkpoint's table to them."""
     m, d = cfg.model, cfg.diffusion
+    if m.backbone == "vit":
+        return ViT(ViTConfig(
+            img_size=cfg.data.img_size, patch_size=m.patch_size,
+            embed_dim=m.embed_dim, depth=m.depth, num_heads=m.num_heads,
+            mlp_ratio=m.mlp_ratio, dropout=m.dropout,
+            attention_impl=m.attention_impl, dtype=m.dtype,
+            remat=m.remat)), False
     if m.backbone != "unet":
-        raise _not_ported(f"model.backbone={m.backbone!r}")
-    if m.remat:
-        raise _not_ported("model.remat")
-    if m.time_embed == "table" and d.inference_T and d.inference_T != d.T:
-        raise _not_ported(
-            f"diffusion.inference_T={d.inference_T} with the table time "
-            f"embedding of T={d.T} rows (the cross-T surgery)")
+        raise ValueError(f"unknown model.backbone {m.backbone!r}; expected "
+                         "unet | vit")
+    T = (d.inference_T or d.T) if inference else d.T
     kw = dict(ch=m.channel, ch_mult=tuple(m.channel_mult),
-              num_res_blocks=m.num_res_blocks, dropout=m.dropout, T=d.T,
-              dtype=m.dtype, attention_impl=m.attention_impl)
+              num_res_blocks=m.num_res_blocks, dropout=m.dropout, T=T,
+              dtype=m.dtype, attention_impl=m.attention_impl,
+              remat=m.remat)
     conditional = m.num_labels is not None
     if conditional:
         ucfg = cond_unet_config(num_labels=m.num_labels, **kw)
@@ -93,7 +107,7 @@ def build_schedule(cfg: Config, inference: bool = False, device="cuda"):
     return linear_schedule(d.beta_1, d.beta_T, T, device=device)
 
 
-def init_params(cfg: Config, model: UNet) -> dict:
+def init_params(cfg: Config, model) -> dict:
     """Seeded Xavier-uniform weights for ``model`` (drawn on the CPU from
     ``cfg.seed``, so every device gets the same weights); returns its state
     dict."""
@@ -141,17 +155,19 @@ def load_eval_params(cfg: Config, name: Optional[str] = None) -> dict:
     return obj
 
 
-def load_weights(cfg: Config, model: UNet, params: dict) -> None:
-    """``model.load_state_dict(params)``, after checking that a table time
-    embedding in ``params`` has the rows the T wanted needs. A checkpoint
-    of another T needs the cross-T surgery (JAX's ``load_eval_params``
-    extends the table), which is not yet ported: that raises."""
-    table = params.get("time_embedding.table")
-    want_T = cfg.diffusion.inference_T or cfg.diffusion.T
-    if table is not None and table.shape[0] != want_T:
-        raise _not_ported(
-            f"a checkpoint whose time table has {table.shape[0]} rows, "
-            f"sampled at T={want_T} (the cross-T surgery)")
+def load_weights(cfg: Config, model, params: dict) -> None:
+    """``model.load_state_dict(params)``, after the cross-T surgery where
+    the checkpoint's time table has other rows than the model's:
+    ``extend_time_embedding`` with ``train.time_embedding_strategy``, as
+    JAX's ``load_eval_params``. The check reads the checkpoint's table,
+    not the config. A model built to sample
+    (``build_model(cfg, inference=True)``) has ``inference_T or T``
+    rows."""
+    table = getattr(getattr(model, "time_embedding", None), "table", None)
+    if table is not None:
+        params = extend_time_embedding(
+            params, table.shape[0],
+            strategy=cfg.train.time_embedding_strategy)
     model.load_state_dict(params)
 
 
@@ -210,7 +226,7 @@ def sampling_eps_fn(cfg: Config, model: UNet, conditional: bool,
         labels = torch.arange(batch, device=device) % cfg.model.num_labels + 1
     weak = None
     if weak_params is not None:
-        weak, _ = build_model(cfg)
+        weak, _ = build_model(cfg, inference=True)
         load_weights(cfg, weak, weak_params)
         weak.to(device).eval().requires_grad_(False)
     d = cfg.diffusion
@@ -305,7 +321,7 @@ def evaluate(cfg: Config, params=None, device="cuda") -> dict:
     _validated_launch_segments(cfg)
     if cfg.train.spatial_shard > 1:
         raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
-    model, conditional = build_model(cfg)
+    model, conditional = build_model(cfg, inference=True)
     weak = load_weak_params(cfg, conditional) if conditional else None
     if params is None:
         params = load_eval_params(cfg)
@@ -453,7 +469,7 @@ def sample_with_metrics(cfg: Config, params, feature_fn=None,
             "clear restart_intervals here.")
     if cfg.train.spatial_shard > 1:
         raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
-    model, conditional = build_model(cfg)
+    model, conditional = build_model(cfg, inference=True)
     weak = load_weak_params(cfg, conditional) if conditional else None
     load_weights(cfg, model, params)
     model.to(device).eval()
@@ -723,7 +739,7 @@ def run_search(cfg: Config, params=None, verifier_fn=None, device="cuda",
 
     if cfg.train.spatial_shard > 1:
         raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
-    model, conditional = build_model(cfg)
+    model, conditional = build_model(cfg, inference=True)
     weak = load_weak_params(cfg, conditional) if conditional else None
     if params is None:
         params = load_eval_params(cfg)
@@ -898,17 +914,6 @@ def resolve_track_metrics(cfg: Config) -> bool:
     return bool(t)
 
 
-def _check_train_options(cfg: Config) -> None:
-    t = cfg.train
-    if t.spatial_shard > 1:
-        raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
-    if t.profile_steps > 0:
-        raise _not_ported("train.profile_steps > 0 (profiling)")
-    if t.extract_representation_freq:
-        raise _not_ported("train.extract_representation_freq "
-                          "(representation extraction)")
-
-
 def train(cfg: Config, max_steps: Optional[int] = None,
           device="cuda") -> dict:
     """The training loop: ``cfg.train.epoch`` epochs (or ``max_steps``
@@ -920,10 +925,23 @@ def train(cfg: Config, max_steps: Optional[int] = None,
     EMA weights: with tracked metrics (``resolve_track_metrics``)
     ``sample_with_metrics`` against a held-out val split, logging
     ``eval_fid``, ``eval_is`` and ``eval_clip``; else a grid
-    ``epoch_{epoch}_sampled.png`` under ``sampled_dir``. Returns the final
-    loss, the step count, the checkpoint paths, the per-step losses, the
-    metric histories and the ``TrainState``."""
-    _check_train_options(cfg)
+    ``epoch_{epoch}_sampled.png`` under ``sampled_dir``.
+
+    The conditional model's representations (``train.
+    extract_representation_freq``): every that many batches of an epoch,
+    the post-step weights' activation before ``tail_norm`` on the batch at
+    t = T // 2 and labels + 1 (deterministic), averaged over the pixels;
+    kept on the device and, with ``train.save_representations``, written
+    once an epoch to ``save_weight_dir/representations/epoch_{e}.npz``
+    (``representations`` [n, C] float32, ``labels`` [n]). With
+    ``train.profile_steps`` = n the first n steps are traced into
+    ``metrics_save_dir/trace/trace.json`` (``utils.profiling``).
+
+    Returns the final loss, the step count, the checkpoint paths, the
+    per-step losses, the metric histories, the trace's path (or None) and
+    the ``TrainState``."""
+    if cfg.train.spatial_shard > 1:
+        raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
     model, conditional = build_model(cfg)
     weak = load_weak_params(cfg, conditional) if conditional else None
     sched = build_schedule(cfg, device=device)
@@ -964,15 +982,32 @@ def train(cfg: Config, max_steps: Optional[int] = None,
     prefetch = (threaded_prefetch if cfg.train.threaded_input
                 else prefetch_to_device)
     ckpt_mgr = AsyncCheckpointManager() if cfg.train.async_checkpoint else None
+    profiler = trace_steps(cfg.train.profile_steps,
+                           os.path.join(cfg.metrics_save_dir, "trace"))
+    extract_freq = cfg.train.extract_representation_freq if conditional \
+        else 0
     losses, ckpts, step, t0 = [], [], 0, time.time()
     metrics_history = []
     for epoch in range(cfg.train.epoch):
         metrics = []  # device scalars: synced once an epoch, not a step
-        for batch in prefetch(it, size=2, device=device):
-            metrics.append(step_fn(state, batch, generator))
+        reps = []     # (representations, labels) on the device
+        for batch_i, batch in enumerate(prefetch(it, size=2,
+                                                 device=device)):
+            with profiler.step():
+                metrics.append(step_fn(state, batch, generator))
             step += 1
+            if extract_freq and batch_i % extract_freq == 0:
+                reps.append(_representation(state.model, batch, sched.T))
             if max_steps is not None and step >= max_steps:
                 break
+        if reps and cfg.train.save_representations:
+            rep_dir = os.path.join(cfg.save_weight_dir, "representations")
+            os.makedirs(rep_dir, exist_ok=True)
+            np.savez(os.path.join(rep_dir, f"epoch_{epoch}.npz"),
+                     representations=torch.cat([r for r, _ in reps])
+                     .cpu().numpy(),
+                     labels=torch.cat([lab for _, lab in reps])
+                     .cpu().numpy())
         if metrics:
             loss_v, norm_v = torch.stack(
                 [torch.stack([m["loss"], m["grad_norm"]]) for m in metrics]
@@ -1011,13 +1046,27 @@ def train(cfg: Config, max_steps: Optional[int] = None,
             break
     if ckpt_mgr is not None:
         ckpt_mgr.close()
+    profiler.close()
     if losses:
         plot_loss_curve(losses, os.path.join(cfg.metrics_save_dir,
                                              "loss_curve.png"))
     logger.close()
     return {"final_loss": losses[-1] if losses else None, "steps": step,
             "checkpoints": ckpts, "losses": losses, "state": state,
-            "metrics_history": metrics_history}
+            "metrics_history": metrics_history, "trace": profiler.path}
+
+
+def _representation(model, batch: dict, T: int):
+    """(the activation before ``tail_norm`` averaged over the pixels,
+    [B, C] float32; the batch's labels) of the conditional ``model`` on
+    ``batch`` at t = T // 2 and labels + 1, deterministic, without a
+    gradient: JAX's ``repr_fn`` hook."""
+    x, labels = batch["image"], batch["label"]
+    t = torch.full((x.shape[0],), T // 2, dtype=torch.int64,
+                   device=x.device)
+    with torch.no_grad():
+        _, rep = model(x, t, labels.long() + 1, return_representation=True)
+    return rep.float().mean(dim=(1, 2)), labels
 
 
 def _tracked_eval_setup(cfg: Config, images, labels, device):
@@ -1062,9 +1111,9 @@ def _sample_grid_during_training(cfg: Config, state, epoch: int,
     ``sampled_dir/epoch_{epoch}_sampled.png``."""
     sched = build_schedule(cfg, inference=True, device=device)
     eval_bs = cfg.train.eval_batch_size or min(cfg.train.batch_size, 64)
-    model = copy.deepcopy(state.model)
-    model.load_state_dict(state.ema_state_dict())
-    model.eval()
+    model, _ = build_model(cfg, inference=True)
+    load_weights(cfg, model, state.ema_state_dict())
+    model.to(device).eval()
     gen = torch.Generator(device=device).manual_seed(
         cfg.seed * 1_000_003 + epoch + 1)
     size = cfg.data.img_size
@@ -1080,5 +1129,64 @@ def _sample_grid_during_training(cfg: Config, state, epoch: int,
 
 def finetune_extended_T(cfg: Config, max_steps: Optional[int] = None,
                         device="cuda") -> dict:
-    raise _not_ported("finetune-t (the T-extension fine-tune and its "
-                      "time-embedding surgery)")
+    """The T-extension fine-tune: load ``test_load_weight`` (a full
+    checkpoint's EMA weights, else its weights, or a weights-only state
+    dict), extend its time table to ``diffusion.T``
+    (``train.time_embedding_strategy``), freeze every parameter outside the
+    time embedding and train the time embedding alone at
+    ``train.fine_tune_lr``, with train's loss options and no EMA, for
+    ``train.epoch`` epochs (or ``max_steps`` steps). After each epoch the
+    weights-only checkpoint ``fine_tuned_T{T}_epoch_{e}`` is written under
+    ``save_weight_dir``. Returns ``final_loss``, the per-step ``losses``,
+    the ``steps``, the ``checkpoints``, the ``TrainState`` and
+    ``ckpt_T_detected`` (the checkpoint's table rows, None for a
+    functional embedding)."""
+    if cfg.train.spatial_shard > 1:
+        raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
+    model, conditional = build_model(cfg)
+    sched = build_schedule(cfg, device=device)
+    params = load_eval_params(cfg)
+    ckpt_T = detect_checkpoint_T(params)
+    load_weights(cfg, model, params)
+    del params
+    model.to(device)
+    images, labels = load_dataset(cfg)
+    it = BatchIterator(images, labels if conditional else None,
+                       cfg.train.batch_size, seed=cfg.data.seed)
+    if len(it) == 0:
+        raise ValueError(
+            f"train.batch_size={cfg.train.batch_size} exceeds the dataset "
+            f"({len(images)} images): no full batch can be formed")
+    tx = make_optimizer(OptimizerConfig(
+        lr=cfg.train.fine_tune_lr, weight_decay=cfg.train.weight_decay,
+        grad_clip=cfg.train.grad_clip, multiplier=cfg.train.multiplier,
+        epochs=cfg.train.epoch, steps_per_epoch=len(it), ema_decay=None),
+        freeze_except_time_embedding(model))
+    state = create_train_state(model, tx, ema=False)
+    step_fn = make_train_step(
+        sched, conditional=conditional, ema_decay=None,
+        loss_reduction=cfg.train.loss_reduction,
+        loss_weighting=cfg.train.loss_weighting,
+        snr_gamma=cfg.train.snr_gamma, label_dropout=cfg.train.label_dropout)
+    generator = make_train_key(cfg, device)
+    prefetch = (threaded_prefetch if cfg.train.threaded_input
+                else prefetch_to_device)
+    losses, ckpts, step = [], [], 0
+    for epoch in range(cfg.train.epoch):
+        epoch_losses = []  # device scalars: synced once an epoch
+        for batch in prefetch(it, size=2, device=device):
+            epoch_losses.append(step_fn(state, batch, generator)["loss"])
+            step += 1
+            if max_steps is not None and step >= max_steps:
+                break
+        if epoch_losses:
+            losses.extend(torch.stack(epoch_losses).float().cpu().tolist())
+        path = os.path.join(cfg.save_weight_dir,
+                            f"fine_tuned_T{cfg.diffusion.T}_epoch_{epoch}")
+        save_params(path, model.state_dict())
+        ckpts.append(path)
+        if max_steps is not None and step >= max_steps:
+            break
+    return {"final_loss": losses[-1] if losses else None, "losses": losses,
+            "steps": step, "checkpoints": ckpts, "state": state,
+            "ckpt_T_detected": ckpt_T}

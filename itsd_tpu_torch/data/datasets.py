@@ -7,9 +7,9 @@ by ``prefetch_to_device`` or ``threaded_prefetch``. ``synthetic_dataset``
 and ``shapes_dataset`` are numpy-only copies of the JAX package's, so the
 same seed gives the same images. ``load_cifar10`` reads the standard
 ``cifar-10-batches-py`` pickles (or their ``.tar.gz``) with the standard
-library alone.
-
-``load_image_folder`` is not yet ported: it needs Pillow.
+library alone. ``load_image_folder`` reads a class-per-directory image
+tree through Pillow, imported when it is called (the card's machine has
+none, and there it raises ImportError).
 """
 
 from __future__ import annotations
@@ -60,12 +60,6 @@ class BatchIterator:
             yield batch
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not yet ported (it reads a dataset from disk; use "
-        "data.dataset=shapes or synthetic)")
-
-
 def load_cifar10(root: str, train: bool = True,
                  subset_ratio: Optional[float] = None,
                  seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
@@ -103,9 +97,55 @@ def load_cifar10(root: str, train: bool = True,
     return x, y.astype(np.int32)
 
 
-def load_image_folder(root: str, img_size: int = 256, subset_ratio=None,
-                      seed: int = 0, max_images=None):
-    raise _not_ported("load_image_folder")
+def load_image_folder(root: str, img_size: int = 256,
+                      subset_ratio: Optional[float] = None, seed: int = 0,
+                      max_images: Optional[int] = None
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """A class-per-subdirectory image tree -> (images [N, S, S, 3] in
+    [-1, 1], labels [N] int32), as ``itsd_tpu/data/datasets.py:
+    load_image_folder``: classes in sorted order, the files of each
+    (.png, .jpg, .jpeg, .bmp, .webp) in sorted order, a seeded subset of
+    ``subset_ratio``, then the first ``max_images``; each image resized so
+    that its shorter side is ``img_size``, then cropped at the centre.
+    Needs Pillow, imported here: without it this raises ImportError."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("load_image_folder needs Pillow (PIL), which is "
+                          "not installed") from e
+
+    classes = sorted(d for d in os.listdir(root)
+                     if os.path.isdir(os.path.join(root, d)))
+    paths, labels = [], []
+    for ci, c in enumerate(classes):
+        cdir = os.path.join(root, c)
+        for f in sorted(os.listdir(cdir)):
+            if f.lower().endswith((".png", ".jpg", ".jpeg", ".bmp", ".webp")):
+                paths.append(os.path.join(cdir, f))
+                labels.append(ci)
+    paths = np.asarray(paths)
+    labels = np.asarray(labels, dtype=np.int32)
+    if subset_ratio is not None and subset_ratio < 1.0:
+        n = max(1, int(len(paths) * subset_ratio))
+        idx = np.random.default_rng(seed).permutation(len(paths))[:n]
+        paths, labels = paths[idx], labels[idx]
+    if max_images is not None:
+        paths, labels = paths[:max_images], labels[:max_images]
+
+    imgs = np.empty((len(paths), img_size, img_size, 3), dtype=np.float32)
+    for i, p in enumerate(paths):
+        with Image.open(p) as src:
+            im = src.convert("RGB")
+        w, h = im.size
+        scale = img_size / min(w, h)
+        im = im.resize((max(img_size, int(round(w * scale))),
+                        max(img_size, int(round(h * scale)))))
+        w, h = im.size
+        left, top = (w - img_size) // 2, (h - img_size) // 2
+        im = im.crop((left, top, left + img_size, top + img_size))
+        u8 = np.asarray(im, dtype=np.uint8)
+        imgs[i] = (u8.astype(np.float32) / 255.0) * 2.0 - 1.0
+    return imgs, labels
 
 
 def _put_batch(batch: dict, device) -> dict:

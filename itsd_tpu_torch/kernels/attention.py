@@ -29,9 +29,17 @@ plain versions, CUDA tensors to the kernels, and anything the kernels do not
 take raises. A failed build or launch raises; nothing gives way to another
 route. Every kernel puts the batch in ``gridDim.y``, which CUDA caps at
 65,535, so a larger batch raises (``check_batch``) before any launch.
+
+``spatial_attention`` also takes the model's ``attention_impl``: "auto"
+(unless ``ITSD_ATTN_IMPL`` says otherwise) and "flash" take the path above;
+"xla" takes the plain version on any device, and only when asked for;
+"ring" is not yet ported. ``mha_attention`` folds the heads of
+multi-head attention into the batch, as the ViT needs.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -357,16 +365,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FlashAttention.apply(q, k, v, scale)
 
 
-def spatial_attention(q: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor) -> torch.Tensor:
+IMPLS = ("auto", "flash", "xla", "ring")
+
+
+def resolve_impl(impl: str = "auto") -> str:
+    """The path of an attention call: ``impl`` as given ("flash": the
+    kernels on CUDA tensors; "xla": the plain version, at the user's
+    explicit request only; "ring": the sequence-sharded path), or for
+    "auto" the environment's ``ITSD_ATTN_IMPL`` (default "auto", which
+    takes the kernels), as ``itsd_tpu/kernels/attention.py:spatial_attention``
+    reads it. "ring" raises: it is not yet ported."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl: {impl!r}; expected one "
+                         f"of {IMPLS}")
+    if impl == "auto":
+        impl = os.environ.get("ITSD_ATTN_IMPL", "auto")
+        if impl not in IMPLS:
+            raise ValueError(f"unknown ITSD_ATTN_IMPL={impl!r}; expected "
+                             f"one of {IMPLS}")
+    if impl == "ring":
+        raise NotImplementedError(
+            "attention_impl=ring (sequence-sharded attention) is not yet "
+            "ported")
+    return "xla" if impl == "xla" else "flash"
+
+
+def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      impl: str = "auto") -> torch.Tensor:
     """Single-head attention over ``[B, N, C]`` tokens with scale
-    ``C ** -0.5``, as the reference's AttnBlock. When a gradient is wanted
-    it goes through ``flash_attention``; otherwise through the forward
-    alone, without the lse."""
+    ``C ** -0.5``, as the reference's AttnBlock, on the path
+    ``resolve_impl(impl)`` names. On the kernels' path a wanted gradient
+    goes through ``flash_attention``; otherwise the forward runs alone,
+    without the lse. The plain path ("xla") is differentiable through
+    PyTorch's autograd."""
     scale = float(q.shape[-1]) ** -0.5
+    if resolve_impl(impl) == "xla":
+        return attention_plain(q, k, v, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return flash_attention(q, k, v, scale)[0]
     if _on_cpu(q):
         return attention_plain(q, k, v, scale)
     return _flash(q, k, v, scale, emit_lse=False)
+
+
+def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  impl: str = "auto") -> torch.Tensor:
+    """Multi-head attention, q, k, v ``[B, N, H, D]`` -> ``[B, N, H, D]``:
+    the heads folded into the batch (``[B*H, N, D]``), then
+    ``spatial_attention``, as ``itsd_tpu/kernels/attention.py:
+    mha_attention``."""
+    B, N, H, D = q.shape
+
+    def fold(x):
+        return x.transpose(1, 2).reshape(B * H, N, D)
+
+    out = spatial_attention(fold(q), fold(k), fold(v), impl=impl)
+    return out.reshape(B, H, N, D).transpose(1, 2)

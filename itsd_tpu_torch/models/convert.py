@@ -1,4 +1,4 @@
-"""JAX parameters -> state dicts for the port's UNet, SmallCNN,
+"""JAX parameters -> state dicts for the port's UNet, ViT, SmallCNN,
 Inception-V3 and CLIP.
 
 The inverse of the layout maps in ``itsd_tpu/models/torch_convert.py``,
@@ -10,7 +10,8 @@ written for the port's module names (which follow the Flax names):
   kernel itself to compute ``ConvTranspose2d`` (``itsd_tpu/models/
   unet.py:TorchConvTranspose2d``);
 * Dense kernels ``(in, out)`` -> ``(out, in)``;
-* GroupNorm ``scale``/``bias`` -> ``weight``/``bias``;
+* GroupNorm and LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
+* the ViT's ``pos_embed`` ``[1, N, E]`` as it is;
 * the embedding tables ``time_embedding/table`` and ``cond_embedding/table``
   as they are.
 
@@ -34,6 +35,7 @@ import torch
 
 from .classifier import ClassifierConfig, SmallCNN
 from .unet import UNet, UNetConfig
+from .vit import ViT, ViTConfig
 
 
 def _leaves(tree: Mapping, prefix=()):
@@ -48,6 +50,8 @@ def _leaves(tree: Mapping, prefix=()):
 def _torch_entry(path, arr):
     *mod, leaf = path
     base = ".".join(mod)
+    if path == ("pos_embed",):                  # the ViT's position table
+        return "pos_embed", arr
     if leaf == "kernel":
         if arr.ndim == 4 and mod[-1] == "t":    # transpose conv -> IOHW
             return f"{base}.weight", arr.transpose(2, 3, 0, 1)
@@ -56,7 +60,7 @@ def _torch_entry(path, arr):
         if arr.ndim == 2:                       # Dense (in, out) -> (out, in)
             return f"{base}.weight", arr.T
         raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
-    if leaf == "scale":                         # GroupNorm scale
+    if leaf == "scale":                         # GroupNorm, LayerNorm scale
         return f"{base}.weight", arr
     if leaf in ("bias", "table"):
         return f"{base}.{leaf}", arr
@@ -95,6 +99,13 @@ def params_from_jax(params: Mapping, cfg: UNetConfig) -> "OrderedDict":
     """Convert a Flax UNet parameter tree into the port's state dict
     (float32 CPU tensors)."""
     return _convert(params, expected_shapes(cfg), "params_from_jax")
+
+
+def vit_params_from_jax(params: Mapping, cfg: ViTConfig) -> "OrderedDict":
+    """Convert a Flax ViT parameter tree (``patch_embed``, ``pos_embed``,
+    ``time_embedding``, ``temb_proj``, ``block_{i}``, ``norm``, ``head``)
+    into the port's ViT state dict (float32 CPU tensors)."""
+    return _convert(params, expected_shapes(cfg, ViT), "vit_params_from_jax")
 
 
 def classifier_params_from_jax(params: Mapping,

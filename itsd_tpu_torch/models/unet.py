@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import spatial_attention
 from ..kernels.groupnorm import groupnorm_swish
@@ -51,8 +52,9 @@ class UNetConfig:
     up_attn: bool = True
     down_type: str = "conv"               # "conv" | "dual_conv"
     up_type: str = "nearest_conv"         # "nearest_conv" | "transpose_conv"
-    attention_impl: str = "auto"
+    attention_impl: str = "auto"          # "auto" | "flash" | "xla"
     dtype: str = "float32"                # compute dtype
+    remat: bool = False                   # recompute each ResBlock
 
     @property
     def tdim(self) -> int:
@@ -135,10 +137,12 @@ class GNAct(nn.Module):
 
 
 class AttnBlock(nn.Module):
-    """Single-head spatial self-attention with residual, scale C**-0.5."""
+    """Single-head spatial self-attention with residual, scale C**-0.5,
+    on the path ``impl`` names (``kernels.attention.resolve_impl``)."""
 
-    def __init__(self, ch: int):
+    def __init__(self, ch: int, impl: str = "auto"):
         super().__init__()
+        self.impl = impl
         self.norm = GNAct(ch, act=False)
         self.q = Dense(ch, ch)
         self.k = Dense(ch, ch)
@@ -149,7 +153,7 @@ class AttnBlock(nn.Module):
         B, C, H, W = x.shape
         h = self.norm(x).flatten(2).transpose(1, 2)       # [B, N, C] view
         o = spatial_attention(self.q(h).contiguous(), self.k(h).contiguous(),
-                              self.v(h).contiguous())
+                              self.v(h).contiguous(), impl=self.impl)
         o = self.proj(o)
         return x + o.transpose(1, 2).reshape(B, C, H, W)
 
@@ -166,12 +170,39 @@ def dropout(h: torch.Tensor, rate: float,
                                                    device=h.device))
 
 
+def rematerialized(fn, generator: Optional[torch.Generator], *args):
+    """``fn(*args, generator)`` under ``torch.utils.checkpoint``: its
+    activations are not kept but recomputed in the backward, as Flax's
+    ``nn.remat``. The recompute draws the same dropout masks: it sets
+    ``generator`` back to its state at this call for the recompute, and
+    then forward again to where the backward found it."""
+    if generator is None:
+        return checkpoint(fn, *args, None, use_reentrant=False)
+    start = generator.get_state()
+    calls = []
+
+    def run(*a):
+        calls.append(None)
+        if len(calls) == 1:
+            return fn(*a, generator)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*a, generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 class ResBlock(nn.Module):
     """GN -> swish -> conv3 -> +temb (+cemb) -> GN -> swish -> dropout ->
     conv3 -> +shortcut -> [attn]."""
 
     def __init__(self, in_ch: int, out_ch: int, tdim: int, attn: bool,
-                 dropout: float = 0.0, conditional: bool = False):
+                 dropout: float = 0.0, conditional: bool = False,
+                 attention_impl: str = "auto"):
         super().__init__()
         self.dropout_rate = dropout
         self.norm1 = GNAct(in_ch, act=True)
@@ -181,7 +212,7 @@ class ResBlock(nn.Module):
         self.norm2 = GNAct(out_ch, act=True)
         self.conv2 = Conv(out_ch, out_ch, 3, padding=1)
         self.shortcut = Dense1x1(in_ch, out_ch) if in_ch != out_ch else None
-        self.attn = AttnBlock(out_ch) if attn else None
+        self.attn = AttnBlock(out_ch, attention_impl) if attn else None
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor,
                 cemb: Optional[torch.Tensor] = None,
@@ -253,10 +284,13 @@ class UNet(nn.Module):
         super().__init__()
         if cfg.time_embed not in ("functional", "table"):
             raise ValueError(f"unknown time_embed {cfg.time_embed!r}")
-        if cfg.attention_impl != "auto":
+        if cfg.attention_impl == "ring":
             raise NotImplementedError(
-                f"attention_impl={cfg.attention_impl!r} is not yet ported "
-                "(the port picks the kernel from the tensors' device)")
+                "attention_impl='ring' (sequence-sharded attention) is not "
+                "yet ported")
+        if cfg.attention_impl not in ("auto", "flash", "xla"):
+            raise ValueError(
+                f"unknown attention_impl {cfg.attention_impl!r}")
         self.cfg = cfg
         ch = cfg.ch
         self.time_embedding = (
@@ -268,7 +302,8 @@ class UNet(nn.Module):
             if cfg.conditional else None)
         self.head = Conv(cfg.in_ch, ch, 3, padding=1)
         res = lambda cin, cout, attn: ResBlock(  # noqa: E731
-            cin, cout, cfg.tdim, attn, cfg.dropout, cfg.conditional)
+            cin, cout, cfg.tdim, attn, cfg.dropout, cfg.conditional,
+            cfg.attention_impl)
 
         # The same walk as the JAX UNet: ``plan`` lists the forward's steps.
         self.plan = []
@@ -332,7 +367,11 @@ class UNet(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """eps for ``x`` at ``t`` (and ``labels``, for the conditional
         model). Dropout runs only with ``deterministic=False`` in training
-        mode; ``generator`` draws its masks."""
+        mode; ``generator`` draws its masks. With ``cfg.remat`` and a
+        gradient wanted, each ResBlock is recomputed in the backward
+        (``rematerialized``). ``return_representation`` also returns the
+        activation before ``tail_norm`` ([B, H, W, C], compute dtype), the
+        hook of representation analysis."""
         deterministic = deterministic or not self.training
         dtype = self.cfg.torch_dtype
         h = x.to(dtype).permute(0, 3, 1, 2).contiguous()
@@ -344,13 +383,17 @@ class UNet(nn.Module):
             cemb = self.cond_embedding(labels, dtype)
         h = self.head(h)
         hs = [h]
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for name, kind in self.plan:
             block = getattr(self, name)
-            if kind == "up":
-                h = block(torch.cat([h, hs.pop()], dim=1), temb, cemb,
-                          deterministic, generator)
-            elif kind in ("down", "mid"):
-                h = block(h, temb, cemb, deterministic, generator)
+            if kind in ("down", "mid", "up"):
+                if kind == "up":
+                    h = torch.cat([h, hs.pop()], dim=1)
+                if remat:
+                    h = rematerialized(block, generator, h, temb, cemb,
+                                       deterministic)
+                else:
+                    h = block(h, temb, cemb, deterministic, generator)
             else:
                 h = block(h)
             if kind in ("down", "ds"):

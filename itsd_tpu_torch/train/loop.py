@@ -120,7 +120,10 @@ def make_train_step(sched: DiffusionSchedule, *, conditional: bool = False,
     the label-dropout uniforms and the dropout masks are drawn from
     ``generator`` in that order, unless t, the noise and the drop mask
     ``drop`` [B] bool are passed in (the tests pass JAX's). ``metrics``
-    holds the loss and the pre-clip gradient norm as device tensors."""
+    holds the loss and the pre-clip gradient norm as device tensors. The
+    step updates, clips and decays the optimizer's parameters only; the
+    norm is theirs (JAX's metric is over every gradient, which is the same
+    set unless the time-embedding fine-tune froze the rest)."""
     if loss_weighting not in ("none", "min_snr"):
         raise ValueError(f"unknown loss weighting: {loss_weighting!r}")
 
@@ -146,7 +149,9 @@ def make_train_step(sched: DiffusionSchedule, *, conditional: bool = False,
                 noise=None, drop=None) -> dict:
         model, tx = state.model, state.tx
         model.train()
-        params = [p for p in model.parameters()]
+        # the optimizer's parameters: all of them, or the time embedding's
+        # alone in the fine-tune (the others are frozen)
+        params = [p for g in tx.optimizer.param_groups for p in g["params"]]
         for p in params:
             p.grad = None
         loss = loss_fn(model, batch, generator, t, noise, drop)
@@ -161,7 +166,8 @@ def make_train_step(sched: DiffusionSchedule, *, conditional: bool = False,
         if state.ema is not None and ema_decay is not None:
             ema = list(state.ema.values())
             torch._foreach_mul_(ema, ema_decay)
-            torch._foreach_add_(ema, [p.detach() for p in params],
+            torch._foreach_add_(ema, [p.detach() for p in
+                                      model.parameters()],
                                 alpha=1.0 - ema_decay)
         state.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm}

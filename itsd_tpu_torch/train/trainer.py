@@ -2,8 +2,8 @@
 
 Counterpart of ``itsd_tpu/train/trainer.py``: a thin, stateful wrapper over
 the runner's pipelines, for interactive use: ``fit``, ``sample``,
-``search``, ``evaluate``, ``save`` and ``load``. The T-extension fine-tune
-is not yet ported and raises.
+``search``, ``evaluate``, ``save``, ``load`` and the T-extension fine-tune
+``finetune_extended_T``.
 """
 
 from __future__ import annotations
@@ -39,8 +39,13 @@ class Trainer:
         return out
 
     def finetune_extended_T(self, max_steps: Optional[int] = None) -> dict:
-        return self._runner.finetune_extended_T(self.cfg, max_steps=max_steps,
-                                                device=self.device)
+        """``runner.finetune_extended_T``; the trainer then holds the
+        fine-tuned state."""
+        out = self._runner.finetune_extended_T(self.cfg, max_steps=max_steps,
+                                               device=self.device)
+        self.state = out["state"]
+        self.model = self.state.model
+        return out
 
     # -- inference ---------------------------------------------------------
 
@@ -51,8 +56,8 @@ class Trainer:
         return self.state.ema_state_dict()
 
     def _eval_model(self):
-        model, _ = self._runner.build_model(self.cfg)
-        model.load_state_dict(self.params)
+        model, _ = self._runner.build_model(self.cfg, inference=True)
+        self._runner.load_weights(self.cfg, model, self.params)
         return model.to(self.device).eval()
 
     def sample(self, n: int, generator: Optional[torch.Generator] = None,

@@ -39,3 +39,34 @@ def flax_params(model, x, t, seed, labels=None):
         return (0.1 * rng.standard_normal(s.shape)).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def jax_train_draws(jcfg, steps, label_dropout):
+    """The (t, noise, label-dropout mask) JAX's train loop draws in its
+    first ``steps`` steps (``runner.make_train_key`` split once a step,
+    then into the dropout, t and label keys as ``make_train_step`` does),
+    on the batches its ``BatchIterator`` gives, as torch tensors for the
+    port's train step."""
+    from itsd_tpu.cli import runner as jax_runner
+    from itsd_tpu.core.process import diffusion_train_terms
+    from itsd_tpu.core.schedules import linear_schedule
+    from itsd_tpu.data import BatchIterator
+
+    images, labels = jax_runner.load_dataset(jcfg)
+    key = jax_runner.make_train_key(jcfg)
+    sched = linear_schedule(jcfg.diffusion.beta_1, jcfg.diffusion.beta_T,
+                            jcfg.diffusion.T)
+    batches = iter(BatchIterator(images, labels, jcfg.train.batch_size,
+                                 seed=jcfg.data.seed))
+    draws = []
+    for _ in range(steps):
+        key, skey = jax.random.split(key)
+        _, tkey, lkey = jax.random.split(skey, 3)
+        b = next(batches)
+        t, noise, _ = diffusion_train_terms(sched, tkey,
+                                            jnp.asarray(b["image"]))
+        drop = jax.random.uniform(lkey, b["label"].shape) < label_dropout
+        draws.append((torch.from_numpy(np.array(t)).long(),
+                      torch.from_numpy(np.array(noise)),
+                      torch.from_numpy(np.array(drop))))
+    return draws

@@ -29,7 +29,10 @@ batches (8 and the dual 16), its gradient through DPM-Solver++ and
 ``gradient_search`` itself over the remat'd ancestral chain, kernels
 against plain, with ``-k gradient_search``. The metric networks
 (Inception-V3 and CLIP, no kernel of ours) on the card against the same
-modules on the CPU: ``-k extractor``.
+modules on the CPU: ``-k extractor``. The ViT's multi-head attention (12
+heads of 64 folded into the batch: mma at C=64) and the ViT against its
+plain path: ``-k vit``; remat against no remat on the card: ``-k
+remat``.
 
 The backward kernels against ``attention_bwd_plain`` (the same formula and
 roundings): f32 2e-5 absolute on values O(1), sums in another order
@@ -764,7 +767,8 @@ def _plain_unet():
     return (mock.patch.object(unet, "groupnorm_swish",
                               groupnorm.groupnorm_swish_plain),
             mock.patch.object(unet, "spatial_attention",
-                              lambda q, k, v: attention.attention_plain(
+                              lambda q, k, v, impl="auto":
+                              attention.attention_plain(
                                   q, k, v, q.shape[-1] ** -0.5)))
 
 
@@ -1017,3 +1021,165 @@ def test_clip_extractor_on_the_card_matches_the_cpu(cuda_device, size):
         txt_card = card.text_features(ids.to(cuda_device))
     assert _rel_to_cpu(img_card, img_cpu) <= EXTRACTOR_REL_TOL
     assert _rel_to_cpu(txt_card, txt_cpu) <= EXTRACTOR_REL_TOL
+
+
+# The ViT-B/16's attention at 256x256 (256 tokens of 12 heads of width 64,
+# folded into the batch): the train batch 16 and the eval batch 8.
+VIT_ATTENTION = [(16 * 12, 256, 64), (8 * 12, 256, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,C", VIT_ATTENTION)
+def test_vit_attention_on_mma_at_c64(cuda_device, dtype, B, N, C):
+    """``mha_attention`` with a gradient, as a ViT block runs it: the
+    folded [B*H, N, 64] forward, dq and dk/dv on the route each dtype
+    takes (bf16: mma; f32: simt), against the plain versions of the same
+    formula on the folded tensors at the tolerances above (bf16: plus the
+    f32 summation-order bound of dq and dk; the backward from the kernel's
+    o and lse, as the autograd Function saved them), and the forward
+    without a gradient equal to the one with."""
+    H = 12
+    gen = torch.Generator(device=cuda_device).manual_seed(B + C)
+    q, k, v, do = (torch.randn((B // H, N, H, C), generator=gen,
+                               device=cuda_device).to(dtype)
+                   for _ in range(4))
+    which = attention.route(dtype, C, "forward")
+    assert which == ("mma" if dtype == torch.bfloat16 else "simt")
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    counts = _counts()
+    o = attention.mha_attention(*ins)
+    got = torch.autograd.grad(o, ins, do)
+    with torch.no_grad():
+        o_nograd = attention.mha_attention(q, k, v)
+    torch.cuda.synchronize()
+    mma = int(which == "mma")
+    assert _launched(counts) == (2, 2 * mma, 0, 1, mma, 0, 1, mma, 0)
+    assert torch.equal(o.detach(), o_nograd)
+
+    def fold(t):
+        return t.transpose(1, 2).reshape(B, N, C)
+
+    def unfold(t):
+        return t.reshape(B // H, H, N, C).transpose(1, 2)
+
+    fq, fk, fv, fdo = map(fold, (q, k, v, do))
+    scale = C ** -0.5
+    want_o, want_lse = attention.attention_plain_stats(fq, fk, fv, scale)
+    # the backward's inputs as the autograd Function saved them: the
+    # kernel's o and lse (deterministic: a relaunch gives the same bits)
+    ko, lse = attention.attention_with_lse(fq, fk, fv, scale)
+    assert torch.equal(unfold(ko), o.detach())
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
+    want = attention.attention_bwd_plain(fq, fk, fv, ko, lse, fdo, scale)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, unfold(want_o), atol=2e-5, rtol=0)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, unfold(w), atol=BWD_F32_TOL,
+                                       rtol=0)
+        return
+    _close_bf16(o, unfold(want_o), v)
+    bounds = (_dq_order_bound(fq, fk, fv, fdo, lse, scale),
+              _dk_order_bound(fq, fk, fv, fdo, lse, scale), 0.0)
+    for name, g, w, bound in zip(("dq", "dk", "dv"), got, want, bounds):
+        err = (fold(g).float() - w.float()).abs()
+        limit = (BF16_RTOL * w.float().abs().max()
+                 + BF16_RTOL * w.float().abs() + bound)
+        assert (err <= limit).all(), f"{name}: max err {err.max().item():.3g}"
+
+
+def _vit_cfg(dtype, **kw):
+    from itsd_tpu_torch.models import ViTConfig
+
+    return ViTConfig(img_size=64, patch_size=8, embed_dim=768, depth=2,
+                     num_heads=12, dtype=dtype, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vit_kernel_path_matches_plain_path(cuda_device, dtype):
+    """A ViT at ViT-B's width (768, 12 heads of 64; 2 blocks, 64 tokens)
+    through the kernels ("auto": one forward launch a block, on mma in
+    bf16) against the same weights through the plain path ("xla"):
+    1e-4 of the largest |eps| in f32, 0.05 in bf16 (a rounding to the
+    neighbouring bf16 value at the attention output moves every later
+    layer)."""
+    import dataclasses
+
+    from itsd_tpu_torch.models import ViT
+
+    cfg = _vit_cfg(dtype)
+    model = ViT(cfg)
+    model.init_weights(torch.Generator().manual_seed(4))
+    plain = ViT(dataclasses.replace(cfg, attention_impl="xla"))
+    plain.load_state_dict(model.state_dict())
+    model.to(cuda_device).eval()
+    plain.to(cuda_device).eval()
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((8, 64, 64, 3), generator=gen, device=cuda_device)
+    t = torch.tensor([0, 10, 100, 400, 600, 800, 900, 999],
+                     device=cuda_device)
+    counts = _counts()
+    with torch.no_grad():
+        got = model(x, t)
+        n = _launched(counts)
+        want = plain(x, t)
+    torch.cuda.synchronize()
+    assert n == (2, 2 * (dtype == "bfloat16"), 0, 0, 0, 0, 0, 0, 0)
+    assert _launched(counts) == n
+    tol = (1e-4 if dtype == "float32" else 0.05) * want.abs().max().item()
+    torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("backbone", ["unet", "vit"])
+def test_remat_gradient_on_the_card(cuda_device, backbone, dtype):
+    """The gradient of <eps, cot> through the remat'd model equals the one
+    without remat bit for bit under cuDNN's deterministic algorithms, with
+    dropout 0.3 whose masks come from one CUDA generator (the recompute
+    draws the same masks and leaves the generator where the forward did);
+    the remat'd backward reruns each block's forward (the attention
+    forward launches twice a call, dq and dk/dv once)."""
+    import dataclasses
+
+    from itsd_tpu_torch.models import UNet, ViT, uncond_unet_config
+
+    if backbone == "unet":
+        cfg = uncond_unet_config(ch=64, ch_mult=(1, 2), attn=(1,),
+                                 num_res_blocks=1, dropout=0.3, dtype=dtype)
+        build, S = UNet, 16
+    else:
+        cfg = dataclasses.replace(_vit_cfg(dtype), dropout=0.3)
+        build, S = ViT, 64
+    base = build(cfg)
+    base.init_weights(torch.Generator().manual_seed(6))
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn((4, S, S, 3), generator=gen, device=cuda_device)
+    t = torch.tensor([3, 300, 600, 900], device=cuda_device)
+    cot = torch.randn(x.shape, generator=gen, device=cuda_device)
+    grads, states, launched = {}, {}, {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            m = build(dataclasses.replace(cfg, remat=remat))
+            m.load_state_dict(base.state_dict())
+            m.to(cuda_device).train()
+            g = torch.Generator(device=cuda_device).manual_seed(8)
+            counts = _counts()
+            eps = m(x, t, deterministic=False, generator=g)
+            (eps * cot).sum().backward()
+            torch.cuda.synchronize()
+            launched[remat] = _launched(counts)
+            grads[remat] = {k: p.grad for k, p in m.named_parameters()}
+            states[remat] = g.get_state()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    calls = launched[False][0]
+    assert calls > 0 and launched[False][3] == launched[False][6] == calls
+    assert launched[True][0] == 2 * calls
+    assert launched[True][3:] == launched[False][3:]
+    assert torch.equal(states[True], states[False])
+    for k, g in grads[False].items():
+        assert torch.equal(grads[True][k], g), k

@@ -459,5 +459,4 @@ def test_cond_config_fields_match_jax_for_the_runner():
             jax_load_config(None, ovs))[0].cfg)
         cfg = dataclasses.asdict(runner.build_model(
             load_config(None, ovs))[0].cfg)
-        del jcfg["remat"]
         assert cfg == jcfg

@@ -136,10 +136,22 @@ def test_evaluate_needs_weights():
 @pytest.mark.parametrize("override", [
     "train.spatial_shard=2", "model.backbone=vit", "model.remat=true"])
 def test_unported_eval_options_raise(tmp_path, override):
-    cfg = load_config(None, TINY + [f"sampled_dir={tmp_path}", override])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        model, _ = runner.build_model(cfg)
-        runner.evaluate(cfg, runner.init_params(cfg, model), device="cpu")
+    """Only the multi-device option still raises "not yet ported"; the
+    ViT backbone (patches of 2 on the 8x8 images) and remat, ported since,
+    evaluate to finite images."""
+    cfg = load_config(None, TINY + [f"sampled_dir={tmp_path}", override,
+                                    "model.patch_size=2",
+                                    "model.embed_dim=32", "model.depth=2",
+                                    "model.num_heads=4"])
+    model, _ = runner.build_model(cfg)
+    params = runner.init_params(cfg, model)
+    if override == "train.spatial_shard=2":
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            runner.evaluate(cfg, params, device="cpu")
+        return
+    imgs = runner.evaluate(cfg, params, device="cpu")["images"]
+    assert imgs.shape == (2, 8, 8, 3) and np.isfinite(imgs).all()
+    assert type(model).__name__ == ("ViT" if "vit" in override else "UNet")
 
 
 @pytest.mark.parametrize("overrides", [
@@ -203,28 +215,42 @@ def test_sampler_options_that_cannot_run_raise(tmp_path, overrides, match):
 
 def test_a_checkpoint_of_another_T_is_not_yet_ported(tmp_path, capsys):
     """A table time embedding saved at diffusion.T=10 and sampled at 20
-    needs the cross-T surgery: evaluate raises NotImplementedError (for the
-    eval weights and for autoguidance's weak weights), the CLI exits 2."""
+    goes through the cross-T surgery, ported since: evaluate extends the
+    checkpoint's table (for the eval weights and for autoguidance's weak
+    weights), as if the extended weights were passed in, and the CLI
+    exits 0."""
+    from itsd_tpu_torch.train.surgery import extend_time_embedding
+
     keys = COND + ["model.time_embed=table", f"save_weight_dir={tmp_path}",
                    f"sampled_dir={tmp_path}"]
     cfg10 = load_config(None, keys + ["diffusion.T=10"])
     model, _ = runner.build_model(cfg10)
-    torch.save(runner.init_params(cfg10, model), tmp_path / "t10.pt")
+    p10 = _lively_params(cfg10, model)
+    torch.save(p10, tmp_path / "t10.pt")
     cfg20 = load_config(None, keys + ["diffusion.T=20"])
     model, _ = runner.build_model(cfg20)
-    torch.save(runner.init_params(cfg20, model), tmp_path / "t20.pt")
-    for extra in (["test_load_weight=t10.pt"],
-                  ["test_load_weight=t20.pt", "diffusion.guidance=auto",
-                   "diffusion.weak_load_weight=t10.pt"]):
-        with pytest.raises(NotImplementedError, match="cross-T surgery"):
-            runner.evaluate(load_config(None, keys + ["diffusion.T=20",
-                                                      *extra]),
-                            device="cpu")
+    p20 = _lively_params(cfg20, model)
+    torch.save(p20, tmp_path / "t20.pt")
+    ext = extend_time_embedding(p10, 20)
+    torch.save(ext, tmp_path / "ext.pt")
+    for extra, same in ((["test_load_weight=t10.pt"],
+                         ["test_load_weight=ext.pt"]),
+                        (["test_load_weight=t20.pt", "diffusion.guidance=auto",
+                          "diffusion.weak_load_weight=t10.pt"],
+                         ["test_load_weight=t20.pt", "diffusion.guidance=auto",
+                          "diffusion.weak_load_weight=ext.pt"])):
+        got = runner.evaluate(load_config(None, keys + ["diffusion.T=20",
+                                                        *extra]),
+                              device="cpu")["images"]
+        want = runner.evaluate(load_config(None, keys + ["diffusion.T=20",
+                                                         *same]),
+                               device="cpu")["images"]
+        assert np.isfinite(got).all()
+        np.testing.assert_array_equal(got, want)
     rc = cli_main.main(["eval", "--device", "cpu", *keys, "diffusion.T=20",
                         "test_load_weight=t10.pt"])
-    assert rc == 2
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and "10 rows" in err
+    assert rc == 0
+    assert "not yet ported" not in capsys.readouterr().err
 
 
 COND = TINY + ["model.num_labels=10", "w=1.8"]
@@ -290,21 +316,46 @@ def test_cond_evaluate_with_an_interval_and_autoguidance(tmp_path):
     ("diffusion.guidance=autoguidance", ValueError, "unknown diffusion"),
     ("diffusion.guidance=auto", ValueError, "weak_load_weight"),
     ("diffusion.cfg_interval=[3,1]", ValueError, "reversed"),
-    ("diffusion.inference_T=3", NotImplementedError, "not yet ported")])
+    ("diffusion.inference_T=3", ValueError, "unknown strategy")])
 def test_guided_eval_options_raise_before_sampling(tmp_path, override, error,
                                                   match):
     """A guidance value other than cfg | auto (which the JAX package reads
     as cfg), autoguidance without a weak checkpoint, a reversed interval,
-    and another inference_T for a table time embedding (the cross-T
-    surgery, not yet ported) all raise."""
-    cfg = load_config(None, COND + ["model.time_embed=table",
-                                    f"sampled_dir={tmp_path}"])
+    and another inference_T for a table time embedding with an unknown
+    ``train.time_embedding_strategy`` (the cross-T surgery reads it only
+    when it resizes the table) all raise."""
+    base = COND + ["model.time_embed=table", f"sampled_dir={tmp_path}",
+                   "train.time_embedding_strategy=nearest"]
+    cfg = load_config(None, base)
     model, _ = runner.build_model(cfg)
     params = runner.init_params(cfg, model)
     with pytest.raises(error, match=match):
-        runner.evaluate(load_config(None, COND + [
-            "model.time_embed=table", f"sampled_dir={tmp_path}", override]),
-            params, device="cpu")
+        runner.evaluate(load_config(None, base + [override]), params,
+                        device="cpu")
+
+
+@pytest.mark.parametrize("strategy", ["interpolate", "reinit"])
+def test_cond_eval_at_another_inference_T_extends_the_table(tmp_path,
+                                                           strategy):
+    """A table time embedding of T=4 sampled at inference_T=7: the model
+    that samples has 7 rows, the weights are extended by the configured
+    strategy, and the chain is the guided chain on those weights."""
+    from itsd_tpu_torch.train.surgery import extend_time_embedding
+
+    base = COND + ["model.time_embed=table", f"sampled_dir={tmp_path}",
+                   f"train.time_embedding_strategy={strategy}"]
+    cfg = load_config(None, base)
+    model, _ = runner.build_model(cfg)
+    params = _lively_params(cfg, model)
+    cfg7 = load_config(None, base + ["diffusion.inference_T=7"])
+    got = runner.evaluate(cfg7, params, device="cpu")["images"]
+    model7, _ = runner.build_model(cfg7, inference=True)
+    assert model7.time_embedding.table.shape[0] == 7
+    assert runner.build_model(cfg7)[0].time_embedding.table.shape[0] == 4
+    want = runner.evaluate(load_config(None, base + ["T=7"]),
+                           extend_time_embedding(params, 7, strategy),
+                           device="cpu")["images"]
+    np.testing.assert_array_equal(got, want)
 
 
 def test_yaml_reader_matches_pyyaml_on_every_config():
@@ -363,10 +414,10 @@ def test_cli_takes_overrides_after_its_options():
                                      "inference-metrics"])
 def test_cli_other_commands_are_not_ported(command, capsys, tmp_path,
                                            monkeypatch):
-    """Only finetune-t still exits 2 with "not yet ported". The others
-    are ported and raise their real errors: train on the default config
-    (tracked metrics on, CIFAR-10) finds no dataset, search with the CLIP
-    verifier no CLIP weights, inference-metrics no checkpoint."""
+    """Every command is ported and raises its real error: train on the
+    default config (tracked metrics on, CIFAR-10) finds no dataset, search
+    with the CLIP verifier no CLIP weights, finetune-t and
+    inference-metrics no checkpoint."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.delenv("ITSD_CLIP_WEIGHTS", raising=False)
     args = [command]
@@ -376,13 +427,10 @@ def test_cli_other_commands_are_not_ported(command, capsys, tmp_path,
         torch.save(runner.init_params(cfg, model), tmp_path / "w.pt")
         args += ["--device", "cpu", *TINY, f"save_weight_dir={tmp_path}",
                  "test_load_weight=w.pt", "search.verifier=clip"]
-    if command == "finetune-t":
-        assert cli_main.main(args) == 2
-        assert "not yet ported" in capsys.readouterr().err
-        return
     error, match = {
         "train": (FileNotFoundError, "CIFAR-10 not found"),
         "search": (ValueError, "needs CLIP weights"),
+        "finetune-t": (ValueError, "needs test_load_weight"),
         "inference-metrics": (ValueError, "needs test_load_weight"),
     }[command]
     with pytest.raises(error, match=match):

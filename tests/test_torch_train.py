@@ -473,12 +473,15 @@ def test_prefetch_keeps_order_and_raises_producer_errors(prefetch):
 
 
 def test_dataset_loaders_that_read_files_are_not_ported(tmp_path):
-    """The image folder (it needs Pillow) is not ported; load_cifar10 is,
-    and says where it looked when the batches are not there."""
+    """Both file loaders are ported: load_cifar10 says where it looked
+    when the batches are not there, and the image folder (read through
+    Pillow) raises on a directory that is not there; without Pillow it
+    raises ImportError (tests/test_torch_representations.py)."""
     with pytest.raises(FileNotFoundError, match="CIFAR-10 not found"):
         datasets.load_cifar10(str(tmp_path / "none"))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        datasets.load_image_folder("./images")
+    pytest.importorskip("PIL")
+    with pytest.raises(FileNotFoundError):
+        datasets.load_image_folder(str(tmp_path / "images"))
 
 
 def test_load_cifar10_matches_jax_on_synthesized_batches(tmp_path):
@@ -588,25 +591,52 @@ def test_cond_train_on_cpu_carries_labels_and_samples_guided_grids(
     "train.extract_representation_freq=1", "data.dataset=cifar10",
     "data.dataset=imagefolder"])
 def test_unported_train_options_raise(tmp_path, override, monkeypatch):
-    """What is not ported raises "not yet ported". Tracked metrics (on by
-    default, "none") are ported and train; CIFAR-10 is read from disk and
-    raises FileNotFoundError when it is not there."""
+    """Only the multi-device option still raises "not yet ported".
+    Tracked metrics (on by default, "none") train; profiling traces the
+    first step; representation extraction applies to the conditional
+    model only, so this unconditional one trains without it; CIFAR-10 and
+    the image folder are read from disk and raise FileNotFoundError when
+    they are not there."""
     monkeypatch.setenv("ITSD_PIXEL_FEATURES", "1")
     cfg = _cfg(tmp_path, override, f"data.root={tmp_path}/none")
-    if override == "train.track_metrics=none":
-        assert runner.resolve_track_metrics(cfg)
-        assert runner.train(cfg, max_steps=1, device="cpu")["steps"] == 1
+    if override in ("train.track_metrics=none", "train.profile_steps=1",
+                    "train.extract_representation_freq=1"):
+        if override == "train.track_metrics=none":
+            assert runner.resolve_track_metrics(cfg)
+        out = runner.train(cfg, max_steps=1, device="cpu")
+        assert out["steps"] == 1
+        assert (out["trace"] is not None) == (override ==
+                                              "train.profile_steps=1")
+        assert not (tmp_path / "ckpt" / "representations").exists()
         return
-    error, match = ((FileNotFoundError, "CIFAR-10 not found")
-                    if override == "data.dataset=cifar10"
-                    else (NotImplementedError, "not yet ported"))
+    if override == "data.dataset=imagefolder":
+        pytest.importorskip("PIL")
+    error, match = {
+        "data.dataset=cifar10": (FileNotFoundError, "CIFAR-10 not found"),
+        "data.dataset=imagefolder": (FileNotFoundError, "none"),
+        "train.spatial_shard=2": (NotImplementedError, "not yet ported"),
+    }[override]
     with pytest.raises(error, match=match):
         runner.train(cfg, max_steps=1, device="cpu")
 
 
 def test_finetune_t_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """The fine-tune, ported since, on the unconditional UNet's
+    functional embedding (no table: no surgery, the checkpoint's T is
+    None): only the time embedding's MLP moves. Without a checkpoint it
+    raises as eval does."""
+    with pytest.raises(ValueError, match="needs test_load_weight"):
         runner.finetune_extended_T(_cfg(tmp_path), device="cpu")
+    cfg = _cfg(tmp_path, "test_load_weight=w", "train.fine_tune_lr=1e-2")
+    model, _ = runner.build_model(cfg)
+    params = runner.init_params(cfg, model)
+    checkpoint.save_params(str(tmp_path / "ckpt" / "w"), params)
+    out = runner.finetune_extended_T(cfg, max_steps=1, device="cpu")
+    assert out["ckpt_T_detected"] is None and out["steps"] == 1
+    got = out["state"].model.state_dict()
+    for k, v in params.items():
+        assert torch.equal(got[k], v) == (not k.startswith(
+            "time_embedding.")), k
 
 
 def test_trainer_fit_sample_save_load(tmp_path):

@@ -147,6 +147,12 @@ def test_conv_and_dense_layouts():
                                 dict(attention_impl="flash"),
                                 dict(attention_impl="ring")])
 def test_unported_variants_raise(kw):
+    """Only "ring" (sequence-sharded attention) still raises; "xla" and
+    "flash" build (tests/test_torch_vit.py checks what they compute)."""
+    if kw["attention_impl"] != "ring":
+        assert UNet(uncond_unet_config(**SMALL, **kw)).cfg.attention_impl \
+            == kw["attention_impl"]
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         UNet(uncond_unet_config(**SMALL, **kw))
 
@@ -154,7 +160,6 @@ def test_unported_variants_raise(kw):
 def test_cond_config_matches_jax():
     want = dataclasses.asdict(jax_cond_config(num_labels=7, ch=32, T=50))
     got = dataclasses.asdict(cond_unet_config(num_labels=7, ch=32, T=50))
-    del want["remat"]  # a JAX memory option the port does not have
     assert got == want
 
 
