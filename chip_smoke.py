@@ -63,7 +63,7 @@ Phases, each ending with one line that carries its elapsed seconds:
    |dparam|;
 7. train path: ``runner.train`` at the configuration of
    ``configs/cifar10_uncond.yaml`` on the shapes dataset (batch 128, lr
-   2e-4, dropout 0.1, bf16) for 128 steps; exactly 6/6/6/51 launches a step
+   2e-4, dropout 0.1, bf16) for 64 steps; exactly 6/6/6/51 launches a step
    of flash forward / dq / dk-dv / GroupNorm, the forwards, dq and dk/dv all
    on the mma route; a finite, falling loss; the checkpoint restored for one
    more step and for an eval; ms per step, images/s, peak memory and the
@@ -77,8 +77,8 @@ Phases, each ending with one line that carries its elapsed seconds:
 9. guided eval path: ``runner.evaluate`` of the conditional UNet at the
    full width of ``configs/cifar10_cfg.yaml`` (ch 128, ch_mult
    1,4,8,8,4,2, 548 M parameters, bf16) on seeded weights, batch 8: CFG
-   w=1.8 over the config's T=3000 chain cut to its first 250 steps'
-   table rows (T=250), CFG on 30 <= t < 70 and autoguidance (a second
+   w=1.8 over the config's T=3000 chain cut to its first 125 steps'
+   table rows (T=125), CFG on 30 <= t < 70 and autoguidance (a second
    seeded weight file) over a chain cut to T=100;
    exact launches a step (78 GroupNorm and 13 flash forwards, 5 on mma
    and 8 on wide, at batch 16 inside the interval and 8 outside;
@@ -101,7 +101,7 @@ Phases, each ending with one line that carries its elapsed seconds:
     loss; the representations' .npz files, one an epoch, and the
     statistics of ``python -m itsd_tpu_torch.cli.analyze`` on them; the
     checkpoint restored
-    for one more step and, through the eval loader, for 100 guided steps
+    for one more step and, through the eval loader, for 25 guided steps
     of its T=3000 chain; ms per step, images/s, peak memory and the
     device's busy share (it runs after phase 16);
 13. fast and composite samplers: ``runner.evaluate`` at full width, bf16,
@@ -125,13 +125,13 @@ Phases, each ending with one line that carries its elapsed seconds:
     port's ``train_classifier``, then ``runner.run_search`` at full width,
     bf16, batch 8, scored by it (``search.verifier=classifier``): the
     unconditional UNet through random N=16 over the ancestral chain cut
-    to T=250 (128 rows; BASELINE.md workload 3 runs T=1000), random N=16
+    to T=125 (128 rows; BASELINE.md workload 3 runs T=1000), random N=16
     in chunks of 4 over DDIM 50 with the verifier-hacking guard, pruned
-    16 -> 4 at t=125 and path 4/2 at t=100 (ancestral, T=250), zero-order
+    16 -> 4 at t=62 and path 4/2 at t=50 (ancestral, T=125), zero-order
     4 x 2 over DDIM 50, SMC with 16
     particles over DDIM 50 segments, gradient search through DPM-Solver++
-    20 (2 iterations) and through the remat'd ancestral chain (1
-    iteration); the CFG UNet (w=1.8, dual batch) through random N=4 and
+    20 (2 iterations) and through the remat'd ancestral chain cut to T=50
+    (1 iteration); the CFG UNet (w=1.8, dual batch) through random N=4 and
     pruned 4 -> 2 over DDIM 50 and gradient search through DPM-Solver++ 20
     (the wide dq and dk/dv at batch 16). Exact launches (forwards, the
     remat'd chain's recomputed forwards, one dq and one dk/dv per
@@ -148,21 +148,24 @@ Phases, each ending with one line that carries its elapsed seconds:
     norms, kernels against plain) and the remat'd chain's gradient against
     the gradient of the chain that holds every step, on the same draws,
     bit for bit under cuDNN's deterministic algorithms; each reading
-    printed beside its limit;
+    printed beside its limit, and for gradient_search the worst element:
+    its iteration, the noise's and the sampler's pre-clip images' largest
+    difference at each iteration, and the pixels whose two values lie on
+    either side of the sampler's clip at +-1;
 17. FID / IS / CLIP tracking at full width, bf16, with a random-weight
     Inception-V3 at 299, CLIP at the published ViT-B/32 shape (seeded
     weights written in HuggingFace's layout, read through
     ``$ITSD_CLIP_WEIGHTS``) and IS logits from phase 15's classifier
     (found by ``train.is_logit_source=auto``): ``inference-metrics`` on
     the unconditional UNet (``configs/cifar10_uncond.yaml`` on shapes,
-    T cut to 250, eval batch 64, a point every 50 steps) from phase 7's
+    T cut to 125, eval batch 64, a point every 25 steps) from phase 7's
     last checkpoint; ``runner.train`` with tracked metrics every epoch for
-    2 epochs of phase 7's configuration (its evals at inference_T=250,
-    points every 125 steps); guided
+    1 epoch of phase 7's configuration (its eval at inference_T=125,
+    points every 63 steps); guided
     ``inference-metrics`` on the CFG UNet (w=1.8, T cut to 100 as phase 9
     cuts it, dual batch 128, a point every 20 steps); random N=4 search
     over DDIM 50 with the ensemble and the clip verifiers. Exact launches
-    (250 x 51 GroupNorm and 250 x 6 mma forwards for the first), the
+    (125 x 51 GroupNorm and 125 x 6 mma forwards for the first), the
     attention batch of every call, no synchronizing CUDA operation inside
     a snapshot chain, finite FID, IS and CLIP at every point; the chain's
     ms per step, ms per metric point, Inception's and CLIP's ms per image,
@@ -190,7 +193,22 @@ Phases, each ending with one line that carries its elapsed seconds:
     batch 16 (exactly 12 flash forwards, 12 dq and 12 dk/dv a step, on mma
     at C=64), DDIM 50 at batch 8 from its checkpoint (12 forwards a model
     evaluation), finite loss and images, and one f32 (simt) and one bf16
-    forward of the kernel path against the plain path ("xla").
+    forward of the kernel path against the plain path ("xla");
+21. the data-parallel path (torchrun, world size 1, NCCL), after phase 7:
+    the CLI's ``train`` at phase 7's configuration (batch 128, bf16) for
+    2 epochs of 8 steps with a grid and a checkpoint, then ``search``
+    (random N=8 in chunks of 4 over DDIM 50) from that checkpoint, run
+    twice: in this process, and under ``python -m torch.distributed.run
+    --standalone --nproc_per_node=1`` through this script's ``--cli``
+    mode (each command through ``itsd_tpu_torch.cli.main.main``, what
+    ``python -m itsd_tpu_torch.cli.main`` runs), both with cuDNN's
+    deterministic algorithms. The torchrun run starts an NCCL process
+    group of one (its world size, backend and start-up seconds printed)
+    and runs the data-parallel train step (global draws, the all-reduce)
+    and the sharding-aware search; its per-step losses and gradient norms,
+    checkpoint, grid and search outputs must equal the one-process run's
+    bit for bit, with exact launches, every attention call on mma; the
+    step time of each run from its ``train_metrics.jsonl``.
 
 Then it prints the ``nvidia-smi`` line, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -202,7 +220,8 @@ read just after. The bf16 eval, train, search and tracked paths of the
 unconditional UNet (phases 3, 7, 13, 15 and 17) run the mma kernels and
 GroupNorm; those of the CFG UNet (phases 9, 12, 13, 15 and 17) the mma
 and wide kernels; the fine-tune (phase 19) the wide kernels and
-GroupNorm; the ViT (phase 20) the mma kernels at C=64. The kernels' JSON
+GroupNorm; the ViT (phase 20) the mma kernels at C=64; the torchrun train
+(phase 21) the mma kernels and GroupNorm. The kernels' JSON
 line carries each kernel's launches summed over these paths, and per path;
 the simt forward, dq and dk/dv, which no bf16 path runs, carry their
 launches on the f32 kernel paths of phases 4, 6, 10, 11, 14, 16, 18 and
@@ -213,6 +232,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -239,12 +259,14 @@ T_STEPS = 1000
 BATCH = 8
 PARITY_STEPS = 20
 TRAIN_BATCH = 128
-TRAIN_EPOCHS = 8            # 16 steps an epoch on the 2048 shapes images
-                            # (10 until the fine-tune and the ViT came)
-TRAIN_SAVE_FREQ = 5
+TRAIN_EPOCHS = 4            # 16 steps an epoch on the 2048 shapes images
+                            # (10 until the fine-tune and the ViT came, 8
+                            # until the data-parallel phase came)
+TRAIN_SAVE_FREQ = 3
 TRAIN_GRID_BATCH = 8        # the epoch grid at batch 8, over GRID_T steps
-# (inference_T; the whole T=1000 chain until the fine-tune and the ViT came)
-GRID_T = 250
+# (inference_T; the whole T=1000 chain until the fine-tune and the ViT came,
+# 250 until the data-parallel phase came)
+GRID_T = 125
 TRAIN_PARITY_STEPS = 3
 # The guided path (configs/cifar10_cfg.yaml). One forward of its UNet makes
 # 78 GroupNorm calls and 13 attention calls, all on the tensor cores in
@@ -257,14 +279,16 @@ CFG_SHORT_T = 100           # the interval-CFG and autoguidance chains
 # The CFG chain of phase 9, cut from the config's T=3000 to keep the
 # script inside its time limit: on a slow host (45.9 ms a guided step on
 # an H100, NVIDIA H100 80GB HBM3, 700 W) the whole chain took 138 s; T=500
-# until the fine-tune and the ViT came.
-CFG_LONG_T = 250
+# until the fine-tune and the ViT came, 250 until the data-parallel phase
+# came.
+CFG_LONG_T = 125
 CFG_INTERVAL = (30, 70)     # 40 of their 100 steps guided
 COND_TRAIN_EPOCHS = 8       # 8 steps an epoch: 2048 shapes images, batch 256
 COND_PARITY_BATCH = 128
 COND_LOSS_FALL = 0.5        # the last epoch's mean loss below this share
                             # of the first epoch's (measured: 0.04)
-RESTORED_EVAL_STEPS = 100   # guided steps from the restored checkpoint
+RESTORED_EVAL_STEPS = 25    # guided steps from the restored checkpoint
+                            # (100 until the data-parallel phase came)
 # Phases 13 and 14: the fast and composite samplers.
 FAST_STEPS = 50             # diffusion.ddim_steps of DDIM, restart, Picard
 DPM_STEPS = 20              # DPM-Solver++'s steps
@@ -292,15 +316,18 @@ CFG_SEARCH_N = 4
 CFG_SEARCH_KEEP = 2
 # The remat'd ancestral gradient's chain, cut from T=1000: one iteration
 # at T=1000 took 122.3 s on an H100 (NVIDIA H100 80GB HBM3, 700 W; 40.8
-# ms a forward, recompute and backward included), at T=250 up to 46.2 s.
-REMAT_T = 100
+# ms a forward, recompute and backward included), at T=250 up to 46.2 s,
+# at T=100 18.5 s (until the data-parallel phase came).
+REMAT_T = 50
 # Random N=16, pruned 16 -> 4 and path 4/2 over the ancestral chain cut
 # from T=1000 to SEARCH_T (random N=16 took 16.8-21.7 s at T=1000 on an
 # H100, NVIDIA H100 80GB HBM3, 700 W), pruned at SEARCH_PRUNE_AT and the
-# paths injected at SEARCH_INJECT_AT (500 and 400 of 1000 until then).
-SEARCH_T = 250
-SEARCH_PRUNE_AT = 125
-SEARCH_INJECT_AT = 100
+# paths injected at SEARCH_INJECT_AT (500 and 400 of 1000 until the
+# fine-tune and the ViT came; T=250, 125 and 100 until the data-parallel
+# phase came).
+SEARCH_T = 125
+SEARCH_PRUNE_AT = 62
+SEARCH_INJECT_AT = 50
 CFG_GRAD_STEPS = 10         # DPM-Solver++ steps of the CFG gradient parity
 # Phases 17 and 18: FID / IS / CLIP tracking. The tracked runs sample at
 # train.eval_batch_size unset: min(train.batch_size, 64) = 64 (the CFG
@@ -312,11 +339,11 @@ TRACKED_BATCH = 64
 # The unconditional tracked chains, cut from the config's T=1000 (the
 # script ran 894 s of its 1200 s before the fine-tune and the ViT came):
 # inference-metrics over diffusion.T=TRACKED_T, the tracked train's evals
-# over inference_T=TRACKED_T.
-TRACKED_T = 250
-TRACKED_INTERVAL = 50       # train.eval_metric_interval: 5 points
-TRACKED_TRAIN_EPOCHS = 2
-TRACKED_TRAIN_INTERVAL = 125  # train.metric_interval of its evals: 2
+# over inference_T=TRACKED_T (250 until the data-parallel phase came).
+TRACKED_T = 125
+TRACKED_INTERVAL = 25       # train.eval_metric_interval: 5 points
+TRACKED_TRAIN_EPOCHS = 1    # 2 until the data-parallel phase came
+TRACKED_TRAIN_INTERVAL = 63   # train.metric_interval of its evals: 2
 CFG_TRACKED_INTERVAL = 20   # the guided T=CFG_SHORT_T run: 5 points
 TRACKED_SEARCH_N = 4        # random search over DDIM 50, ensemble and clip
 TRACKED_PARITY_T = 50
@@ -341,6 +368,18 @@ FT_EVAL_BATCH = 8
 # Phase 20: the ViT backbone (configs/imagenet256_uncond.yaml with
 # model.backbone=vit: ModelCfg's ViT-B/16 defaults, patch 16, embed 768,
 # depth 12, 12 heads of 64, 256 tokens at 256x256), bf16.
+# Phase 21: the data-parallel path at world size 1. Phase 7's
+# configuration for DP_EPOCHS epochs of DP_STEPS steps (the shapes images
+# cut to DP_STEPS batches of 128), the grid at the end over DP_GRID_T
+# steps, one checkpoint; then random search over DDIM 50 from it, in
+# chunks of DP_SEARCH_CHUNK candidates.
+DP_EPOCHS = 2
+DP_STEPS = 8
+DP_SUBSET = DP_STEPS * TRAIN_BATCH / 2048
+DP_GRID_T = 20
+DP_SEARCH_N = 8
+DP_SEARCH_CHUNK = 4
+DP_TIMEOUT = 600            # seconds for the torchrun command
 IMAGENET_YAML = os.path.join(ROOT, "configs", "imagenet256_uncond.yaml")
 VIT_BATCH = 16
 VIT_STEPS = 4
@@ -385,6 +424,11 @@ GS_T = 20
 GS_ITERS = 3
 GS_SCORE_TOL = {"float32": 1e-5, "bfloat16": 0.08}
 GS_NORM_REL_TOL = {"float32": 1e-6, "bfloat16": 8e-3}
+# The gradient each iteration used (kernels) against the plain path's at
+# the same iterate, relative L2, which a gradient of the right norm in the
+# wrong direction fails: the limits of the DPM-Solver++ gradient parity
+# above (same model and batch), set before the first readings.
+GS_GRAD_REL_TOL = GRAD_REL_TOL
 # GroupNorm: f32 sums in another order (~1e-6 on values O(1)); bf16: the
 # same f32 value may round to a neighbouring bf16 value (one step, 2^-7).
 GN_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-3, 2.0 ** -7)}
@@ -577,7 +621,12 @@ def train_config(tmpdir: str, dtype: str = "bfloat16", *extra):
     dataset (the repository's stand-in for CIFAR-10)."""
     from itsd_tpu_torch.utils import load_config
 
-    return load_config(None, [
+    return load_config(None, train_overrides(tmpdir, dtype, *extra))
+
+
+def train_overrides(tmpdir: str, dtype: str = "bfloat16", *extra):
+    """The command-line overrides of ``train_config``."""
+    return [
         f"channel={WIDTH}", "channel_mult=[1,2,2,2]", "attn=[1]",
         "num_res_blocks=2", "dropout=0.1", f"T={T_STEPS}", "img_size=32",
         f"model.dtype={dtype}", f"batch_size={TRAIN_BATCH}", "lr=2e-4",
@@ -587,7 +636,7 @@ def train_config(tmpdir: str, dtype: str = "bfloat16", *extra):
         f"train.eval_freq={TRAIN_EPOCHS}",
         f"train.eval_batch_size={TRAIN_GRID_BATCH}",
         f"save_weight_dir={tmpdir}/ckpt", f"sampled_dir={tmpdir}/sampled",
-        f"metrics_save_dir={tmpdir}/metrics", *extra])
+        f"metrics_save_dir={tmpdir}/metrics", *extra]
 
 
 def seeded_params(cfg):
@@ -1005,7 +1054,7 @@ def check_backward_kernels(paths, dev, timer):
     nan = (float("nan"), float("nan"))
     for tag, ((gn_calls, attn_calls), more, *reps) in paths.items():
         log(f"-- shapes of one {tag} step")
-        n = reps[0] if reps else 10
+        n = reps[0] if reps else 5  # 10 until the data-parallel phase
         worst = dict.fromkeys(kernels, 0.0)
         rows = {k: [] for k in kernels}
         counts = collections.Counter(attn_calls)
@@ -1605,6 +1654,213 @@ def train_path(tmpdir, card_line):
         log(f"    {v:8.3f}  {k[:110]}")
     phase_done(7, "train path (runner.train)", t0)
     return launches, per_step
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel path (phase 21)
+
+CLI_SEPARATOR = "::"
+
+
+def cli_worker(argv) -> int:
+    """``python chip_smoke.py --cli OUT.json ARGS [:: ARGS ...]`` under
+    torchrun: starts the process group (the port's
+    ``maybe_initialize_distributed``, timed), then runs each ARGS through
+    the port's CLI entry point, ``itsd_tpu_torch.cli.main.main`` (what
+    ``python -m itsd_tpu_torch.cli.main ARGS`` runs), one after the other
+    in that group, with cuDNN's deterministic algorithms and this script's
+    TF32 settings; rank 0 writes the group's world size, backend and
+    start-up seconds and each command's exit code and kernel launches to
+    OUT.json. (The CLI starts and ends a group of its own when it finds
+    none; one process does not start a second group after the first.)"""
+    import torch.distributed as dist
+    from itsd_tpu_torch.cli import main as cli_main
+    from itsd_tpu_torch.parallel import maybe_initialize_distributed
+
+    out, commands = argv[0], [[]]
+    for a in argv[1:]:
+        if a == CLI_SEPARATOR:
+            commands.append([])
+        else:
+            commands[-1].append(a)
+    s0 = time.perf_counter()
+    if not maybe_initialize_distributed(device=DEVICE):
+        fail("the --cli mode runs under torchrun")
+    group = {"world_size": dist.get_world_size(),
+             "backend": dist.get_backend(),
+             "start_s": time.perf_counter() - s0}
+    torch.backends.cudnn.deterministic = True
+    done = []
+    try:
+        for cmd in commands:
+            reset_launches()
+            rc = cli_main.main(cmd)
+            torch.cuda.synchronize()
+            done.append({"command": cmd[0], "rc": rc,
+                         "launches": read_launches()})
+            if rc:
+                break
+        if dist.get_rank() == 0:
+            with open(out, "w") as f:
+                json.dump({"group": group, "commands": done}, f)
+    finally:
+        dist.destroy_process_group()
+    return max(d["rc"] for d in done)
+
+
+def dp_commands(root: str):
+    """The CLI arguments of phase 21's train and search, writing under
+    ``root``."""
+    train = ["train", "--device", DEVICE, *train_overrides(
+        root, "bfloat16", f"train.epoch={DP_EPOCHS}",
+        f"train.model_save_freq={DP_EPOCHS}",
+        f"train.eval_freq={DP_EPOCHS}", f"diffusion.inference_T={DP_GRID_T}",
+        "data.use_full_dataset=false",
+        f"data.train_subset_ratio={DP_SUBSET}")]
+    search = ["search", "--device", DEVICE, *train_overrides(
+        root, "bfloat16", f"test_load_weight=ckpt_{DP_EPOCHS - 1}",
+        f"sampled_dir={root}/search", "diffusion.sampler=ddim",
+        f"diffusion.ddim_steps={FAST_STEPS}", "search.algorithm=random",
+        f"search.n_candidates={DP_SEARCH_N}",
+        f"search.candidate_chunk={DP_SEARCH_CHUNK}",
+        "search.verifier=self_supervised")]
+    return train, search
+
+
+def same_tree(a, b) -> bool:
+    """``a`` and ``b`` equal bit for bit: tensors by ``torch.equal`` and
+    dtype, containers item by item."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a, b))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_tree(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def read_train_run(root: str):
+    """(per-step (step, loss, grad_norm) records, epoch records) of a run's
+    ``train_metrics.jsonl``."""
+    with open(os.path.join(root, "metrics", "train_metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = [(r["step"], r["loss"], r["grad_norm"]) for r in records
+             if "grad_norm" in r]
+    return steps, [r for r in records if "epoch" in r and "elapsed_s" in r]
+
+
+def dp_path(tmpdir, card_line):
+    """Phase 21: the CLI's train and search in this process and under
+    torchrun at world size 1 (NCCL), both with cuDNN's deterministic
+    algorithms; the torchrun run must write what this process writes, bit
+    for bit, with exact launches. Returns the torchrun train's launches."""
+    from itsd_tpu_torch.cli import main as cli_main
+
+    t0 = time.perf_counter()
+    one, dp = os.path.join(tmpdir, "dp_one"), os.path.join(tmpdir, "dp_run")
+    steps = DP_EPOCHS * DP_STEPS
+    want = {k: n * steps for k, n in step_counts(51, 6, 6).items()}
+    grid = route_counts(gn=51 * DP_GRID_T, fwd=6 * DP_GRID_T,
+                        fwd_mma=6 * DP_GRID_T)
+    want = {k: n + grid[k] for k, n in want.items()}
+
+    # one process: this one
+    train_args, search_args = dp_commands(one)
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_launches()
+        s0 = time.perf_counter()
+        rc = cli_main.main(train_args)
+        torch.cuda.synchronize()
+        one_launches = read_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = rc or cli_main.main(search_args)
+        one_s = time.perf_counter() - s0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    one_best = [line for line in out.getvalue().splitlines()
+                if line.startswith("best score:")]
+    if rc or len(one_best) != 1:
+        fail(f"the one-process CLI run: exit code {rc}, {one_best}")
+
+    # torchrun: one process of an NCCL group, this script's --cli mode
+    torch.cuda.empty_cache()
+    counts = os.path.join(tmpdir, "dp_launches.json")
+    train_args, search_args = dp_commands(dp)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", os.path.abspath(__file__), "--cli", counts,
+           *train_args, CLI_SEPARATOR, *search_args]
+    s0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=DP_TIMEOUT, cwd=ROOT)
+    dp_s = time.perf_counter() - s0
+    if run.returncode:
+        log(run.stdout[-4000:])
+        log(run.stderr[-4000:])
+        fail(f"torchrun exited {run.returncode}")
+    dp_best = [line for line in run.stdout.splitlines()
+               if line.startswith("best score:")]
+    with open(counts) as f:
+        ran = json.load(f)
+    group = ran["group"]
+    log(f"torchrun --nproc_per_node=1 (train, then search): {dp_s:.2f} s "
+        f"wall; one process (this one): {one_s:.2f} s")
+    log(f"world_size {group['world_size']}")
+    log(f"backend {group['backend']}")
+    log(f"process group start-up {group['start_s']:.3f} s "
+        f"(maybe_initialize_distributed, {group['backend']})")
+    if (group["world_size"], group["backend"]) != (1, "nccl") or [
+            c["rc"] for c in ran["commands"]] != [0, 0]:
+        fail(f"the torchrun run: {ran}")
+    dp_launches = ran["commands"][0]["launches"]
+
+    # what rank 0 wrote against what this process wrote
+    (one_steps, one_epochs), (dp_steps, dp_epochs) = (
+        read_train_run(one), read_train_run(dp))
+    ckpt = f"ckpt_{DP_EPOCHS - 1}"
+    a, b = (torch.load(os.path.join(root, "ckpt", ckpt), map_location="cpu",
+                       weights_only=True) for root in (one, dp))
+    n_tensors = sum(1 for part in ("params", "ema_params")
+                    for _ in a[part])
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    files = {name: [read(os.path.join(root, *name.split("/")))
+                    for root in (one, dp)]
+             for name in (f"sampled/epoch_{DP_EPOCHS - 1}_sampled.png",
+                          "search/search_random_best.png")}
+    checks = {
+        "per-step losses and gradient norms": (
+            len(one_steps) == steps and one_steps == dp_steps),
+        f"checkpoint {ckpt} ({n_tensors} tensors, optimizer, schedule)":
+            same_tree(a, b),
+        **{name: x == y for name, (x, y) in files.items()},
+        "best score": one_best == dp_best,
+        "launches": one_launches == dp_launches == want,
+    }
+    step_ms = [(e[1]["elapsed_s"] - e[0]["elapsed_s"]) / DP_STEPS * 1e3
+               for e in (one_epochs, dp_epochs)]
+    log(f"data-parallel train, {steps} steps of batch {TRAIN_BATCH} (bf16): "
+        f"losses {[round(x[1], 6) for x in dp_steps]}; launches "
+        f"{dp_launches} (want {want}); {dp_best[0] if dp_best else ''}")
+    log(f"epoch {DP_EPOCHS - 1}'s step on {card_line}: "
+        f"{step_ms[1]:.2f} ms under torchrun (world size 1), "
+        f"{step_ms[0]:.2f} ms in one process (wall, host clock, "
+        f"train_metrics.jsonl's epoch records)")
+    for what, ok in checks.items():
+        log(f"  torchrun vs one process (bit for bit), {what}: "
+            f"{'equal' if ok else 'DIFFERENT'}")
+    if not all(checks.values()):
+        fail("the torchrun run differs from the one-process run: "
+             + ", ".join(k for k, ok in checks.items() if not ok))
+    phase_done(21, "data-parallel path (torchrun, world size 1, NCCL)", t0)
+    return dp_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2942,27 +3198,89 @@ def search_parity(params, cparams, clf, tmpdir):
     return dict(f32_launches)
 
 
-def gradient_search_parity(params, clf, tmpdir, f32_launches):
+def recorded_sample(store):
+    """``core.sampling.sample`` as gradient_search calls it, recording in
+    ``store`` each call's noise, its output before the clip to [-1, 1], its
+    generator's state at the start and, once the backward has passed, the
+    gradient that reached the noise (None without one); the clip itself is
+    the one ``sample`` applies."""
+    from itsd_tpu_torch.core.sampling import sample
+
+    def run(sched, eps_fn, x_T, **kw):
+        clip = kw.pop("clip_output", True)
+        gen = kw.get("generator")
+        state = None if gen is None else gen.get_state()
+        x = sample(sched, eps_fn, x_T, clip_output=False, **kw)
+        rec = [x_T.detach().clone(), x.detach().clone(), state, None]
+        if x_T.requires_grad:
+            x_T.register_hook(lambda g: rec.__setitem__(3, g.detach().clone()))
+        store.append(rec)
+        return x.clamp(-1.0, 1.0) if clip else x
+
+    return run
+
+
+def worst_element(gs, ws, chains) -> str:
+    """The worst element of a gradient_search parity: the iteration whose
+    score differs most between the paths, and there the pixel of the
+    sampler's images before its clip whose distance to +-1 is smallest
+    against the paths' difference: its index, its value on each path, and
+    both numbers in float32 steps (ulps) of 1.0. A pixel within the paths'
+    difference of +-1 is clipped on one path and passes its gradient on
+    the other."""
+    worst = int(np.argmax(np.abs(gs - ws)))
+    xk, xp = chains["kernels"][worst][1], chains["plain"][worst][1]
+    ulp = float(np.spacing(np.float32(1.0)))
+    gap = (xk.abs() - 1.0).abs().minimum((xp.abs() - 1.0).abs())
+    diff = (xk - xp).abs()
+    i = int(torch.argmin(gap - diff))
+    idx = tuple(int(j) for j in np.unravel_index(i, tuple(xk.shape)))
+    return (f"iteration {worst} (|score err| {abs(gs[worst] - ws[worst]):.4g})"
+            f"; the pixel nearest the clip against the paths' difference: "
+            f"{idx} kernels {float(xk.flatten()[i]):.9g} plain "
+            f"{float(xp.flatten()[i]):.9g}, "
+            f"{float(gap.flatten()[i]) / ulp:.3g} ulps from +-1, paths "
+            f"{float(diff.flatten()[i]) / ulp:.3g} ulps apart")
+
+
+def gradient_search_parity(params, clf, tmpdir, f32_launches,
+                           records=None):
     """Phase 16, continued: ``gradient_search`` itself (the remat'd
     ancestral chain, Adam, best tracking) on the unconditional UNet at
     batch 8, diffusion.T=GS_T, GS_ITERS iterations, the sampler's draws
-    from one seed: its history of scores and gradient norms and its best
-    score, kernels against plain (GS_SCORE_TOL absolute, GS_NORM_REL_TOL
-    relative). The classifier scores the images halved, so that no pixel
-    sits at its clamp to [0, 1]. Then, on the kernels, the gradient of
-    that score through ``sample(remat=True)`` against ``remat=False`` on
-    the same draws, bit for bit under cuDNN's deterministic algorithms,
-    with exact launches: the remat'd backward reruns each step's forward.
-    Adds the f32 kernel runs' launches to ``f32_launches``."""
+    from one seed, on the kernels; then the plain path at each of its
+    iterates (the same noise and draws): the scores and gradient norms,
+    kernels against plain (GS_SCORE_TOL absolute, GS_NORM_REL_TOL
+    relative), the gradient itself at each iterate, the one the search
+    used against the plain path's (GS_GRAD_REL_TOL, relative L2), and the
+    best score the best of the kernels' history. The plain path is held at
+    the kernels' iterates, not run through Adam on its own: Adam's first
+    update is ~lr times the sign of each gradient element, so an element
+    whose gradient is at the level of Adam's eps (1e-8) or of the paths'
+    f32 difference moves by up to 2 lr more on one path than on the other,
+    and the next iterate's score differs by up to ~|g| lr (1e-4 where the
+    1e-5 limit holds the rest: seen once in twelve runs on an H100). The
+    classifier scores the images halved, so that no pixel sits at its
+    clamp to [0, 1]. Then, on the kernels, the gradient of that score
+    through ``sample(remat=True)`` against ``remat=False`` on the same
+    draws, bit for bit under cuDNN's deterministic algorithms, with exact
+    launches: the remat'd backward reruns each step's forward. Adds the
+    f32 kernel runs' launches to ``f32_launches`` and, by dtype, the
+    kernels' iterates and their gradients on both paths to ``records``
+    when given (``chip_gs_repeat.py``), before any check can fail."""
     from itsd_tpu_torch.cli import runner
     from itsd_tpu_torch.core.sampling import sample
     from itsd_tpu_torch.search import algorithms as A
 
     dev = torch.device(DEVICE)
+    lr = 0.01  # gradient_search's default
     log(f"gradient_search parity (remat'd ancestral T={GS_T}, {GS_ITERS} "
-        f"iterations, batch {BATCH}) limits: scores {GS_SCORE_TOL}, "
-        f"gradient norms relative {GS_NORM_REL_TOL}; remat against no "
-        f"remat: bit for bit")
+        f"iterations, batch {BATCH}, lr {lr}; the plain path at the "
+        f"kernels' iterates) limits: scores {GS_SCORE_TOL}, gradient norms "
+        f"relative {GS_NORM_REL_TOL}, gradients relative L2 "
+        f"{GS_GRAD_REL_TOL}; remat against no remat: bit for bit")
+    if records is None:
+        records = {}
     for dtype, name in ((torch.float32, "float32"),
                         (torch.bfloat16, "bfloat16")):
         cfg = eval_config(tmpdir, name, "search.verifier=classifier",
@@ -2985,14 +3303,14 @@ def gradient_search_parity(params, clf, tmpdir, f32_launches):
         def verifier(images):
             return score(images / 2)
 
-        def search():
-            return A.gradient_search(noise, sched, eps_fn, verifier,
-                                     n_iterations=GS_ITERS,
-                                     generator=draws())
-
         steps = GS_ITERS * GS_T
+        chains = {"kernels": [], "plain": []}
         reset_launches()
-        got = search()
+        with mock.patch.object(A, "sample",
+                               recorded_sample(chains["kernels"])):
+            got = A.gradient_search(noise, sched, eps_fn, verifier,
+                                    n_iterations=GS_ITERS, lr=lr,
+                                    generator=draws())
         n1 = read_launches()
         want_n = route_counts(
             gn=51 * 2 * steps, fwd=6 * 2 * steps, dq=6 * steps,
@@ -3003,31 +3321,60 @@ def gradient_search_parity(params, clf, tmpdir, f32_launches):
             fail(f"gradient_search {name}: launches {n1}, want {want_n}")
         if dtype == torch.float32:
             f32_launches.update(n1)
+
+        def loss_and_grad(chain, at, state):
+            gen = torch.Generator(device=dev)
+            gen.set_state(state)
+            x = at.clone().requires_grad_(True)
+            loss = -verifier(chain(sched, eps_fn, x, generator=gen,
+                                   remat=True))
+            (g,) = torch.autograd.grad(loss, x)
+            return float(-loss.detach()), g
+
+        # the plain path at each of the kernels' iterates, with its draws
         p_gn, p_attn = plain_path()
+        plain = []
+        reset_launches()
         with p_gn, p_attn:
-            want = search()
-        if read_launches() != n1:
+            for at, _, state, _ in chains["kernels"]:
+                plain.append(loss_and_grad(
+                    recorded_sample(chains["plain"]), at, state))
+        if any(read_launches().values()):
             fail("gradient_search parity: the plain path launched a kernel")
-        gs, ws = (torch.cat([r.history["scores"],
-                             r.best_score[None]]).float().cpu().numpy()
-                  for r in (got, want))
-        gn_, wn_ = (r.history["grad_norms"].float().cpu().numpy()
-                    for r in (got, want))
+        gs = got.history["scores"].float().cpu().numpy()
+        ws = np.asarray([sc for sc, _ in plain], np.float32)
+        gn_ = got.history["grad_norms"].float().cpu().numpy()
+        wn_ = np.asarray([float(torch.sqrt((g * g).sum())) for _, g in plain])
+        # the gradient each iteration used, against the plain path's there
+        g_rel = np.asarray([float((gk - gp).norm() / gp.norm()) for
+                            (_, _, _, gk), (_, gp) in zip(chains["kernels"],
+                                                          plain)])
         s_err = float(np.abs(gs - ws).max())
         n_rel = float((np.abs(gn_ - wn_) / wn_).max())
+        best = float(got.best_score)
         ok = (np.isfinite(s_err) and np.isfinite(n_rel)
+              and np.isfinite(g_rel).all()
               and s_err <= GS_SCORE_TOL[name]
               and n_rel <= GS_NORM_REL_TOL[name]
-              and float(gs[-1]) == float(gs[:-1].max()))
+              and g_rel.max() <= GS_GRAD_REL_TOL[name]
+              and best == float(gs.max()))
+
         def show(a):
             return " ".join(f"{x:.6g}" for x in a)
 
-        log(f"gradient_search parity {name}: scores kernels {show(gs[:-1])}"
-            f", plain {show(ws[:-1])}, best {gs[-1]:.6g} / {ws[-1]:.6g}, "
+        log(f"gradient_search parity {name}: scores kernels {show(gs)}"
+            f", plain {show(ws)}, best {best:.6g}, "
             f"max |score err| {s_err:.4g} (limit {GS_SCORE_TOL[name]}); "
             f"gradient norms kernels {show(gn_)}, plain {show(wn_)}, max "
-            f"relative err {n_rel:.4g} (limit {GS_NORM_REL_TOL[name]}) -> "
-            f"{'ok' if ok else 'FAIL'}")
+            f"relative err {n_rel:.4g} (limit {GS_NORM_REL_TOL[name]}); "
+            f"gradients relative L2 {show(g_rel)} (limit "
+            f"{GS_GRAD_REL_TOL[name]}) -> {'ok' if ok else 'FAIL'}")
+        log(f"gradient_search parity {name}, worst element: "
+            + worst_element(gs, ws, chains))
+        records[name] = dict(
+            iterates=[at for at, _, _, _ in chains["kernels"]],
+            kernel_grads=[g for _, _, _, g in chains["kernels"]],
+            plain_grads=[g for _, g in plain])
         if not ok:
             fail(f"gradient_search parity {name}")
 
@@ -3065,7 +3412,7 @@ def gradient_search_parity(params, clf, tmpdir, f32_launches):
             f"{grads[False].norm().item():.4g} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"remat'd gradient {name}: {rel:.4g}")
-        del model, got, want, grads
+        del model, got, grads, chains, plain
 
 
 # ---------------------------------------------------------------------------
@@ -3227,8 +3574,9 @@ def tracked_path(wdir, ckpt, cparams, params, clf, tmpdir, card_line,
     is_logit_source=auto under JAX's name). (a) ``inference-metrics`` on
     the unconditional UNet (``--config configs/cifar10_uncond.yaml``,
     shapes, T cut to TRACKED_T, eval batch 64) from ``wdir/ckpt``; (b)
-    ``runner.train`` with tracked metrics every epoch for 2 epochs of phase
-    7's configuration, evaluated at inference_T=TRACKED_T; (c) guided
+    ``runner.train`` with tracked metrics every epoch for
+    TRACKED_TRAIN_EPOCHS epochs of phase 7's configuration, evaluated at
+    inference_T=TRACKED_T; (c) guided
     ``inference-metrics`` on the CFG UNet (``configs/cifar10_cfg.yaml``,
     w=1.8, T cut to CFG_SHORT_T as phase 9
     cuts it, dual batch 128); (d) random N=4 search over DDIM 50 with the
@@ -3305,7 +3653,8 @@ def tracked_path(wdir, ckpt, cparams, params, clf, tmpdir, card_line,
         + ", ".join(f"({h['t']}, {h['fid']:.3f}, {h['is']:.4f}, "
                     f"{h['clip']:.5f})" for h in rows))
 
-    # (b) tracked training: 2 epochs of phase 7's configuration
+    # (b) tracked training: TRACKED_TRAIN_EPOCHS epochs of phase 7's
+    # configuration
     tdir = os.path.join(tmpdir, "tracked_train")
     with_classifier(os.path.join(tdir, "ckpt"))
     cfg = train_config(tmpdir, "bfloat16", "train.track_metrics=true",
@@ -3885,8 +4234,8 @@ def cuda_tests():
 
 # The paths whose launches the kernels' JSON line carries: the bf16 runs of
 # runner.evaluate, runner.train, runner.run_search, the tracked entry
-# points, finetune-t and the ViT's train and eval (phases 3, 7, 9, 12, 13,
-# 15, 17, 19 and 20).
+# points, finetune-t, the ViT's train and eval and the torchrun train
+# (phases 3, 7, 9, 12, 13, 15, 17, 19, 20 and 21).
 MAIN_PATHS = ("eval", "train", "cfg_eval", "cfg_interval_eval", "auto_eval",
               "cond_train", "ddim_eval", "ddim_eta1_eval", "dpm_eval",
               "restart_eval", "picard_eval",
@@ -3898,7 +4247,7 @@ MAIN_PATHS = ("eval", "train", "cfg_eval", "cfg_interval_eval", "auto_eval",
               "cfg_search_gradient_dpm", "tracked_inference_metrics",
               "tracked_train", "cfg_tracked_inference_metrics",
               "search_ensemble", "search_clip", "finetune", "finetune_eval",
-              "finetune_surgery_eval", "vit_train", "vit_eval")
+              "finetune_surgery_eval", "vit_train", "vit_eval", "dp_train")
 WORK = {"train": "one train step of configs/cifar10_uncond.yaml (batch 128, "
                  "bf16)",
         "cond_train": "one train step of configs/cifar10_cfg.yaml (batch "
@@ -3986,6 +4335,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--cli"]:
+        return cli_worker(sys.argv[2:])
     dev = torch.device(DEVICE)
     name, smi_line = card()
     build()
@@ -4026,23 +4377,25 @@ def main() -> int:
                  f"calls, attention calls, mma ones and wide ones, want "
                  f"{CFG_PER_FORWARD}")
         timer = DeviceTimer()
+        # calls a timing repetition (halved, to 10 and 5 from 20 and 10,
+        # when the data-parallel phase came)
         fwd = check_forward_kernels({
-            "eval": (eval_shapes, 20, False),
-            "train": (train_shapes, 10, True),
-            "cfg_eval": (cfg_shapes, 20, False),
-            "cfg_eval_b8": (cfg_b8_shapes, 20, False),
-            "cond_train": (cond_shapes, 10, True),
+            "eval": (eval_shapes, 10, False),
+            "train": (train_shapes, 5, True),
+            "cfg_eval": (cfg_shapes, 10, False),
+            "cfg_eval_b8": (cfg_b8_shapes, 10, False),
+            "cond_train": (cond_shapes, 5, True),
             "picard": (picard_shapes, 5, False),
             "cfg_picard": (cfg_picard_shapes, 5, False),
-            "search": (search_shapes, 10, False),
+            "search": (search_shapes, 5, False),
             "cfg_search": (cfg_search_shapes, 5, False),
             "cfg_search_pruned": (cfg_pruned_shapes, 5, False),
-            "tracked": (tracked_shapes, 10, False),
+            "tracked": (tracked_shapes, 5, False),
             "cfg_tracked": (cfg_tracked_shapes, 5, False),
             "flagship": (FLAGSHIP_ATTENTION, 10, True),
             "finetune": (ft_shapes, 1, True),
-            "vit_train": (vit_train_shapes, 10, True),
-            "vit_eval": (vit_eval_shapes, 10, False)}, dev, timer)
+            "vit_train": (vit_train_shapes, 5, True),
+            "vit_eval": (vit_eval_shapes, 5, False)}, dev, timer)
         # the attention batches phase 2 held, for phase 15's search runs
         held = {model: {B for _, attn in paths for B, _, _ in attn}
                 for model, paths in (
@@ -4068,6 +4421,7 @@ def main() -> int:
             "vit_train": (vit_train_shapes, [])}, dev, timer)
         f32.append(train_parity(tmpdir)[1])
         paths["train"], _ = train_path(tmpdir, smi_line)
+        paths["dp_train"] = dp_path(tmpdir, smi_line)
         guided, _ = guided_eval_path(cparams, tmpdir, smi_line)
         paths.update(guided)
         f32.append(guided_parity(cparams, tmpdir)[0])

@@ -15,7 +15,14 @@ Counterpart of ``itsd_tpu/cli/runner.py`` (``build_model``,
 conditional) and the ViT, classifier-free guidance, autoguidance, every
 sampler, noise search, FID / IS / CLIP tracking, the cross-T surgery of a
 table time embedding, representation extraction and profiling. Spatial
-meshes (``train.spatial_shard``) are not yet ported and raise.
+meshes (``train.spatial_shard``) are not yet ported and raise, except in
+``run_search``, which runs each candidate whole, as JAX's does.
+
+Under ``torchrun`` (``parallel.mesh``) every rank runs the entry point:
+``train`` splits each global batch of ``train.batch_size`` rows over the
+ranks (data parallel), ``run_search`` splits the folded candidates where
+JAX's does, and the other entry points run whole on every rank. Rank 0
+alone writes files.
 
 Unlike JAX's, the model that samples is built with the time-table rows
 it samples (``build_model(cfg, inference=True)``), so that a checkpoint
@@ -51,6 +58,8 @@ from ..metrics.frechet import frechet_from, gaussian_stats
 from ..metrics.is_score import inception_score_from_probs, softmax_probs
 from ..models import (UNet, ViT, ViTConfig, cond_unet_config,
                       uncond_unet_config)
+from ..parallel import (data_group, gather_rows, is_main, replicate,
+                        world_size)
 from ..train import (OptimizerConfig, create_train_state, make_optimizer,
                      make_train_step)
 from ..train.checkpoint import (AsyncCheckpointManager, is_full_checkpoint,
@@ -287,6 +296,17 @@ def run_sampler(cfg: Config, sched, eps_fn, x_T: torch.Tensor,
                 f"diffusion.cfg_interval={list(d.cfg_interval)}: a Picard "
                 "sweep evaluates all its timesteps in one call, so guidance "
                 "cannot be switched per timestep")
+        if world_size() == 1:
+            import warnings
+            warnings.warn(
+                "diffusion.sampler=picard on one GPU is measured SLOWER than "
+                "sequential DDIM 50: 0.745x its speed unconditional and "
+                "0.229x under CFG (Picard 50 against DDIM 50 at full width, "
+                "NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py phase 13). "
+                "The convolutions are compute-bound, so folding the time "
+                "grid into the batch buys nothing without ranks to split it "
+                "over (parallel_picard_sample(shard=...)). Use sampler=ddim "
+                "or dpm here.", stacklevel=2)
         imgs, _ = parallel_picard_sample(sched, eps_fn, x_T,
                                          num_steps=steps)
         return imgs
@@ -333,16 +353,19 @@ def evaluate(cfg: Config, params=None, device="cuda") -> dict:
     size = cfg.data.img_size
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     x_T = torch.randn((eval_bs, size, size, 3), generator=gen, device=device)
-    os.makedirs(cfg.sampled_dir, exist_ok=True)
-    save_image_grid((x_T * 0.5).clamp(-1, 1).cpu().numpy(),
-                    os.path.join(cfg.sampled_dir, cfg.sampled_noisy_img_name),
-                    nrow=cfg.nrow)
+    if is_main():
+        os.makedirs(cfg.sampled_dir, exist_ok=True)
+        save_image_grid((x_T * 0.5).clamp(-1, 1).cpu().numpy(),
+                        os.path.join(cfg.sampled_dir,
+                                     cfg.sampled_noisy_img_name),
+                        nrow=cfg.nrow)
     eps_fn = sampling_eps_fn(cfg, model, conditional, eval_bs, weak)
     with torch.inference_mode():
         imgs = run_sampler(cfg, sched, eps_fn, x_T, gen)
     images = imgs.cpu().numpy()
     out_path = os.path.join(cfg.sampled_dir, cfg.sampled_img_name)
-    save_image_grid(images, out_path, nrow=cfg.nrow)
+    if is_main():
+        save_image_grid(images, out_path, nrow=cfg.nrow)
     return {"images": images, "path": out_path}
 
 
@@ -496,21 +519,22 @@ def sample_with_metrics(cfg: Config, params, feature_fn=None,
                 unit, feature_fn, logit_fn, clip_feature_fn, fid_to_real,
                 real_clip_features, cfg.train.is_splits))
 
-    os.makedirs(cfg.metrics_save_dir, exist_ok=True)
-    suffix = f"_{tag}" if tag else ""
-    with open(os.path.join(cfg.metrics_save_dir,
-                           f"metrics_history{suffix}.json"), "w") as f:
-        json.dump([{"t": h[0], "fid": h[1], "is": h[2], "clip": h[3]}
-                   for h in history], f, indent=2, default=float)
-    plot_metrics_curves(history, os.path.join(
-        cfg.metrics_save_dir, f"metrics_curves{suffix}.png"), T=sched.T)
-    final_fid = history[-1][1] if history else float("nan")
-    stamp = time.strftime("%Y%m%d_%H%M%S")
-    name = (f"sampled{suffix}_T{sched.T}_bs{eval_bs}"
-            f"_fid{final_fid:.2f}_{stamp}.png")
     images = x0.float().cpu().numpy()
-    save_image_grid(images, os.path.join(cfg.sampled_dir, name),
-                    nrow=cfg.nrow)
+    if is_main():
+        os.makedirs(cfg.metrics_save_dir, exist_ok=True)
+        suffix = f"_{tag}" if tag else ""
+        with open(os.path.join(cfg.metrics_save_dir,
+                               f"metrics_history{suffix}.json"), "w") as f:
+            json.dump([{"t": h[0], "fid": h[1], "is": h[2], "clip": h[3]}
+                       for h in history], f, indent=2, default=float)
+        plot_metrics_curves(history, os.path.join(
+            cfg.metrics_save_dir, f"metrics_curves{suffix}.png"), T=sched.T)
+        final_fid = history[-1][1] if history else float("nan")
+        stamp = time.strftime("%Y%m%d_%H%M%S")
+        name = (f"sampled{suffix}_T{sched.T}_bs{eval_bs}"
+                f"_fid{final_fid:.2f}_{stamp}.png")
+        save_image_grid(images, os.path.join(cfg.sampled_dir, name),
+                        nrow=cfg.nrow)
     return {"images": images, "history": history}
 
 
@@ -559,14 +583,15 @@ def inference_metrics(cfg: Config, feature_fn=None, logit_fn=None,
         cfg, params, feature_fn=feature_fn, logit_fn=logit_fn,
         real_features=real_features, clip_feature_fn=clip_feature_fn,
         real_clip_features=real_clip_features, device=device)
-    with open(os.path.join(cfg.metrics_save_dir, "metrics_meta.json"),
-              "w") as f:
-        json.dump({"feature_extractor": provenance,
-                   "is_logit_source": is_provenance,
-                   "clip_tracking": clip_feature_fn is not None,
-                   "is_splits": cfg.train.is_splits,
-                   "comparable_to_published_fid":
-                       provenance == "pretrained"}, f, indent=2)
+    if is_main():
+        with open(os.path.join(cfg.metrics_save_dir, "metrics_meta.json"),
+                  "w") as f:
+            json.dump({"feature_extractor": provenance,
+                       "is_logit_source": is_provenance,
+                       "clip_tracking": clip_feature_fn is not None,
+                       "is_splits": cfg.train.is_splits,
+                       "comparable_to_published_fid":
+                           provenance == "pretrained"}, f, indent=2)
     out["provenance"] = provenance
     out["is_logit_source"] = is_provenance
     return out
@@ -700,7 +725,7 @@ def _guard(cfg: Config, res, sched, eps_fn, denoise_fn, shape,
              "ratio_threshold": s.guard_ratio}
     guard["flagged"] = bool(
         guard["winner_fid_proxy"] > s.guard_ratio * max(base_mean, 1e-9))
-    if guard["flagged"]:
+    if guard["flagged"] and is_main():
         print(f"[search] WARNING: verifier-hacking guard tripped — "
               f"winner FID-proxy {guard['winner_fid_proxy']:.3f} vs "
               f"unsearched baseline {base_mean:.3f} +- {base_std:.3f} "
@@ -734,11 +759,20 @@ def run_search(cfg: Config, params=None, verifier_fn=None, device="cuda",
     Writes ``sampled_dir/search_<algorithm>_best.png``; returns
     ``{"best_score", "nfes", "guard", "result"}``. With
     ``search.guard_proxy`` the winner is checked for verifier hacking
-    (``_guard``)."""
+    (``_guard``).
+
+    Under ``torchrun`` the candidates folded into the batch (``n_fold``
+    rows, JAX's count) are split over the ranks when there are several and
+    they divide ``n_fold``, as JAX's candidate sharding; rank 0 writes.
+    ``train.spatial_shard`` > 1 does not apply: each candidate runs
+    whole."""
     from ..search import algorithms as A
 
-    if cfg.train.spatial_shard > 1:
-        raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
+    if cfg.train.spatial_shard > 1 and is_main():
+        print("[search] note: train.spatial_shard splits images in train, "
+              "eval and inference-metrics (not yet ported there); search "
+              "runs unsharded per candidate (candidates are the sharded "
+              "axis)")
     model, conditional = build_model(cfg, inference=True)
     weak = load_weak_params(cfg, conditional) if conditional else None
     if params is None:
@@ -757,6 +791,16 @@ def run_search(cfg: Config, params=None, verifier_fn=None, device="cuda",
             raise ValueError(
                 f"search.candidate_chunk={chunk} must divide "
                 f"n_candidates={s.n_candidates}")
+    n_fold = eval_bs * {"random": chunk, "zero_order": s.n_neighbors,
+                        "path": s.n_paths, "pruned": s.n_candidates,
+                        "smc": s.n_candidates}.get(s.algorithm, 1)
+    ranks, shard = world_size(), None
+    if ranks > 1 and n_fold % ranks == 0:
+        shard = data_group()
+        replicate(model, shard)
+        if is_main():
+            print(f"[search] sharding {n_fold} candidate rows over {ranks} "
+                  "devices")
 
     eps_fn = sampling_eps_fn(cfg, model, conditional, eval_bs, weak)
 
@@ -787,7 +831,7 @@ def run_search(cfg: Config, params=None, verifier_fn=None, device="cuda",
                       lambda site, i, t, c=ci: noise_fn(site + (c,), i, t))
                 r = A.random_search(shape, denoise_fn, verifier_fn,
                                     n_candidates=chunk, generator=gen,
-                                    noise_fn=nf)
+                                    noise_fn=nf, shard=shard)
                 read = torch.cat([r.best_score.reshape(1),
                                   r.history["scores"]]).float().cpu()
                 bsc = float(read[0])
@@ -803,7 +847,8 @@ def run_search(cfg: Config, params=None, verifier_fn=None, device="cuda",
                 initial(), denoise_fn, verifier_fn,
                 n_neighbors=s.n_neighbors, lambda_radius=s.lambda_radius,
                 n_iterations=s.n_iterations, neighbor_mode=s.neighbor_mode,
-                return_images=True, generator=gen, noise_fn=noise_fn)
+                return_images=True, generator=gen, noise_fn=noise_fn,
+                shard=shard)
         elif s.algorithm == "path":
             steps = tuple(s.injection_steps)
             r = A.path_search(
@@ -811,7 +856,7 @@ def run_search(cfg: Config, params=None, verifier_fn=None, device="cuda",
                 n_active=s.n_active, injection_steps=steps,
                 delta_f=s.delta_f, clip_denoised=d.clip_denoised,
                 segment=_cli_segment(cfg, sched, eps_fn), generator=gen,
-                noise_fn=noise_fn)
+                noise_fn=noise_fn, shard=shard)
             res = A.SearchResult(
                 r.best_noise, r.best_score, r.best_images,
                 {"scores": r.history["scores"],
@@ -825,7 +870,7 @@ def run_search(cfg: Config, params=None, verifier_fn=None, device="cuda",
                 n_candidates=s.n_candidates, prune_schedule=psched,
                 clip_denoised=d.clip_denoised,
                 segment=_cli_segment(cfg, sched, eps_fn), generator=gen,
-                noise_fn=noise_fn)
+                noise_fn=noise_fn, shard=shard)
             psc, fsc = r.history["prune_scores"], r.history["final_scores"]
             # "scores": the whole initial pool's x0-hat scores (round 0)
             res = A.SearchResult(
@@ -843,7 +888,7 @@ def run_search(cfg: Config, params=None, verifier_fn=None, device="cuda",
                 lambda_scale=s.smc_lambda_scale,
                 clip_denoised=d.clip_denoised,
                 segment=_cli_segment(cfg, sched, eps_fn), generator=gen,
-                noise_fn=noise_fn)
+                noise_fn=noise_fn, shard=shard)
             ess = r.history["ess"].cpu().numpy()
             resampled = r.history["resampled"].cpu().numpy()
             # "scores": the initial pool's first-checkpoint x0-hat scores
@@ -855,9 +900,10 @@ def run_search(cfg: Config, params=None, verifier_fn=None, device="cuda",
                                      for a in r.history["resample_scores"]],
                  "ess": ess, "resampled": resampled,
                  "resample_steps": list(rsteps)}, r.nfes)
-            print(f"[search] smc ess per resample point: "
-                  f"{np.round(ess, 2).tolist()} "
-                  f"(resampled: {resampled.tolist()})")
+            if is_main():
+                print(f"[search] smc ess per resample point: "
+                      f"{np.round(ess, 2).tolist()} "
+                      f"(resampled: {resampled.tolist()})")
         elif s.algorithm == "gradient":
             solver_steps = (min(d.ddim_steps, sched.T)
                             if d.sampler == "dpm" else None)
@@ -866,7 +912,7 @@ def run_search(cfg: Config, params=None, verifier_fn=None, device="cuda",
                 n_iterations=s.n_iterations, lr=s.gradient_lr,
                 return_images=True, solver_steps=solver_steps,
                 clip_denoised=d.clip_denoised, generator=gen,
-                noise_fn=noise_fn)
+                noise_fn=noise_fn, shard=shard)
         else:
             raise ValueError(f"unknown search algorithm: {s.algorithm!r}")
 
@@ -874,12 +920,13 @@ def run_search(cfg: Config, params=None, verifier_fn=None, device="cuda",
     if s.guard_proxy and res.best_images is not None:
         guard = _guard(cfg, res, sched, eps_fn, denoise_fn, shape, device)
 
-    os.makedirs(cfg.sampled_dir, exist_ok=True)
-    if res.best_images is not None:
-        save_image_grid(res.best_images.float().cpu().numpy(),
-                        os.path.join(cfg.sampled_dir,
-                                     f"search_{s.algorithm}_best.png"),
-                        nrow=cfg.nrow)
+    if is_main():
+        os.makedirs(cfg.sampled_dir, exist_ok=True)
+        if res.best_images is not None:
+            save_image_grid(res.best_images.float().cpu().numpy(),
+                            os.path.join(cfg.sampled_dir,
+                                         f"search_{s.algorithm}_best.png"),
+                            nrow=cfg.nrow)
     return {"best_score": float(res.best_score), "nfes": res.nfes,
             "guard": guard, "result": res}
 
@@ -937,11 +984,24 @@ def train(cfg: Config, max_steps: Optional[int] = None,
     ``train.profile_steps`` = n the first n steps are traced into
     ``metrics_save_dir/trace/trace.json`` (``utils.profiling``).
 
+    Under ``torchrun`` this is data parallel: ``train.batch_size`` is the
+    global batch, which the world size must divide; each rank trains on its
+    rows (``make_train_step(shard=...)``), the representations are gathered
+    to the global batch's rows, and rank 0 alone writes the checkpoints,
+    ``train_metrics.jsonl``, the loss curve, the sample grids, the trace
+    and the representations. The in-train evals run on every rank.
+
     Returns the final loss, the step count, the checkpoint paths, the
     per-step losses, the metric histories, the trace's path (or None) and
     the ``TrainState``."""
     if cfg.train.spatial_shard > 1:
         raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
+    ranks = world_size()
+    if cfg.train.batch_size % ranks:
+        raise ValueError(
+            f"train.batch_size={cfg.train.batch_size} is the global batch: "
+            f"the world size {ranks} must divide it")
+    shard, main = data_group(), is_main()
     model, conditional = build_model(cfg)
     weak = load_weak_params(cfg, conditional) if conditional else None
     sched = build_schedule(cfg, device=device)
@@ -951,7 +1011,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
         images, labels, tracked = _tracked_eval_setup(cfg, images, labels,
                                                       device)
     it = BatchIterator(images, labels if conditional else None,
-                       cfg.train.batch_size, seed=cfg.data.seed)
+                       cfg.train.batch_size, seed=cfg.data.seed, shard=shard)
     if len(it) == 0:
         raise ValueError(
             f"train.batch_size={cfg.train.batch_size} exceeds the dataset "
@@ -962,6 +1022,8 @@ def train(cfg: Config, max_steps: Optional[int] = None,
         model.load_state_dict(restore_params(os.path.join(
             cfg.save_weight_dir, cfg.train.training_load_weight)))
     model.to(device)
+    if shard is not None:
+        replicate(model, shard)
     tx = make_optimizer(OptimizerConfig(
         lr=cfg.train.lr, weight_decay=cfg.train.weight_decay,
         grad_clip=cfg.train.grad_clip, multiplier=cfg.train.multiplier,
@@ -974,15 +1036,17 @@ def train(cfg: Config, max_steps: Optional[int] = None,
         loss_reduction=cfg.train.loss_reduction,
         loss_weighting=cfg.train.loss_weighting,
         snr_gamma=cfg.train.snr_gamma, label_dropout=cfg.train.label_dropout,
-        ema_decay=cfg.train.ema_decay)
+        ema_decay=cfg.train.ema_decay, shard=shard)
 
     logger = MetricsLogger(
-        os.path.join(cfg.metrics_save_dir, "train_metrics.jsonl"))
+        os.path.join(cfg.metrics_save_dir, "train_metrics.jsonl")
+        if main else None, also_print=main)
     generator = make_train_key(cfg, device)
     prefetch = (threaded_prefetch if cfg.train.threaded_input
                 else prefetch_to_device)
-    ckpt_mgr = AsyncCheckpointManager() if cfg.train.async_checkpoint else None
-    profiler = trace_steps(cfg.train.profile_steps,
+    ckpt_mgr = (AsyncCheckpointManager()
+                if cfg.train.async_checkpoint and main else None)
+    profiler = trace_steps(cfg.train.profile_steps if main else 0,
                            os.path.join(cfg.metrics_save_dir, "trace"))
     extract_freq = cfg.train.extract_representation_freq if conditional \
         else 0
@@ -997,10 +1061,12 @@ def train(cfg: Config, max_steps: Optional[int] = None,
                 metrics.append(step_fn(state, batch, generator))
             step += 1
             if extract_freq and batch_i % extract_freq == 0:
-                reps.append(_representation(state.model, batch, sched.T))
+                reps.append(tuple(gather_rows(a, shard) for a in
+                                  _representation(state.model, batch,
+                                                  sched.T)))
             if max_steps is not None and step >= max_steps:
                 break
-        if reps and cfg.train.save_representations:
+        if reps and cfg.train.save_representations and main:
             rep_dir = os.path.join(cfg.save_weight_dir, "representations")
             os.makedirs(rep_dir, exist_ok=True)
             np.savez(os.path.join(rep_dir, f"epoch_{epoch}.npz"),
@@ -1025,7 +1091,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
             path = os.path.join(cfg.save_weight_dir, f"ckpt_{epoch}")
             if ckpt_mgr is not None:
                 ckpt_mgr.save(path, state)
-            else:
+            elif main:
                 save_checkpoint(path, state)
             ckpts.append(path)
         if (epoch + 1) % cfg.train.eval_freq == 0:
@@ -1047,7 +1113,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
     if ckpt_mgr is not None:
         ckpt_mgr.close()
     profiler.close()
-    if losses:
+    if losses and main:
         plot_loss_curve(losses, os.path.join(cfg.metrics_save_dir,
                                              "loss_curve.png"))
     logger.close()
@@ -1122,8 +1188,9 @@ def _sample_grid_during_training(cfg: Config, state, epoch: int,
     with torch.inference_mode():
         imgs = run_sampler(cfg, sched, eps_fn, x_T, gen)
     path = os.path.join(cfg.sampled_dir, f"epoch_{epoch}_sampled.png")
-    os.makedirs(cfg.sampled_dir, exist_ok=True)
-    save_image_grid(imgs.cpu().numpy(), path, nrow=cfg.nrow)
+    if is_main():
+        os.makedirs(cfg.sampled_dir, exist_ok=True)
+        save_image_grid(imgs.cpu().numpy(), path, nrow=cfg.nrow)
     return path
 
 
@@ -1183,7 +1250,8 @@ def finetune_extended_T(cfg: Config, max_steps: Optional[int] = None,
             losses.extend(torch.stack(epoch_losses).float().cpu().tolist())
         path = os.path.join(cfg.save_weight_dir,
                             f"fine_tuned_T{cfg.diffusion.T}_epoch_{epoch}")
-        save_params(path, model.state_dict())
+        if is_main():
+            save_params(path, model.state_dict())
         ckpts.append(path)
         if max_steps is not None and step >= max_steps:
             break

@@ -10,10 +10,12 @@ timestep indices on the images' device, so no step waits on the host.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..parallel import draw, row_windows
 from .schedules import DiffusionSchedule
 
 # eps_fn(x_t [B,...], t [B]) -> predicted noise [B,...]. A guided eps_fn
@@ -45,15 +47,16 @@ def diffusion_train_terms(
     noise: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(t, noise, x_t) for one training step: uniform t in [0, T) and
-    gaussian noise drawn from ``generator`` (t first), unless passed in.
-    JAX draws both from a split threefry key, which torch cannot
-    reproduce, so the tests pass JAX's t and noise in."""
+    gaussian noise drawn from ``generator`` (t first), unless passed in;
+    a ``parallel.RowDraws`` draws them for the global batch and keeps this
+    rank's rows. JAX draws both from a split threefry key, which torch
+    cannot reproduce, so the tests pass JAX's t and noise in."""
     if t is None:
-        t = torch.randint(0, sched.T, (x_0.shape[0],), generator=generator,
-                          device=x_0.device)
+        t = draw(functools.partial(torch.randint, 0, sched.T),
+                 (x_0.shape[0],), generator, device=x_0.device)
     if noise is None:
-        noise = torch.randn(x_0.shape, generator=generator, dtype=x_0.dtype,
-                            device=x_0.device)
+        noise = draw(torch.randn, x_0.shape, generator, dtype=x_0.dtype,
+                     device=x_0.device)
     return t, noise, q_sample(sched, x_0, t, noise)
 
 
@@ -156,9 +159,7 @@ def _validate_interval(interval) -> None:
             "never activate; want lo <= hi (lo == hi means guidance off)")
 
 
-def _tile_labels(labels: torch.Tensor, batch: int) -> torch.Tensor:
-    """Labels [B] for a batch that folds several candidates of each
-    position (N*B rows): tiled across the fold."""
+def _tile(labels: torch.Tensor, batch: int) -> torch.Tensor:
     n = labels.shape[0]
     if batch == n:
         return labels
@@ -166,6 +167,17 @@ def _tile_labels(labels: torch.Tensor, batch: int) -> torch.Tensor:
         raise ValueError(f"batch {batch} is not a multiple of the "
                          f"{n} labels")
     return labels.repeat(batch // n)
+
+
+def _tile_labels(labels: torch.Tensor, batch: int) -> torch.Tensor:
+    """Labels [B] for a batch that folds several candidates of each
+    position (N*B rows): tiled across the fold. On a rank's rows of a fold
+    split over the ranks (``parallel.on_local_rows``), the labels are tiled
+    over each open window's global rows and cut to the window's, so each
+    row has its global row's label."""
+    for start, rows, total in row_windows():
+        labels = _tile(labels, total)[start:start + rows]
+    return _tile(labels, batch)
 
 
 def _guided_now(interval, step: Optional[int]) -> bool:

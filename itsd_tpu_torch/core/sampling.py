@@ -45,6 +45,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import draw, local_rows, on_local_rows, under_row_windows
 from .process import EpsFn, p_sample_step
 from .schedules import DiffusionSchedule
 
@@ -63,8 +64,8 @@ def _eps(eps_fn: EpsFn, x: torch.Tensor, t: int) -> torch.Tensor:
 def _draw(x: torch.Tensor, i: int, t: int, generator, noise_fn):
     if noise_fn is not None:
         return noise_fn(i, t)
-    return torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                       device=x.device)
+    return draw(torch.randn, x.shape, generator, dtype=x.dtype,
+                device=x.device)
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -93,7 +94,10 @@ def _scan_steps(sched: DiffusionSchedule, eps_fn: EpsFn, x: torch.Tensor,
     backward, as ``jax.checkpoint`` does in JAX's scan. The checkpoint
     restores only the global generators, so each step's noise is drawn
     before the checkpointed call and passed in: the recompute then sees the
-    same noise, and the generator advances once a step."""
+    same noise, and the generator advances once a step. The recompute runs
+    under the windows of global rows open at the forward
+    (``parallel.under_row_windows``), so a guided eps_fn on a rank's rows
+    tiles its labels alike in both."""
     B = x.shape[0]
     takes_step = getattr(eps_fn, "takes_step", False)
 
@@ -102,6 +106,8 @@ def _scan_steps(sched: DiffusionSchedule, eps_fn: EpsFn, x: torch.Tensor,
         eps = eps_fn(x, tb, step=t) if takes_step else eps_fn(x, tb)
         return p_sample_step(sched, x, tb, eps, noise, clip_x0=clip_x0)
 
+    if remat:
+        step = under_row_windows(step)
     for i, t in enumerate(range(t_hi - 1, t_lo - 1, -1)):
         noise = _draw(x, i, t, generator, noise_fn)
         if remat:
@@ -485,8 +491,8 @@ def dpm_solver_sample(sched: DiffusionSchedule, eps_fn: EpsFn,
 def parallel_picard_sample(sched: DiffusionSchedule, eps_fn: EpsFn,
                            x_T: torch.Tensor, *, num_steps: int = 50,
                            max_iters: Optional[int] = None,
-                           tol: float = 1e-3, clip_output: bool = True
-                           ) -> Tuple[torch.Tensor, int]:
+                           tol: float = 1e-3, clip_output: bool = True,
+                           shard=None) -> Tuple[torch.Tensor, int]:
     """Parallel-in-time sampling by Picard iteration (ParaDiGMS, Shih et
     al. 2023) over the deterministic DDIM recurrence
     ``x_{j+1} = c_j x_j + d_j eps(x_j, t_j)`` on a float64 numpy grid.
@@ -499,7 +505,11 @@ def parallel_picard_sample(sched: DiffusionSchedule, eps_fn: EpsFn,
     whose delta, the largest over the grid points of the mean |change|,
     is <= ``tol``: delta is read back to the host once a sweep. The timesteps
     of a sweep differ, so an eps_fn that decides a guidance interval from
-    its step cannot run here. Returns ``(x_0, sweeps)``."""
+    its step cannot run here. With ``shard`` (a process group;
+    ``parallel.mesh``) each sweep's n*B rows are split over its ranks, each
+    rank evaluates its ``local_rows`` and the eps are gathered back, so
+    every rank refreshes the whole trajectory; the world size must divide
+    n*B. Returns ``(x_0, sweeps)``."""
     T = sched.T
     n = num_steps
     if not 2 <= n <= T:
@@ -516,13 +526,20 @@ def parallel_picard_sample(sched: DiffusionSchedule, eps_fn: EpsFn,
     B = x_T.shape[0]
     dev = x_T.device
     t_fold = _to_device(np.repeat(ts, B), dev)
+    if shard is not None:
+        t_fold = local_rows(t_fold, shard)
     bshape = (n,) + (1,) * x_T.dim()
     cm1 = _to_device((c - 1.0).astype(np.float32), dev).reshape(bshape)
     dd = _to_device(d.astype(np.float32), dev).reshape(bshape)
     X = x_T.unsqueeze(0).expand((n,) + x_T.shape)
     final, sweeps = x_T, 0
     while sweeps < max_iters:
-        eps = eps_fn(X.reshape((n * B,) + x_T.shape[1:]), t_fold)
+        flat = X.reshape((n * B,) + x_T.shape[1:])
+        if shard is None:
+            eps = eps_fn(flat, t_fold)
+        else:
+            eps = on_local_rows(lambda rows: eps_fn(rows, t_fold), flat,
+                                shard)
         g = cm1 * X + dd * eps.reshape(X.shape)
         cums = torch.cumsum(g, dim=0)
         X_new = torch.cat([X[:1], x_T.unsqueeze(0) + cums[:-1]])

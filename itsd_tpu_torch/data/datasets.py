@@ -25,18 +25,24 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import local_rows
+
 
 class BatchIterator:
-    """Shuffling batch iterator over in-memory arrays."""
+    """Shuffling batch iterator over in-memory arrays. With ``shard`` (a
+    process group) it shuffles and flips the global batch of
+    ``batch_size`` rows as one process does and yields this rank's
+    ``local_rows`` of it."""
 
     def __init__(self, images: np.ndarray, labels: Optional[np.ndarray],
                  batch_size: int, seed: int = 0, flip: bool = True,
-                 drop_remainder: bool = True):
+                 drop_remainder: bool = True, shard=None):
         self.images = images
         self.labels = labels
         self.batch_size = batch_size
         self.flip = flip
         self.drop_remainder = drop_remainder
+        self.shard = shard
         self._rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -57,6 +63,9 @@ class BatchIterator:
             batch = {"image": imgs.astype(np.float32)}
             if self.labels is not None:
                 batch["label"] = self.labels[idx].astype(np.int32)
+            if self.shard is not None:
+                batch = {k: local_rows(v, self.shard)
+                         for k, v in batch.items()}
             yield batch
 
 

@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import spatial_attention
 from ..kernels.groupnorm import groupnorm_swish
+from ..parallel import draw
 from .embeddings import (TINY_GAIN, ConditionalEmbedding, Dense,
                          FunctionalTimeEmbedding, TableTimeEmbedding)
 
@@ -161,11 +162,13 @@ class AttnBlock(nn.Module):
 def dropout(h: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout as Flax's ``nn.Dropout``: keep each element with
-    probability 1 - rate and divide the kept ones by it."""
+    probability 1 - rate and divide the kept ones by it. A ``RowDraws``
+    generator draws the mask for the global batch and keeps this rank's
+    rows (``parallel.draw``)."""
     if rate == 0.0:
         return h
     keep = 1.0 - rate
-    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    mask = draw(torch.rand, h.shape, generator, device=h.device) < keep
     return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype,
                                                    device=h.device))
 

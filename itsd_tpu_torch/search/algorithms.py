@@ -41,6 +41,14 @@ cannot reproduce. Each algorithm takes ``generator=``, a
   its k-th resample point, drawn whether or not it resamples.
 
 The parity tests feed JAX's draws through it.
+
+Sharding (``shard=``, a process group; ``parallel.mesh``): every rank runs
+the whole algorithm, and where a fold of candidates meets the model (the
+candidates' and neighbours' denoising, the forking searches' segments and
+x0-hat scoring, gradient search's chain) each rank denoises its
+``local_rows`` and ``gather_rows`` puts the fold back together. Every draw
+is made for the whole fold on every rank, so selection, resampling and
+Adam agree on every rank and the result is the unsharded one's.
 """
 
 from __future__ import annotations
@@ -57,6 +65,8 @@ from ..core.process import EpsFn, predict_x0_from_eps
 from ..core.sampling import (_eps, dpm_solver_sample, make_segment_denoiser,
                              renoise, sample)
 from ..core.schedules import DiffusionSchedule
+from ..parallel import (all_reduce_sum_, on_local_rows, sharded_rows,
+                        world_size)
 
 # denoise_fn(noise [B,...], generator, noise_fn(i, t) or None) -> images
 DenoiseFn = Callable[..., torch.Tensor]
@@ -122,21 +132,35 @@ def _score_candidates(verifier_fn: VerifierFn,
 
 
 def _x0_hat(sched: DiffusionSchedule, eps_fn: EpsFn, x: torch.Tensor,
-            t: int) -> torch.Tensor:
+            t: int, shard=None) -> torch.Tensor:
     """The clamped x0 prediction of state x at timestep t (one model
-    evaluation)."""
+    evaluation), on this rank's rows when ``shard``."""
+    if shard is not None:
+        return on_local_rows(lambda rows: _x0_hat(sched, eps_fn, rows, t),
+                             x, shard)
     tb = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
     return predict_x0_from_eps(sched, x, tb, _eps(eps_fn, x, t)).clamp(
         -1.0, 1.0)
 
 
+def _run_segment(seg_fn, x, hi, lo, generator, noise_fn, shard,
+                 **kw) -> torch.Tensor:
+    """``seg_fn(x, hi, lo)``, on this rank's rows when ``shard``
+    (``parallel.sharded_rows``)."""
+    return sharded_rows(
+        lambda x, g, nf: seg_fn(x, hi, lo, generator=g, noise_fn=nf, **kw),
+        x, generator, noise_fn, shard)
+
+
 def _denoise_candidates(denoise_fn: DenoiseFn, noises: torch.Tensor,
-                        generator, noise_fn=None) -> torch.Tensor:
+                        generator, noise_fn=None,
+                        shard=None) -> torch.Tensor:
     """[N, B, ...] candidate noises -> [N, B, ...] images through ONE
-    batched sampler call (candidates folded into the batch axis)."""
+    batched sampler call (candidates folded into the batch axis), split
+    over the ranks when ``shard``."""
     n, b = noises.shape[:2]
     flat = noises.reshape((n * b,) + tuple(noises.shape[2:]))
-    images = denoise_fn(flat, generator, noise_fn)
+    images = sharded_rows(denoise_fn, flat, generator, noise_fn, shard)
     return images.reshape((n, b) + tuple(images.shape[1:]))
 
 
@@ -144,13 +168,14 @@ def random_search(noise_shape: Tuple[int, ...], denoise_fn: DenoiseFn,
                   verifier_fn: VerifierFn, n_candidates: int = 4,
                   return_images: bool = True, *,
                   generator: Optional[torch.Generator] = None,
-                  noise_fn: Optional[SearchNoiseFn] = None) -> SearchResult:
+                  noise_fn: Optional[SearchNoiseFn] = None,
+                  shard=None) -> SearchResult:
     """Best-of-N over i.i.d. initial noises; ``noise_shape`` is one
     candidate's batch (B, H, W, C)."""
     noises = _normal((n_candidates,) + tuple(noise_shape), ("candidates",),
                      0, generator, noise_fn)
     images = _denoise_candidates(denoise_fn, noises, generator,
-                                 _site(noise_fn, "denoise", 0))
+                                 _site(noise_fn, "denoise", 0), shard)
     scores = _score_candidates(verifier_fn, images)
     best = _argmax(scores)
     return SearchResult(
@@ -193,6 +218,7 @@ def zero_order_search(
     return_images: bool = False, *,
     generator: Optional[torch.Generator] = None,
     noise_fn: Optional[SearchNoiseFn] = None,
+    shard=None,
 ) -> SearchResult:
     """Pivot-based local search in noise space. Per iteration all
     neighbours denoise as one batch; the pivot moves to the best neighbour
@@ -208,7 +234,7 @@ def zero_order_search(
                                       neighbor_mode, generator=generator,
                                       eps=eps)
         images = _denoise_candidates(denoise_fn, neighbors, generator,
-                                     _site(noise_fn, "denoise", it))
+                                     _site(noise_fn, "denoise", it), shard)
         scores = _score_candidates(verifier_fn, images)
         i = _argmax(scores)
         it_best_score = _pick(scores, i)
@@ -272,6 +298,7 @@ def path_search(
     segment=None, *,
     generator: Optional[torch.Generator] = None,
     noise_fn: Optional[SearchNoiseFn] = None,
+    shard=None,
 ) -> SearchResult:
     """Search over paths: ``n_paths`` noises denoise together to the first
     injection step; there each path's x0-hat is scored (one extra model
@@ -302,10 +329,10 @@ def path_search(
     t_prev = sched.T
     nfes = 0.0
     for k, t_inj in enumerate(steps):
-        x = seg_fn(x, t_prev, t_inj, generator=generator,
-                   noise_fn=_site(noise_fn, "segment", k))
+        x = _run_segment(seg_fn, x, t_prev, t_inj, generator,
+                         _site(noise_fn, "segment", k), shard)
         nfes += n_paths * seg_cost(t_prev, t_inj) / sched.T
-        x0_hat = _x0_hat(sched, eps_fn, x, t_inj - 1)
+        x0_hat = _x0_hat(sched, eps_fn, x, t_inj - 1, shard)
         scores = _score_candidates(verifier_fn, per_path(x0_hat))
         score_log.append(scores)
         nfes += n_paths / sched.T
@@ -317,8 +344,9 @@ def path_search(
                     t_prev, generator=generator,
                     noise_fn=_site(noise_fn, "renoise", k))
 
-    x = seg_fn(x, t_prev, 0, clip_output=True, generator=generator,
-               noise_fn=_site(noise_fn, "segment", len(steps)))
+    x = _run_segment(seg_fn, x, t_prev, 0, generator,
+                     _site(noise_fn, "segment", len(steps)), shard,
+                     clip_output=True)
     nfes += n_paths * seg_cost(t_prev, 0) / sched.T
     finals = per_path(x)
     final_scores = _score_candidates(verifier_fn, finals)
@@ -364,13 +392,16 @@ def pruned_search(
     segment=None, *,
     generator: Optional[torch.Generator] = None,
     noise_fn: Optional[SearchNoiseFn] = None,
+    shard=None,
 ) -> SearchResult:
     """Successive halving over noise: ``n_candidates`` noises denoise
     together; at each ``(t, keep)`` of ``prune_schedule`` every candidate's
     x0-hat is scored (one extra model evaluation) and the ``keep`` best
     survive; the survivors finish to t=0. Pruning only narrows, so a
     winner is a true sample of the chain. ``segment`` as in
-    ``path_search``."""
+    ``path_search``. With ``shard``, a population stays split over the
+    ranks while the world size divides its rows, as JAX's constraint does,
+    and runs whole on every rank after that."""
     sched_pairs = sorted((tuple(map(int, p)) for p in prune_schedule),
                          reverse=True)
     seen_t = [t for t, _ in sched_pairs]
@@ -397,13 +428,19 @@ def pruned_search(
     x = x.reshape((-1,) + noise_shape[1:])
     per_cand = lambda a, n: a.reshape((n,) + noise_shape)  # noqa: E731
 
+    def split(a):
+        """``shard`` while the world size divides ``a``'s rows."""
+        if shard is None or a.shape[0] % world_size(shard):
+            return None
+        return shard
+
     score_log = []
     t_prev = sched.T
     for k, (t_p, keep) in enumerate(sched_pairs):
-        x = seg_fn(x, t_prev, t_p, generator=generator,
-                   noise_fn=_site(noise_fn, "segment", k))
+        x = _run_segment(seg_fn, x, t_prev, t_p, generator,
+                         _site(noise_fn, "segment", k), split(x))
         eval_units += n_now * (seg_cost(t_prev, t_p) + 1) / sched.T
-        x0_hat = _x0_hat(sched, eps_fn, x, t_p - 1)
+        x0_hat = _x0_hat(sched, eps_fn, x, t_p - 1, split(x))
         scores = _score_candidates(verifier_fn, per_cand(x0_hat, n_now))
         score_log.append(scores)
         top_idx = _top_k(scores, keep)
@@ -412,8 +449,9 @@ def pruned_search(
         x = x.reshape((-1,) + noise_shape[1:])
         t_prev = t_p
 
-    x = seg_fn(x, t_prev, 0, clip_output=True, generator=generator,
-               noise_fn=_site(noise_fn, "segment", len(sched_pairs)))
+    x = _run_segment(seg_fn, x, t_prev, 0, generator,
+                     _site(noise_fn, "segment", len(sched_pairs)), split(x),
+                     clip_output=True)
     eval_units += n_now * seg_cost(t_prev, 0) / sched.T
     finals = per_cand(x, n_now)
     final_scores = _score_candidates(verifier_fn, finals)
@@ -474,6 +512,7 @@ def smc_search(
     lambda_scale: str = "absolute", *,
     generator: Optional[torch.Generator] = None,
     noise_fn: Optional[SearchNoiseFn] = None,
+    shard=None,
 ) -> SearchResult:
     """Sequential Monte Carlo steering over the denoising trajectory
     (Feynman-Kac steering, Singhal et al. 2025). ``n_particles`` noises
@@ -513,10 +552,10 @@ def smc_search(
     t_prev = sched.T
     nfes = 0.0
     for k, t_r in enumerate(steps):
-        x = seg_fn(x, t_prev, t_r, generator=generator,
-                   noise_fn=_site(noise_fn, "segment", k))
+        x = _run_segment(seg_fn, x, t_prev, t_r, generator,
+                         _site(noise_fn, "segment", k), shard)
         nfes += n * seg_cost(t_prev, t_r) / sched.T
-        x0_hat = _x0_hat(sched, eps_fn, x, t_r - 1)
+        x0_hat = _x0_hat(sched, eps_fn, x, t_r - 1, shard)
         scores = _nan_to_neg_inf(
             _score_candidates(verifier_fn, per_particle(x0_hat)))
         nfes += n / sched.T
@@ -551,8 +590,9 @@ def smc_search(
                             log_w.index_select(0, idx))
         t_prev = t_r
 
-    x = seg_fn(x, t_prev, 0, clip_output=True, generator=generator,
-               noise_fn=_site(noise_fn, "segment", len(steps)))
+    x = _run_segment(seg_fn, x, t_prev, 0, generator,
+                     _site(noise_fn, "segment", len(steps)), shard,
+                     clip_output=True)
     nfes += n * seg_cost(t_prev, 0) / sched.T
     finals = per_particle(x)
     final_scores = _score_candidates(verifier_fn, finals)
@@ -597,6 +637,7 @@ def gradient_search(
     clip_denoised: bool = False, *,
     generator: Optional[torch.Generator] = None,
     noise_fn: Optional[SearchNoiseFn] = None,
+    shard=None,
 ) -> SearchResult:
     """Adam on the noise tensor against a differentiable verifier. By
     default the gradient flows through the ancestral chain with each step
@@ -605,15 +646,20 @@ def gradient_search(
     deterministic DPM-Solver++(2M) chain instead (``solver_steps``
     evaluations an iteration, activations of all of them held). Best
     tracking is a device-side select on the score at the pre-update noise;
-    the model's parameters should not require grad."""
-    def score_of(noise, it):
+    the model's parameters should not require grad. With ``shard`` each
+    rank runs the chain on its rows of the noise and the verifier on the
+    gathered images; the gradient of its rows is summed over the ranks
+    into the whole noise's."""
+    def chain(noise, gen, nf, remat):
         if solver_steps is not None:
-            images = dpm_solver_sample(sched, eps_fn, noise,
-                                       num_steps=solver_steps)
-        else:
-            images = sample(sched, eps_fn, noise, generator=generator,
-                            noise_fn=_site(noise_fn, "denoise", it),
-                            remat=True, clip_denoised=clip_denoised)
+            return dpm_solver_sample(sched, eps_fn, noise,
+                                     num_steps=solver_steps)
+        return sample(sched, eps_fn, noise, generator=gen, noise_fn=nf,
+                      remat=remat, clip_denoised=clip_denoised)
+
+    def score_of(noise, it):
+        images = sharded_rows(functools.partial(chain, remat=True), noise,
+                            generator, _site(noise_fn, "denoise", it), shard)
         return verifier_fn(images)
 
     noise = initial_noise.detach()
@@ -627,6 +673,8 @@ def gradient_search(
             x = noise.clone().requires_grad_(True)
             loss = -score_of(x, it)
             (g,) = torch.autograd.grad(loss, x)
+        if shard is not None:
+            all_reduce_sum_([g], shard)  # each rank's rows, zeros elsewhere
         loss = loss.detach()
         score = _nan_to_neg_inf(-loss)
         # the score was evaluated AT `noise` (pre-update), so `noise` is
@@ -642,14 +690,9 @@ def gradient_search(
     result_images = None
     if return_images:
         with torch.no_grad():
-            if solver_steps is not None:
-                result_images = dpm_solver_sample(sched, eps_fn, best_noise,
-                                                  num_steps=solver_steps)
-            else:
-                result_images = sample(
-                    sched, eps_fn, best_noise, generator=generator,
-                    noise_fn=_site(noise_fn, "denoise", n_iterations),
-                    clip_denoised=clip_denoised)
+            result_images = sharded_rows(
+                functools.partial(chain, remat=False), best_noise,
+                generator, _site(noise_fn, "denoise", n_iterations), shard)
     return SearchResult(
         best_noise=best_noise,
         best_score=best_score,

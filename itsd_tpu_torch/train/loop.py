@@ -16,6 +16,13 @@ arithmetic, not torch's helpers:
 Unlike the JAX step, which is pure, this one updates the model, the
 optimizer's moments and the EMA in place. It makes no host sync: the loss
 and the pre-clip gradient norm come back as device tensors.
+
+Data parallel (``shard``, a process group): each rank holds the model and
+takes its rows of the global batch; every draw is made for the global batch
+and cut to the rank's rows (``parallel.RowDraws``), and the gradients and
+the loss are summed over the ranks and scaled to the global batch's before
+the clip, so that the clip, AdamW and the EMA run alike on every rank and
+the result does not depend on the world size.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 from ..core.process import (diffusion_train_terms, loss_reduce,
                             min_snr_weight, mse_elementwise)
 from ..core.schedules import DiffusionSchedule
+from ..parallel import RowDraws, all_reduce_sum_, draw, local_rows, world_size
 from .schedule import warmup_cosine_epochs
 
 
@@ -109,7 +117,7 @@ def make_train_step(sched: DiffusionSchedule, *, conditional: bool = False,
                     loss_reduction: str = "mean",
                     loss_weighting: str = "none", snr_gamma: float = 5.0,
                     label_dropout: float = 0.1,
-                    ema_decay: Optional[float] = 0.999):
+                    ema_decay: Optional[float] = 0.999, shard=None):
     """``step_fn(state, batch, generator, t=None, noise=None, drop=None)
     -> metrics``.
 
@@ -123,19 +131,35 @@ def make_train_step(sched: DiffusionSchedule, *, conditional: bool = False,
     holds the loss and the pre-clip gradient norm as device tensors. The
     step updates, clips and decays the optimizer's parameters only; the
     norm is theirs (JAX's metric is over every gradient, which is the same
-    set unless the time-embedding fine-tune froze the rest)."""
+    set unless the time-embedding fine-tune froze the rest).
+
+    With ``shard`` (a process group; see the module docstring) ``batch`` is
+    this rank's rows of the global batch, the draws and any ``t``,
+    ``noise`` and ``drop`` passed in are the global batch's, and the loss
+    and the gradient norm are the global batch's."""
     if loss_weighting not in ("none", "min_snr"):
         raise ValueError(f"unknown loss weighting: {loss_weighting!r}")
+    # the global loss over W ranks of equal batches: the mean of the
+    # ranks' means, or for sum / b^2 their sum over W^2
+    ranks = world_size(shard) if shard is not None else 1
+    rank_weight = 1.0 / (ranks if loss_reduction == "mean"
+                         else ranks * ranks)
+
+    def rows(a):
+        return a if a is None or shard is None else local_rows(a, shard)
 
     def loss_fn(model, batch, generator, t, noise, drop):
+        if shard is not None:
+            generator = RowDraws(generator, shard)
+        t, noise, drop = rows(t), rows(noise), rows(drop)
         t, noise, x_t = diffusion_train_terms(sched, generator,
                                               batch["image"], t, noise)
         labels = None
         if conditional:
             labels = batch["label"].long() + 1
             if drop is None:
-                drop = torch.rand(labels.shape, generator=generator,
-                                  device=labels.device) < label_dropout
+                drop = draw(torch.rand, labels.shape, generator,
+                            device=labels.device) < label_dropout
             labels = torch.where(drop, torch.zeros_like(labels), labels)
         eps = model(x_t, t, labels, deterministic=False, generator=generator)
         per_elem = mse_elementwise(eps, noise)
@@ -159,6 +183,13 @@ def make_train_step(sched: DiffusionSchedule, *, conditional: bool = False,
         for p in params:  # optax sees a zero gradient for an unused leaf
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        loss = loss.detach()
+        if shard is not None:
+            # the global batch's gradient and loss, alike on every rank
+            grads = [p.grad for p in params]
+            all_reduce_sum_(grads + [loss.reshape(1)], shard)
+            torch._foreach_mul_(grads, rank_weight)
+            loss = loss * rank_weight
         grad_norm = clip_by_global_norm_([p.grad for p in params],
                                          tx.grad_clip)
         tx.optimizer.step()
@@ -170,6 +201,6 @@ def make_train_step(sched: DiffusionSchedule, *, conditional: bool = False,
                                       model.parameters()],
                                 alpha=1.0 - ema_decay)
         state.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        return {"loss": loss, "grad_norm": grad_norm}
 
     return step_fn

@@ -6,6 +6,7 @@ equality; ``evaluate`` and the CLI run end to end on the CPU at a tiny size.
 
 import ast
 import struct
+import warnings
 import zlib
 from pathlib import Path
 
@@ -24,7 +25,8 @@ from _torch_port import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "itsd_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_ab.py", ROOT / "chip_gs_repeat.py",
+    ROOT / "tests" / "_torch_dist_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "itsd_tpu")
 
 TINY = ["channel=16", "channel_mult=[1,2]", "attn=[1]", "num_res_blocks=1",
@@ -172,6 +174,26 @@ def test_fast_sampler_eval_options_run(tmp_path, overrides):
                                device="cpu")["images"]
         assert imgs.shape == (2, 8, 8, 3) and np.isfinite(imgs).all()
         assert np.abs(imgs).max() <= 1.0
+
+
+def test_picard_warns_at_world_size_one(tmp_path):
+    """On one process Picard is slower than sequential DDIM (the port's
+    own measurement on an H100, in the warning); it still samples."""
+    cfg = load_config(None, TINY + [f"sampled_dir={tmp_path}",
+                                    "diffusion.sampler=picard",
+                                    "diffusion.ddim_steps=3"])
+    model, _ = runner.build_model(cfg)
+    with pytest.warns(UserWarning, match=r"0\.745x .* 0\.229x under CFG "
+                      r"\(.*NVIDIA H100 80GB HBM3 at 700 W"):
+        imgs = runner.evaluate(cfg, runner.init_params(cfg, model),
+                               device="cpu")["images"]
+    assert np.isfinite(imgs).all()
+    cfg = load_config(None, TINY + [f"sampled_dir={tmp_path}",
+                                    "diffusion.sampler=ddim",
+                                    "diffusion.ddim_steps=3"])
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        runner.evaluate(cfg, runner.init_params(cfg, model), device="cpu")
 
 
 @pytest.mark.parametrize("seg_n", [2, 3, 4])

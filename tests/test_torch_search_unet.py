@@ -217,12 +217,18 @@ def test_run_search_raises_as_jax_does(weights, tmp_path, extra, match):
         runner.run_search(cfg, device="cpu")
 
 
-def test_run_search_refuses_spatial_shards(weights, tmp_path):
-    """Spatial meshes are not ported: search raises as eval and train do."""
-    cfg = load_config(None, _args(weights, tmp_path, "uncond",
-                                  "train.spatial_shard=2")[2:])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        runner.run_search(cfg, device="cpu")
+def test_run_search_refuses_spatial_shards(weights, tmp_path, capsys):
+    """train.spatial_shard does not apply to search, whose candidates are
+    the sharded axis: as JAX's, it prints a note and runs each candidate
+    whole, with the result of the run without it."""
+    args = _args(weights, tmp_path, "uncond")[2:]
+    want = runner.run_search(load_config(None, args), device="cpu")
+    capsys.readouterr()
+    got = runner.run_search(load_config(None, args + [
+        "train.spatial_shard=2"]), device="cpu")
+    assert "search runs unsharded per candidate" in capsys.readouterr().out
+    assert got["best_score"] == want["best_score"]
+    assert torch.equal(got["result"].best_images, want["result"].best_images)
 
 
 def _candidates(n, shape, seed):
