@@ -5,6 +5,12 @@ Run from the root of a checkout, with one card visible:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --sp-control`` builds the kernels and runs phase
+22's gradient check alone: one step of each train run at two ranks, as
+is and with a fault planted in the backward (the halo's gradients
+dropped; the ring's last hop home skipped), against one process. It exits
+0 when the run as is stays within the limits and each fault goes beyond.
+
 Phases, each ending with one line that carries its elapsed seconds:
 
 0. card: the device name and the power limit ``nvidia-smi`` reports;
@@ -37,7 +43,16 @@ Phases, each ending with one line that carries its elapsed seconds:
    GroupNorm of its forward, attention at [48, 4096, 384] and
    [48, 1024, 512], wide in bf16) and phase 20's ViT (12 heads of 64
    folded into the batch: [192, 256, 64] at train batch 16, [96, 256, 64]
-   at eval batch 8; mma in bf16);
+   at eval batch 8; mma in bf16). Then GroupNorm over row shards (phase
+   22): the stats kernel (each span's f32 sum, and its sum of squared
+   deviations around a given mean) and the apply kernel against their
+   plain versions at every GroupNorm call of the flagship's forward at
+   batch 2 and the CIFAR UNet's at batch 8, each call's rows cut over 2 and
+   4 seq ranks, in bf16 and f32, two launches equal bit for bit, timed
+   beside the plain versions, ``torch.sum`` over the span and the bound;
+   and each call cut into 2 and 4 row slices, whose stats, summed, must
+   equal the stats kernel's on the whole and whose outputs, normalized with
+   the global statistics, the fused kernel's;
 3. eval path: ``runner.evaluate`` at the full width of the CIFAR-10 UNet
    (ch 128, ch_mult 1,2,2,2, attention at 16x16, batch 8, 32x32, bf16,
    T=1000) on seeded weights; the kernels' launch counts must be exactly
@@ -208,7 +223,30 @@ Phases, each ending with one line that carries its elapsed seconds:
     and the sharding-aware search; its per-step losses and gradient norms,
     checkpoint, grid and search outputs must equal the one-process run's
     bit for bit, with exact launches, every attention call on mma; the
-    step time of each run from its ``train_metrics.jsonl``.
+    step time of each run from its ``train_metrics.jsonl``. Under torchrun
+    the train runs a third time with ``model.attention_impl=ring`` (JAX's
+    note: a seq axis of one, the single-device call), which must write
+    what the kernel path wrote, bit for bit;
+22. spatial sharding (``train.spatial_shard=2``), after phase 21: two
+    processes on cuda:0 (NCCL refuses two ranks on one device), each
+    starting one gloo group through this script's ``--spatial`` mode, run
+    ``runner.train`` from seeded weights on the 256x256 flagship
+    (``configs/imagenet256_uncond.yaml``, bf16) at batch 2 for 3 steps
+    and on the CIFAR-10 UNet at batch 8 for 3 steps, and
+    ``runner.evaluate`` of the flagship's seeded weights, DDIM 10 at batch
+    2, in bf16 and in f32; then this process runs the same without the
+    ranks. Each rank holds its half of every image's rows: halo exchanges,
+    GroupNorm's statistics all-reduced (the stats and apply kernels) and
+    ring attention (the wide kernels at [2, 2048, 384] and [2, 512, 512],
+    the mma ones at CIFAR's [8, 128, 256]), every exchange staged through
+    host memory (gloo cannot send a CUDA tensor). Exact launches on both
+    ranks, the ranks' losses, first gradients and images equal, and
+    against one process: the losses, the first step's gradient (before
+    the clip and Adam), the bf16 images' mean error and the f32 images'
+    largest (the bf16 chain from seeded weights amplifies its roundings to
+    whole pixels), each reading printed beside its limit; each run's step
+    ms, its share in the exchanges and in the gradients' all-reduce, and
+    the peak memory of each rank and of one process.
 
 Then it prints the ``nvidia-smi`` line, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -221,11 +259,14 @@ unconditional UNet (phases 3, 7, 13, 15 and 17) run the mma kernels and
 GroupNorm; those of the CFG UNet (phases 9, 12, 13, 15 and 17) the mma
 and wide kernels; the fine-tune (phase 19) the wide kernels and
 GroupNorm; the ViT (phase 20) the mma kernels at C=64; the torchrun train
-(phase 21) the mma kernels and GroupNorm. The kernels' JSON
-line carries each kernel's launches summed over these paths, and per path;
-the simt forward, dq and dk/dv, which no bf16 path runs, carry their
-launches on the f32 kernel paths of phases 4, 6, 10, 11, 14, 16, 18 and
-20.
+(phase 21, twice: the second through attention_impl=ring) the mma
+kernels and GroupNorm; the two-rank runs of phase 22 (both ranks' launches
+summed) the stats and apply kernels and the ring's hops, wide for the
+flagship and mma for the CIFAR UNet. The kernels' JSON line carries each
+kernel's launches summed over these paths, and per path; the simt
+forward, dq and dk/dv, which no bf16 path runs, carry their launches on
+the f32 kernel paths of phases 4, 6, 10, 11, 14, 16, 18, 20 and 22 (its
+f32 DDIM).
 """
 
 from __future__ import annotations
@@ -391,6 +432,50 @@ VIT_EVAL_STEPS = 50         # DDIM 50
 # order (3.1e-6); bf16 rounds each attention output, which the later
 # blocks carry (0.0234).
 VIT_EPS_TOL = {"float32": 1.5e-5, "bfloat16": 0.1}
+# Phase 22: train.spatial_shard=2 at two ranks of one gloo group, both on
+# cuda:0 (one H100; NCCL refuses two ranks on one device): the flagship
+# (configs/imagenet256_uncond.yaml) at batch 2 for 3 steps and DDIM 10,
+# and the CIFAR-10 UNet at batch 8 for 3 steps, each against the same run
+# in one process.
+SP_RANKS = 2
+SP_FLAG_BATCH = 2
+SP_FLAG_STEPS = 3
+SP_FLAG_DDIM = 10
+SP_CIFAR_BATCH = 8
+SP_CIFAR_STEPS = 3
+SP_TIMEOUT = 600            # seconds for the two ranks
+# Phase 22 limits, two ranks against one process, about 3-4x the
+# readings on an H100 (NVIDIA H100 80GB HBM3, 700 W): the rows' GroupNorm
+# sums, the ring's merge of its bf16 partials and the halo convolutions'
+# algorithms round otherwise. The train runs start from the seeded
+# weights (every branch live), where 3 bf16 steps carry those roundings
+# into the losses: 2.96e-3 (flagship) and 1.03e-3 (CIFAR) relative, the
+# largest over the steps. The first step's gradient, all-reduced to the
+# global batch's and taken before the clip and Adam (which would saturate
+# a difference at ~lr a step), as ||g2 - g1|| / ||g1||: 4.48e-3
+# (flagship), 4.29e-3 (CIFAR). ``--sp-control`` plants a dropped halo
+# gradient (2.99e-2 and 0.151) and a ring backward without its hop home
+# (4.24e-2 and 8.62e-2): each goes beyond SP_GRAD_RTOL. The DDIM images:
+# from seeded weights the bf16 chain's first step divides by sqrt(abar) =
+# 0.006 and turns roundings into whole pixels at the clip (max |err| 2),
+# so the bf16 images are held by their mean |err| (0.0039) and the f32
+# images, which differ by summation order, by their max (1.1e-3).
+SP_LOSS_RTOL = {"flagship_train": 1.2e-2, "cifar_train": 4e-3}
+SP_GRAD_RTOL = {"flagship_train": 1.5e-2, "cifar_train": 1.5e-2}
+SP_IMAGE_MEAN_TOL = 0.016
+SP_IMAGE_TOL = 5e-3
+# Phase 2, GroupNorm over row shards: the flagship's forward at batch 2
+# and the CIFAR-10 UNet's at batch 8, each call's rows cut over K seq
+# ranks. The stats kernel's f32 sums in another order than the plain
+# version's: within 1e-6 of the sum of the terms' magnitudes (about 4x the
+# largest reading, 2.4e-7 relative, on an H100: NVIDIA H100 80GB HBM3,
+# 700 W). At that limit a sum that drops one element fails wherever the
+# element's magnitude exceeds 1e-6 of the span's: ``STATS_CATCH_MIN`` is
+# the least share of a span's elements whose loss each check must catch.
+ROWS_K = (2, 4)
+STATS_TOL_SUM = 1e-6
+STATS_TOL_SQ = 1e-6
+STATS_CATCH_MIN = 0.5
 # Phase 18 limits, about 5x the first readings on an H100 (NVIDIA H100
 # 80GB HBM3, 700 W). FID, IS and CLIP of the f32 kernel path against the
 # plain path, relative: the f32 paths differ by summation order, which
@@ -538,8 +623,9 @@ class DeviceTimer:
         end.synchronize()
         self.cycles_per_ms = cycles / start.elapsed_time(end)
 
-    def __call__(self, fn, n: int = 50, warmup: int = 3, reps: int = 3):
-        """(device ms per call, host us to launch one call: median)."""
+    def __call__(self, fn, n: int = 50, warmup: int = 3, reps: int = 2):
+        """(device ms per call, host us to launch one call: median). Two
+        repetitions (three until the seq axis's phase came)."""
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
@@ -786,6 +872,186 @@ def check_groupnorm(gn_calls, dev, timer, n):
     return worst, rows
 
 
+def stats_bound_ms(shape, itemsize):
+    """Least ms of one stats launch: x read once (the [B, G] sums are
+    negligible), against one f32 add (three for a squared deviation) an
+    element."""
+    numel = int(np.prod(shape))
+    return (numel * itemsize / HBM_BYTES_PER_S * 1e3,
+            2 * numel / F32_FLOPS * 1e3)
+
+
+def check_stats(what, got, want, x, G, squares):
+    """A span's f32 sum in another order (``STATS_TOL_SUM``,
+    ``STATS_TOL_SQ``); returns (the largest absolute error, the largest
+    relative to its limit's scale)."""
+    from itsd_tpu_torch.kernels import groupnorm
+
+    scale = (want.abs() if squares
+             else groupnorm.groupnorm_partial_stats_plain(x.abs(), G))
+    tol = (STATS_TOL_SQ if squares else STATS_TOL_SUM) * scale + 1e-6
+    err = (got - want).abs()
+    if not torch.isfinite(got).all() or (err > tol).any():
+        fail(f"{what}: max err {err.max().item():.3g} beyond "
+             f"{tol.min().item():.3g}..{tol.max().item():.3g}")
+    return err.max().item(), (err / scale.clamp_min(1e-30)).max().item()
+
+
+def dropped_element_catch(x, G, mean):
+    """The share of the first span's elements whose loss from the sum,
+    and from the sum of squared deviations around ``mean``, the limits of
+    ``check_stats`` catch: a kernel that skips one element (an off-by-one
+    at a cluster part's boundary) errs by that element's term."""
+    span = x.reshape(x.shape[0], G, -1)[0, 0].float()
+    dev2 = (span - mean[0, 0]) ** 2
+    sum_tol = STATS_TOL_SUM * span.abs().sum() + 1e-6
+    sq_tol = STATS_TOL_SQ * dev2.sum() + 1e-6
+    return ((span.abs() > sum_tol).float().mean().item(),
+            (dev2 > sq_tol).float().mean().item())
+
+
+def check_groupnorm_rows(gn_calls, batch, K, dev, timer, n):
+    """Phase 2: the stats and apply kernels of GroupNorm over row shards at
+    every GroupNorm call of ``gn_calls`` (one forward) at ``batch``, its
+    rows cut over ``K`` seq ranks, in bf16 and f32 against their plain
+    versions; times at bf16 (the stats kernel twice a call: the sum, then
+    the squared deviations; the library call ``torch.sum`` over the span,
+    for the sum's launches). Returns {kernel: (max absolute error,
+    rows)}."""
+    from itsd_tpu_torch.kernels import groupnorm
+    from itsd_tpu_torch.models.unet import _groups
+
+    gen = torch.Generator(device=dev).manual_seed(K)
+    worst = {"stats": 0.0, "apply": 0.0}
+    rows = {"stats": [], "apply": []}
+    caught = [1.0, 1.0]
+    log(f"groupnorm over row shards, batch {batch}, K={K}: shape [B,C,h,W] "
+        f"act x calls | stats err (relative) bf16 f32, apply err bf16 f32 | "
+        f"stats sum / squares / plain / library / bound ms, apply / plain "
+        f"/ bound ms (bf16)")
+    calls = collections.Counter(((batch, C, H // K, W), act)
+                                for (_, C, H, W), act in gn_calls)
+    for (shape, act), count in calls.items():
+        C = shape[1]
+        G = _groups(C)
+        span = shape[1] * shape[2] * shape[3] // G
+        w = 1 + 0.1 * torch.randn(C, generator=gen, device=dev)
+        b = 0.1 * torch.randn(C, generator=gen, device=dev)
+        errs = []
+        for dtype in (torch.bfloat16, torch.float32):
+            what = f"groupnorm rows {shape} K={K} {dtype}"
+            x = _rand(shape, gen, dev, dtype, 0.5, 2.0)
+            s1 = groupnorm.groupnorm_partial_stats(x, G)
+            mean = s1 / span
+            s2 = groupnorm.groupnorm_partial_stats(x, G, mean)
+            again = groupnorm.groupnorm_partial_stats(x, G, mean)
+            rstd = torch.rsqrt(s2 / span + 1e-5)
+            y = groupnorm.groupnorm_apply(x, mean, rstd, w, b, G, act)
+            y2 = groupnorm.groupnorm_apply(x, mean, rstd, w, b, G, act)
+            torch.cuda.synchronize()
+            if not (torch.equal(s2, again) and torch.equal(y, y2)):
+                fail(f"{what}: two launches on the same input differ")
+            a_sum, e_sum = check_stats(
+                f"{what} stats", s1,
+                groupnorm.groupnorm_partial_stats_plain(x, G), x, G, False)
+            a_sq, e_sq = check_stats(
+                f"{what} squares", s2,
+                groupnorm.groupnorm_partial_stats_plain(x, G, mean), x, G,
+                True)
+            catch = dropped_element_catch(x, G, mean)
+            if min(catch) < STATS_CATCH_MIN:
+                fail(f"{what}: the stats limits catch a dropped element at "
+                     f"only {catch[0]:.3f} (sum) and {catch[1]:.3f} "
+                     f"(squares) of a span's places, under "
+                     f"{STATS_CATCH_MIN}")
+            caught = [min(c, d) for c, d in zip(caught, catch)]
+            e_ap = check_close(
+                f"{what} apply", y,
+                groupnorm.groupnorm_apply_plain(x, mean, rstd, w, b, G, act),
+                *GN_TOL[dtype])
+            errs.append((max(e_sum, e_sq), e_ap))
+            worst["stats"] = max(worst["stats"], a_sum, a_sq)
+            worst["apply"] = max(worst["apply"], e_ap)
+        x = _rand(shape, gen, dev, torch.bfloat16, 0.5, 2.0)
+        s1 = groupnorm.groupnorm_partial_stats(x, G)
+        mean = s1 / span
+        rstd = torch.rsqrt(groupnorm.groupnorm_partial_stats(x, G, mean)
+                           / span + 1e-5)
+        view = x.view(shape[0], G, -1)
+        k_sum, _ = timer(lambda: groupnorm.groupnorm_partial_stats(x, G),
+                         n=n)
+        k_sq, _ = timer(
+            lambda: groupnorm.groupnorm_partial_stats(x, G, mean), n=n)
+        p_sum, _ = timer(
+            lambda: groupnorm.groupnorm_partial_stats_plain(x, G), n=n)
+        p_sq, _ = timer(
+            lambda: groupnorm.groupnorm_partial_stats_plain(x, G, mean), n=n)
+        l_sum, _ = timer(lambda: torch.sum(view, 2, dtype=torch.float32),
+                         n=n)
+        k_ap, _ = timer(
+            lambda: groupnorm.groupnorm_apply(x, mean, rstd, w, b, G, act),
+            n=n)
+        p_ap, _ = timer(lambda: groupnorm.groupnorm_apply_plain(
+            x, mean, rstd, w, b, G, act), n=n)
+        sb, so = stats_bound_ms(shape, 2)
+        ab, ao = gn_bound_ms(shape, 2, act)
+        log(f"  {list(shape)} act={int(act)} x{count} | {errs[0][0]:.3g} "
+            f"{errs[1][0]:.3g}, {errs[0][1]:.3g} {errs[1][1]:.3g} | "
+            f"{k_sum:.5f} / {k_sq:.5f} / {p_sum + p_sq:.5f} / {l_sum:.5f} / "
+            f"{max(sb, so):.5f}, {k_ap:.5f} / {p_ap:.5f} / {max(ab, ao):.5f}")
+        rows["stats"] += [(count, k_sum, p_sum, l_sum, sb, so),
+                          (count, k_sq, p_sq, 0.0, sb, 1.5 * so)]
+        rows["apply"].append((count, k_ap, p_ap, 0.0, ab, ao))
+    log(f"  a dropped element beyond the stats limits at >= "
+        f"{caught[0]:.3f} (sum) and {caught[1]:.3f} (squares) of each "
+        f"checked span's places")
+    return {"groupnorm_partial_stats": (worst["stats"], rows["stats"]),
+            "groupnorm_apply": (worst["apply"], rows["apply"])}
+
+
+def check_rows_make_the_whole(gn_calls, batch, K, dev):
+    """Phase 2: each GroupNorm of ``gn_calls`` at ``batch`` cut into K row
+    slices: the slices' stats, summed, against the stats kernel on the
+    whole tensor, and the slices normalized with the global statistics
+    against the fused kernel on the whole (bf16)."""
+    from itsd_tpu_torch.kernels import groupnorm
+    from itsd_tpu_torch.models.unet import _groups
+
+    gen = torch.Generator(device=dev).manual_seed(10 + K)
+    worst = 0.0
+    for (_, C, H, W), act in set(gn_calls):
+        shape = (batch, C, H, W)
+        G = _groups(C)
+        span = C * H * W // G
+        what = f"groupnorm rows of {K} slices of {shape}"
+        x = _rand(shape, gen, dev, torch.bfloat16, 0.5, 2.0)
+        w = 1 + 0.1 * torch.randn(C, generator=gen, device=dev)
+        b = 0.1 * torch.randn(C, generator=gen, device=dev)
+        parts = [p.contiguous() for p in x.chunk(K, dim=2)]
+        s1 = sum(groupnorm.groupnorm_partial_stats(p, G) for p in parts)
+        _, e1 = check_stats(f"{what}: sums", s1,
+                            groupnorm.groupnorm_partial_stats(x, G), x, G,
+                            False)
+        mean = s1 / span
+        s2 = sum(groupnorm.groupnorm_partial_stats(p, G, mean)
+                 for p in parts)
+        _, e2 = check_stats(f"{what}: squares", s2,
+                            groupnorm.groupnorm_partial_stats(x, G, mean), x,
+                            G, True)
+        rstd = torch.rsqrt(s2 / span + 1e-5)
+        y = torch.cat([groupnorm.groupnorm_apply(p, mean, rstd, w, b, G,
+                                                 act) for p in parts], 2)
+        check_close(f"{what}: outputs", y,
+                    groupnorm.groupnorm_swish(x, w, b, G, act=act),
+                    *GN_TOL[torch.bfloat16])
+        worst = max(worst, e1, e2)
+    log(f"groupnorm rows, batch {batch}, {K} slices of each call: the "
+        f"slices' stats summed against the whole's, largest relative error "
+        f"{worst:.3g}; the slices normalized against the fused kernel on "
+        f"the whole: within tolerance")
+    return worst
+
+
 def check_flash_forward(attn_calls, dev, timer, n, with_lse):
     """The flash forward kernels (with and without lse) against their plain
     version at every [B, N, C] of ``attn_calls``: the route's kernel in
@@ -982,10 +1248,13 @@ def sum_order_bounds(q, k, v, do, lse, scale):
             torch.einsum("bqk,bqc->bkc", e, q.float().abs()), None)
 
 
-def check_forward_kernels(paths, dev, timer):
+def check_forward_kernels(paths, rows_paths, dev, timer):
     """Phase 2: both forward kernels at the shapes of each path of
-    ``paths`` (tag -> ((gn_calls, attn_calls), timing reps, with lse)).
-    Returns {kernel: {tag: (err, rows)}}."""
+    ``paths`` (tag -> ((gn_calls, attn_calls), timing reps, with lse)), and
+    the stats and apply kernels of GroupNorm over row shards at each path
+    of ``rows_paths`` (tag -> (gn_calls, batch)) cut over each K of
+    ``ROWS_K`` (tag ``{tag}_k{K}``). Returns {kernel: {tag: (err,
+    rows)}}."""
     t0 = time.perf_counter()
     log(f"  tolerance GroupNorm: |err| <= atol + rtol*|plain|, bf16 atol "
         f"{GN_TOL[torch.bfloat16][0]} rtol 2^-7, f32 atol "
@@ -1001,6 +1270,12 @@ def check_forward_kernels(paths, dev, timer):
                                              with_lse).items():
             out[name][tag] = res
     out["groupnorm_swish"]["flagship"] = check_flagship_groupnorm(dev, timer)
+    for tag, (gn_calls, batch) in rows_paths.items():
+        for K in ROWS_K:
+            for name, res in check_groupnorm_rows(gn_calls, batch, K, dev,
+                                                  timer, 5).items():
+                out[name][f"{tag}_k{K}"] = res
+            check_rows_make_the_whole(gn_calls, batch, K, dev)
     phase_done(2, "forward kernels against their plain versions", t0,
                "(all within tolerance)")
     return out
@@ -1235,6 +1510,7 @@ def reset_launches():
     from itsd_tpu_torch.kernels import attention, groupnorm
 
     groupnorm.launches = 0
+    groupnorm.stats_launches = groupnorm.apply_launches = 0
     attention.launches = attention.mma_launches = 0
     attention.wide_launches = 0
     attention.dq_launches = attention.dq_mma_launches = 0
@@ -1250,7 +1526,9 @@ def read_launches() -> dict:
 
     a = attention
     return route_counts(
-        gn=groupnorm.launches, fwd=a.launches, fwd_mma=a.mma_launches,
+        gn=groupnorm.launches, gn_stats=groupnorm.stats_launches,
+        gn_apply=groupnorm.apply_launches, fwd=a.launches,
+        fwd_mma=a.mma_launches,
         fwd_wide=a.wide_launches, dq=a.dq_launches,
         dq_mma=a.dq_mma_launches, dq_wide=a.dq_wide_launches,
         dkv=a.dkv_launches, dkv_mma=a.dkv_mma_launches,
@@ -1258,10 +1536,12 @@ def read_launches() -> dict:
 
 
 def route_counts(gn=0, fwd=0, fwd_mma=0, fwd_wide=0, dq=0, dq_mma=0,
-                 dq_wide=0, dkv=0, dkv_mma=0, dkv_wide=0):
+                 dq_wide=0, dkv=0, dkv_mma=0, dkv_wide=0, gn_stats=0,
+                 gn_apply=0):
     """Launch counts in the layout of ``read_launches``: each function's
     total and each route's kernel (simt: what the others leave)."""
-    return {"groupnorm_swish": gn, "flash_attention": fwd,
+    return {"groupnorm_swish": gn, "groupnorm_partial_stats": gn_stats,
+            "groupnorm_apply": gn_apply, "flash_attention": fwd,
             "flash_attention_mma": fwd_mma,
             "flash_attention_wide": fwd_wide,
             "flash_attention_simt": fwd - fwd_mma - fwd_wide,
@@ -1708,22 +1988,22 @@ def cli_worker(argv) -> int:
     return max(d["rc"] for d in done)
 
 
-def dp_commands(root: str):
+def dp_commands(root: str, *extra):
     """The CLI arguments of phase 21's train and search, writing under
-    ``root``."""
+    ``root``; ``extra`` overrides of both."""
     train = ["train", "--device", DEVICE, *train_overrides(
         root, "bfloat16", f"train.epoch={DP_EPOCHS}",
         f"train.model_save_freq={DP_EPOCHS}",
         f"train.eval_freq={DP_EPOCHS}", f"diffusion.inference_T={DP_GRID_T}",
         "data.use_full_dataset=false",
-        f"data.train_subset_ratio={DP_SUBSET}")]
+        f"data.train_subset_ratio={DP_SUBSET}", *extra)]
     search = ["search", "--device", DEVICE, *train_overrides(
         root, "bfloat16", f"test_load_weight=ckpt_{DP_EPOCHS - 1}",
         f"sampled_dir={root}/search", "diffusion.sampler=ddim",
         f"diffusion.ddim_steps={FAST_STEPS}", "search.algorithm=random",
         f"search.n_candidates={DP_SEARCH_N}",
         f"search.candidate_chunk={DP_SEARCH_CHUNK}",
-        "search.verifier=self_supervised")]
+        "search.verifier=self_supervised", *extra)]
     return train, search
 
 
@@ -1756,7 +2036,11 @@ def dp_path(tmpdir, card_line):
     """Phase 21: the CLI's train and search in this process and under
     torchrun at world size 1 (NCCL), both with cuDNN's deterministic
     algorithms; the torchrun run must write what this process writes, bit
-    for bit, with exact launches. Returns the torchrun train's launches."""
+    for bit, with exact launches. Under torchrun the train runs again with
+    attention_impl=ring and spatial_shard=1 (a seq axis of one: JAX's note,
+    then the single-device call), which must write what the kernel path
+    wrote, bit for bit. Returns the torchrun trains' launches (the kernel
+    path's, the ring's)."""
     from itsd_tpu_torch.cli import main as cli_main
 
     t0 = time.perf_counter()
@@ -1787,13 +2071,17 @@ def dp_path(tmpdir, card_line):
     if rc or len(one_best) != 1:
         fail(f"the one-process CLI run: exit code {rc}, {one_best}")
 
-    # torchrun: one process of an NCCL group, this script's --cli mode
+    # torchrun: one process of an NCCL group, this script's --cli mode;
+    # then the train again with attention_impl=ring (a seq axis of one)
     torch.cuda.empty_cache()
     counts = os.path.join(tmpdir, "dp_launches.json")
     train_args, search_args = dp_commands(dp)
+    ring = os.path.join(tmpdir, "dp_ring")
+    ring_args, _ = dp_commands(ring, "model.attention_impl=ring")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node=1", os.path.abspath(__file__), "--cli", counts,
-           *train_args, CLI_SEPARATOR, *search_args]
+           *train_args, CLI_SEPARATOR, *search_args, CLI_SEPARATOR,
+           *ring_args]
     s0 = time.perf_counter()
     run = subprocess.run(cmd, capture_output=True, text=True,
                          timeout=DP_TIMEOUT, cwd=ROOT)
@@ -1814,9 +2102,11 @@ def dp_path(tmpdir, card_line):
     log(f"process group start-up {group['start_s']:.3f} s "
         f"(maybe_initialize_distributed, {group['backend']})")
     if (group["world_size"], group["backend"]) != (1, "nccl") or [
-            c["rc"] for c in ran["commands"]] != [0, 0]:
+            c["rc"] for c in ran["commands"]] != [0, 0, 0]:
         fail(f"the torchrun run: {ran}")
     dp_launches = ran["commands"][0]["launches"]
+    ring_noted = ("[runner] attention_impl=ring with spatial_shard=1"
+                  in run.stdout)
 
     # what rank 0 wrote against what this process wrote
     (one_steps, one_epochs), (dp_steps, dp_epochs) = (
@@ -1835,14 +2125,30 @@ def dp_path(tmpdir, card_line):
                     for root in (one, dp)]
              for name in (f"sampled/epoch_{DP_EPOCHS - 1}_sampled.png",
                           "search/search_random_best.png")}
+    # the ring's train (attention_impl=ring, a seq axis of one: the
+    # single-device call) against the kernel path's under torchrun
+    ring_steps, _ = read_train_run(ring)
+    ring_ckpt = torch.load(os.path.join(ring, "ckpt", ckpt),
+                           map_location="cpu", weights_only=True)
+    grid = f"sampled/epoch_{DP_EPOCHS - 1}_sampled.png"
+    vs = "torchrun vs one process"
     checks = {
-        "per-step losses and gradient norms": (
+        f"{vs}, per-step losses and gradient norms": (
             len(one_steps) == steps and one_steps == dp_steps),
-        f"checkpoint {ckpt} ({n_tensors} tensors, optimizer, schedule)":
-            same_tree(a, b),
-        **{name: x == y for name, (x, y) in files.items()},
-        "best score": one_best == dp_best,
-        "launches": one_launches == dp_launches == want,
+        f"{vs}, checkpoint {ckpt} ({n_tensors} tensors, optimizer, "
+        "schedule)": same_tree(a, b),
+        **{f"{vs}, {name}": x == y for name, (x, y) in files.items()},
+        f"{vs}, best score": one_best == dp_best,
+        f"{vs}, launches": one_launches == dp_launches == want,
+        "ring (a seq axis of one) vs kernel path, JAX's note printed":
+            ring_noted,
+        "ring vs kernel path, per-step losses and gradient norms":
+            ring_steps == dp_steps,
+        f"ring vs kernel path, checkpoint {ckpt}": same_tree(ring_ckpt, b),
+        f"ring vs kernel path, {grid}": read(os.path.join(
+            ring, *grid.split("/"))) == files[grid][1],
+        "ring vs kernel path, launches":
+            ran["commands"][2]["launches"] == dp_launches,
     }
     step_ms = [(e[1]["elapsed_s"] - e[0]["elapsed_s"]) / DP_STEPS * 1e3
                for e in (one_epochs, dp_epochs)]
@@ -1854,13 +2160,451 @@ def dp_path(tmpdir, card_line):
         f"{step_ms[0]:.2f} ms in one process (wall, host clock, "
         f"train_metrics.jsonl's epoch records)")
     for what, ok in checks.items():
-        log(f"  torchrun vs one process (bit for bit), {what}: "
-            f"{'equal' if ok else 'DIFFERENT'}")
+        log(f"  (bit for bit) {what}: {'equal' if ok else 'DIFFERENT'}")
     if not all(checks.values()):
         fail("the torchrun run differs from the one-process run: "
              + ", ".join(k for k, ok in checks.items() if not ok))
     phase_done(21, "data-parallel path (torchrun, world size 1, NCCL)", t0)
-    return dp_launches
+    return dp_launches, ran["commands"][2]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# phase 22: train.spatial_shard=2 at two ranks on one card
+
+
+def sp_flagship_config(root: str, *extra):
+    """configs/imagenet256_uncond.yaml (the 256x256 flagship: ch 128,
+    ch_mult 1,2,3,4, attention at 64x64 and in the middle, bf16, dropout
+    0.15) on the shapes dataset at 256x256: SP_FLAG_STEPS batches of
+    SP_FLAG_BATCH, one epoch, no grid; DDIM SP_FLAG_DDIM at the same
+    batch."""
+    from itsd_tpu_torch.utils import load_config
+
+    n_images = SP_FLAG_STEPS * SP_FLAG_BATCH
+    return load_config(IMAGENET_YAML, [
+        "data.use_full_dataset=false",
+        f"data.train_subset_ratio={n_images / 2048}",
+        f"batch_size={SP_FLAG_BATCH}", "train.epoch=1",
+        "train.track_metrics=false", "train.eval_freq=1000000", "seed=0",
+        f"train.eval_batch_size={SP_FLAG_BATCH}", "diffusion.sampler=ddim",
+        f"diffusion.ddim_steps={SP_FLAG_DDIM}",
+        f"save_weight_dir={root}/flag_ckpt",
+        f"sampled_dir={root}/flag_sampled",
+        f"metrics_save_dir={root}/flag_metrics", *extra])
+
+
+def sp_cifar_config(root: str, *extra):
+    """Phase 7's configuration (configs/cifar10_uncond.yaml on shapes) at
+    batch SP_CIFAR_BATCH for SP_CIFAR_STEPS steps, one epoch, no grid."""
+    n_images = SP_CIFAR_STEPS * SP_CIFAR_BATCH
+    return train_config(
+        f"{root}/cifar", "bfloat16", f"batch_size={SP_CIFAR_BATCH}",
+        "train.epoch=1", "data.use_full_dataset=false",
+        f"data.train_subset_ratio={n_images / 2048}",
+        "train.eval_freq=1000000", *extra)
+
+
+def sp_run(root: str, spatial: bool, control: bool = False) -> dict:
+    """Phase 22's runs in this process: ``runner.train`` of the flagship and
+    of the CIFAR-10 UNet and ``runner.evaluate`` of the flagship (DDIM, its
+    seeded weights, in bf16 and in f32), with train.spatial_shard=2 when
+    ``spatial`` (each rank of the group on its image rows), else whole.
+    Per run: the losses (or images), the launches, each step's wall ms,
+    the ms of the steps spent in the halo, GroupNorm and ring exchanges
+    and in the gradients' all-reduce (each synchronized, host clock), the
+    peak memory, and the first step's gradient (flat f32 on the host:
+    all-reduced and weighted to the global batch's, before the clip).
+    With ``control`` the two train runs take one step and nothing else
+    runs."""
+    from itsd_tpu_torch import parallel
+    from itsd_tpu_torch.cli import runner
+    from itsd_tpu_torch.kernels import ring_attention
+    from itsd_tpu_torch.parallel import spatial as sp_mod
+    from itsd_tpu_torch.train import loop
+
+    extra = ["train.spatial_shard=2"] if spatial else []
+    clock = {"exchange": 0.0, "reduce": 0.0}
+    steps = []
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                clock[key] += time.perf_counter() - c0
+        return run
+
+    make_step = runner.make_train_step
+    clip = loop.clip_by_global_norm_
+    first_grads, current = {}, [None]
+
+    def clip_after_keeping_the_first(grads, max_norm):
+        if current[0] not in first_grads:
+            first_grads[current[0]] = torch.cat(
+                [g.detach().float().reshape(-1) for g in grads]).cpu()
+        return clip(grads, max_norm)
+
+    def make_timed_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            before, s0 = dict(clock), time.perf_counter()
+            out = step(*args, **kwargs)
+            torch.cuda.synchronize()
+            steps.append(((time.perf_counter() - s0) * 1e3,
+                          *((clock[k] - before[k]) * 1e3
+                            for k in ("exchange", "reduce"))))
+            return out
+        return run
+
+    # every run starts from the seeded weights, whose output layers are
+    # not near zero, so that every branch's backward moves the gradient
+    # (at the init the attention and the residual convolutions pass back
+    # ~1e-10 of it)
+    configs = {"flagship_train": (sp_flagship_config(root, *extra),
+                                  SP_FLAG_STEPS),
+               "cifar_train": (sp_cifar_config(root, *extra),
+                               SP_CIFAR_STEPS)}
+    seeded = {}
+    os.makedirs(root, exist_ok=True)
+    for name, (cfg, _) in configs.items():
+        seeded[name] = seeded_params(cfg)
+        path = os.path.join(root, f"{name}_seeded_rank{parallel.rank()}.pt")
+        torch.save(seeded[name], path)
+        cfg.train.training_load_weight = path
+    out = {}
+    with contextlib.ExitStack() as stack:
+        for mod, name, fn in (
+                (runner, "make_train_step", make_timed_step),
+                (sp_mod, "p2p", timed(sp_mod.p2p, "exchange")),
+                (ring_attention, "p2p", timed(ring_attention.p2p,
+                                              "exchange")),
+                (sp_mod, "_all_reduce", timed(sp_mod._all_reduce,
+                                              "exchange")),
+                (sp_mod, "gather_rows", timed(sp_mod.gather_rows,
+                                              "exchange")),
+                (loop, "all_reduce_sum_", timed(loop.all_reduce_sum_,
+                                                "reduce")),
+                (loop, "clip_by_global_norm_",
+                 clip_after_keeping_the_first)):
+            stack.enter_context(mock.patch.object(mod, name, fn))
+        for name, (cfg, n) in configs.items():
+            current[0] = name
+            steps.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            s0 = time.perf_counter()
+            res = runner.train(cfg, max_steps=1 if control else n,
+                               device=DEVICE)
+            torch.cuda.synchronize()
+            out[name] = dict(
+                losses=res["losses"], launches=read_launches(),
+                steps=steps[:], wall_s=time.perf_counter() - s0,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                grad=first_grads[name])
+            del res
+        if control:
+            return out
+        params = seeded["flagship_train"]
+        for name, dtype in (("flagship_ddim", "bfloat16"),
+                            ("flagship_ddim_f32", "float32")):
+            cfg = sp_flagship_config(root, f"model.dtype={dtype}", *extra)
+            torch.cuda.empty_cache()
+            reset_launches()
+            s0 = time.perf_counter()
+            ev = runner.evaluate(cfg, params=params, device=DEVICE)
+            torch.cuda.synchronize()
+            out[name] = dict(images=ev["images"], launches=read_launches(),
+                             wall_s=time.perf_counter() - s0)
+    return out
+
+
+def _halo_backward_dropping_the_halo(ctx, g):
+    """A planted fault: the halo's backward keeps the gradient of the
+    rank's own rows and drops the halo rows' (nothing goes back to their
+    owners)."""
+    h = g.shape[2] - ctx.top - ctx.bottom
+    return g.narrow(2, ctx.top, h).clone(), None, None, None
+
+
+def _ring_backward_without_the_hop_home(ctx, do):
+    """A planted fault: the ring's backward (``kernels.ring_attention.
+    _Ring.backward``) without its last hop, so that each rank keeps the dk
+    and dv shares of its neighbour's keys and values."""
+    from itsd_tpu_torch.kernels import attention as A
+    from itsd_tpu_torch.kernels import ring_attention as R
+
+    q, k, v, o, lse = ctx.saved_tensors
+    mesh, plain = ctx.mesh, ctx.plain
+    scale = float(q.shape[-1]) ** -0.5
+    do = do.contiguous()
+    dd = A.row_dd(o, do).contiguous()
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    kc, vc, dk, dv = k, v, None, None
+    for hop in range(mesh.seq):
+        if hop:
+            kc, vc, dk, dv = R._pass_on((kc, vc, dk, dv), mesh)
+        dq_h, dk_h, dv_h = R._hop_grads(q, kc, vc, do, lse, dd, scale,
+                                        plain)
+        dq += dq_h.float()
+        dk = dk_h.float() if dk is None else dk + dk_h.float()
+        dv = dv_h.float() if dv is None else dv + dv_h.float()
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+# ``--sp-control``'s planted faults: (class, its replacement backward)
+SP_FAULTS = {
+    "halo_gradient_dropped": ("itsd_tpu_torch.parallel.spatial", "_Halo",
+                              _halo_backward_dropping_the_halo),
+    "ring_without_hop_home": ("itsd_tpu_torch.kernels.ring_attention",
+                              "_Ring", _ring_backward_without_the_hop_home)}
+
+
+def spatial_worker(argv) -> int:
+    """``python chip_smoke.py --spatial ROOT RANK PORT [FAULT]``: one of
+    phase 22's ranks. Starts its gloo group on ``tcp://localhost:PORT``
+    (the port's ``maybe_initialize_distributed``, so that the runner finds
+    it up), runs ``sp_run`` on ``cuda:0`` and writes its results to
+    ``ROOT/rank{RANK}.pt``. With FAULT (a key of ``SP_FAULTS``) it runs
+    ``sp_run``'s control, one step of each train run, with that fault
+    planted."""
+    import importlib
+
+    import torch.distributed as dist
+    from itsd_tpu_torch.parallel import maybe_initialize_distributed
+
+    root, rank, port = argv[0], int(argv[1]), argv[2]
+    fault = argv[3] if len(argv) > 3 else None
+    torch.cuda.set_device(0)
+    s0 = time.perf_counter()
+    maybe_initialize_distributed(
+        device="cpu", init_method=f"tcp://localhost:{port}",
+        world_size=SP_RANKS, rank=rank, timeout=SP_TIMEOUT)
+    group = {"backend": dist.get_backend(),
+             "world_size": dist.get_world_size(),
+             "start_s": time.perf_counter() - s0}
+    try:
+        with contextlib.ExitStack() as stack:
+            if fault not in (None, "none"):
+                module, cls, backward = SP_FAULTS[fault]
+                stack.enter_context(mock.patch.object(
+                    getattr(importlib.import_module(module), cls),
+                    "backward", staticmethod(backward)))
+            res = sp_run(root, spatial=True, control=fault is not None)
+        res["group"] = group
+        torch.save(res, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def sp_ranks(root: str, fault: str | None = None) -> list:
+    """``spatial_worker`` at SP_RANKS ranks of one gloo group on cuda:0,
+    started together (the kernels are built); their results, in rank
+    order. ``fault``: see ``spatial_worker`` ("none": the control without
+    a fault)."""
+    import socket
+
+    os.makedirs(root, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.empty_cache()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--spatial", root,
+         str(r), str(port)] + ([fault] if fault else []),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT) for r in range(SP_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=SP_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs.append(p.communicate()[0] + "\n[killed: time limit]")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            log(text[-6000:])
+            fail(f"phase 22 rank {r} exited {p.returncode}")
+    return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+            for r in range(SP_RANKS)]
+
+
+def grad_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want||, in float64."""
+    want = want.double()
+    return ((got.double() - want).norm() / want.norm()).item()
+
+
+def sp_control(card_line: str) -> int:
+    """``python3 chip_smoke.py --sp-control``: phase 22's runs at two ranks
+    and in one process, compared as phase 22 compares them (``sp_compare``),
+    then one step of each train run at two ranks with each of
+    ``SP_FAULTS`` planted, its first gradient against one process's.
+    Exits 0 when phase 22's checks pass and each fault goes beyond the
+    gradient's limit on both UNets."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="itsd_sp_control_") as tmpdir:
+        got = sp_ranks(os.path.join(tmpdir, "two"))
+        want = sp_run(os.path.join(tmpdir, "one"), spatial=False)
+        verdict = all(sp_compare(got, want).values())
+        for fault in SP_FAULTS:
+            res = sp_ranks(os.path.join(tmpdir, fault), fault)[0]
+            for name, limit in SP_GRAD_RTOL.items():
+                rel = grad_rel(res[name]["grad"], want[name]["grad"])
+                beyond = limit is not None and rel > limit
+                verdict = verdict and beyond
+                log(f"sp-control, {fault}: {name} first step's gradient "
+                    f"rel L2 {rel:.4g} (limit {limit}) -> "
+                    f"{'caught' if beyond else 'NOT CAUGHT'}; loss "
+                    f"{res[name]['losses'][0]:.6f} at 2 ranks, "
+                    f"{want[name]['losses'][0]:.6f} in one process, on "
+                    f"{card_line}")
+    log(f"sp-control: {'passed' if verdict else 'FAILED'} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return 0 if verdict else 1
+
+
+def _sp_step_line(run: dict) -> str:
+    steps = run["steps"][1:]  # the first step warms up
+    ms = [s[0] for s in steps]
+    exch = sum(s[1] for s in steps) / max(1e-9, sum(ms))
+    red = sum(s[2] for s in steps) / max(1e-9, sum(ms))
+    return (f"step {float(np.median(ms)):.2f} ms (steps 2-{len(ms) + 1}: "
+            f"{[round(m, 2) for m in ms]}), exchanges {100 * exch:.1f}% "
+            f"and gradient all-reduce {100 * red:.1f}% of it, peak "
+            f"{run['peak_gb']:.3f} GB")
+
+
+def sp_compare(got, want) -> dict:
+    """Phase 22's two ranks (``got``) against each other and against one
+    process (``want``), each reading printed beside its limit: the losses
+    (SP_LOSS_RTOL), the first step's gradient (SP_GRAD_RTOL), the bf16
+    images' mean error (SP_IMAGE_MEAN_TOL) and the f32 images' largest
+    (SP_IMAGE_TOL). Returns {check: passed}."""
+    checks, readings = {}, {}
+    for name, steps_n in (("flagship_train", SP_FLAG_STEPS),
+                          ("cifar_train", SP_CIFAR_STEPS)):
+        losses = [r[name]["losses"] for r in got]
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(losses[0], want[name]["losses"]))
+        readings[f"{name} loss rel err"] = (rel, SP_LOSS_RTOL[name])
+        checks[f"{name}: both ranks' losses equal"] = (
+            losses[0] == losses[1] and len(losses[0]) == steps_n)
+        grads = [r[name]["grad"] for r in got]
+        checks[f"{name}: both ranks' first gradients equal"] = (
+            torch.equal(*grads))
+        readings[f"{name} first step's gradient rel L2"] = (
+            grad_rel(grads[0], want[name]["grad"]), SP_GRAD_RTOL[name])
+        log(f"{name}: losses {[round(x, 6) for x in losses[0]]} at 2 ranks, "
+            f"{[round(x, 6) for x in want[name]['losses']]} in one process")
+    for name in ("flagship_ddim", "flagship_ddim_f32"):
+        images = [r[name]["images"] for r in got]
+        checks[f"{name}: both ranks' images equal"] = bool(
+            np.array_equal(images[0], images[1]))
+        checks[f"{name}: finite images"] = bool(np.isfinite(images[0]).all())
+        diff = np.abs(images[0] - want[name]["images"])
+        log(f"{name}: DDIM {SP_FLAG_DDIM} at batch {SP_FLAG_BATCH}, "
+            f"{got[0][name]['wall_s']:.2f} s at 2 ranks, "
+            f"{want[name]['wall_s']:.2f} s in one process (runner.evaluate, "
+            f"the model's set-up included); images against one process: "
+            f"max |err| {diff.max():.4g}, mean {diff.mean():.4g}, share "
+            f"beyond 0.1 {(diff > 0.1).mean():.4g}")
+        if name == "flagship_ddim":
+            readings[f"{name} images mean abs err"] = (
+                float(diff.mean()), SP_IMAGE_MEAN_TOL)
+        else:
+            readings[f"{name} images max abs err"] = (float(diff.max()),
+                                                      SP_IMAGE_TOL)
+    for what, (value, limit) in readings.items():
+        ok = limit is not None and np.isfinite(value) and value <= limit
+        checks[what] = ok
+        log(f"  2 ranks vs one process, {what}: {value:.4g} (limit "
+            f"{limit}) -> {'ok' if ok else 'BEYOND'}")
+    for what, ok in checks.items():
+        if what not in readings:
+            log(f"  {what}: {'ok' if ok else 'FAILED'}")
+    return checks
+
+
+def spatial_path(tmpdir, counts, card_line):
+    """Phase 22: ``sp_run`` at two ranks of one gloo group on cuda:0
+    (``sp_ranks``), then in this process; the ranks must agree with each
+    other exactly and with the one-process run to SP_LOSS_RTOL (losses),
+    SP_GRAD_RTOL (the first step's gradient), SP_IMAGE_MEAN_TOL (bf16
+    images) and SP_IMAGE_TOL (f32 images), with exact launches: on row
+    shards each GroupNorm is two stats launches and one apply, each
+    attention call two hops of the flash forward, dq and dk/dv.
+    ``counts``: (GroupNorm calls, attention calls) of one forward of the
+    flagship and of the CIFAR UNet. Returns the two ranks' launches
+    summed, per run."""
+    t0 = time.perf_counter()
+    got = sp_ranks(os.path.join(tmpdir, "sp_two"))
+    two_s = time.perf_counter() - t0
+    want = sp_run(os.path.join(tmpdir, "sp_one"), spatial=False)
+
+    (flag_gn, flag_attn), (cifar_gn, cifar_attn) = counts
+
+    def expect(gn, attn, steps, train, route, rows):
+        k = 2 if rows else 1
+        per = dict(gn=0 if rows else gn, gn_stats=2 * gn if rows else 0,
+                   gn_apply=gn if rows else 0, fwd=k * attn)
+        if train:
+            per.update(dq=k * attn, dkv=k * attn)
+        if route != "simt":  # route_counts gives simt what is left
+            for fn in ("fwd", "dq", "dkv") if train else ("fwd",):
+                per[f"{fn}_{route}"] = k * attn
+        return scaled(route_counts(**per), steps)
+
+    runs = {"flagship_train": (flag_gn, flag_attn, SP_FLAG_STEPS, True,
+                               "wide"),
+            "cifar_train": (cifar_gn, cifar_attn, SP_CIFAR_STEPS, True,
+                            "mma"),
+            "flagship_ddim": (flag_gn, flag_attn, SP_FLAG_DDIM, False,
+                              "wide"),
+            "flagship_ddim_f32": (flag_gn, flag_attn, SP_FLAG_DDIM, False,
+                                  "simt")}
+    g = got[0]
+    log(f"phase 22: {SP_RANKS} ranks of a {g['group']['backend']} group "
+        f"(world size {g['group']['world_size']}) on cuda:0, started in "
+        f"{g['group']['start_s']:.2f} s; both ranks {two_s:.2f} s wall, "
+        f"then one process")
+    checks = {}
+    for name, spec in runs.items():
+        checks[f"{name}: launches, each rank"] = all(
+            r[name]["launches"] == expect(*spec, True) for r in got)
+        checks[f"{name}: launches, one process"] = (
+            want[name]["launches"] == expect(*spec, False))
+    for name in ("flagship_train", "cifar_train"):
+        for who, run in (("rank 0", got[0][name]), ("rank 1", got[1][name]),
+                         ("one process", want[name])):
+            log(f"  {name}, {who} on {card_line}: {_sp_step_line(run)}")
+    for what, ok in checks.items():
+        log(f"  {what}: {'ok' if ok else 'FAILED'}")
+    checks.update(sp_compare(got, want))
+    if not all(checks.values()):
+        for name, spec in runs.items():
+            log(f"{name} launches: ranks {[r[name]['launches'] for r in got]}"
+                f", one process {want[name]['launches']}, want "
+                f"{expect(*spec, True)} and {expect(*spec, False)}")
+        fail("phase 22: " + ", ".join(k for k, ok in checks.items()
+                                      if not ok))
+    phase_done(22, "spatial sharding (train.spatial_shard=2, two gloo "
+               "ranks on one card)", t0)
+    return {f"sp_{name}": {k: sum(r[name]["launches"][k] for r in got)
+                           for k in got[0][name]["launches"]}
+            for name in runs}
 
 
 # ---------------------------------------------------------------------------
@@ -4247,15 +4991,26 @@ MAIN_PATHS = ("eval", "train", "cfg_eval", "cfg_interval_eval", "auto_eval",
               "cfg_search_gradient_dpm", "tracked_inference_metrics",
               "tracked_train", "cfg_tracked_inference_metrics",
               "search_ensemble", "search_clip", "finetune", "finetune_eval",
-              "finetune_surgery_eval", "vit_train", "vit_eval", "dp_train")
+              "finetune_surgery_eval", "vit_train", "vit_eval", "dp_train",
+              "dp_ring_train", "sp_flagship_train", "sp_flagship_ddim",
+              "sp_cifar_train")
 WORK = {"train": "one train step of configs/cifar10_uncond.yaml (batch 128, "
                  "bf16)",
         "cond_train": "one train step of configs/cifar10_cfg.yaml (batch "
-                      "256, bf16)"}
+                      "256, bf16)",
+        "flagship_rows_k2": "one forward of configs/imagenet256_uncond.yaml "
+                            "(batch 2, bf16) on the rows of one of 2 seq "
+                            "ranks: its 51 GroupNorm calls"}
 # name -> (source, the TPU kernel it replaces, the step its times sum over)
 KERNELS = {
     "groupnorm_swish": ("itsd_tpu_torch/csrc/groupnorm.cu",
                         "itsd_tpu/kernels/groupnorm.py:47", "train"),
+    "groupnorm_partial_stats": ("itsd_tpu_torch/csrc/groupnorm.cu",
+                                "itsd_tpu/kernels/groupnorm.py:47",
+                                "flagship_rows_k2"),
+    "groupnorm_apply": ("itsd_tpu_torch/csrc/groupnorm.cu",
+                        "itsd_tpu/kernels/groupnorm.py:47",
+                        "flagship_rows_k2"),
     "flash_attention_mma": ("itsd_tpu_torch/csrc/flash_attention_mma.cu",
                             "itsd_tpu/kernels/attention.py:50", "train"),
     "flash_attention_wide": ("itsd_tpu_torch/csrc/flash_attention_wide.cu",
@@ -4305,7 +5060,7 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
                                      "flash_bwd_dkv_simt"):
             launches = f32_launches[name]
             counted_on = ("f32 kernel paths of phases 4, 6, 10, 11, 14, 16, "
-                          "18, 20")
+                          "18, 20, 22")
         if not launches:
             fail(f"{name} was not launched on its paths")
         entry = dict(name=name, route="cuda", source=source,
@@ -4323,6 +5078,16 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
         if name not in fwd:
             entry["library"] = ("one SDPA backward, which computes dq, dk "
                                 "and dv together")
+        if name == "groupnorm_partial_stats":
+            entry["library"] = ("torch.sum over each span in f32, for the "
+                                "sum's launches; the squared deviations' "
+                                "have no single PyTorch call")
+        if name == "groupnorm_apply":
+            # no PyTorch call normalizes with given statistics
+            entry["library_ms"] = None
+            for key, value in entry.items():
+                if key.endswith("_step") and isinstance(value, dict):
+                    value["library_ms"] = None
         entries.append(entry)
     return entries
 
@@ -4337,9 +5102,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--cli"]:
         return cli_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--spatial"]:
+        return spatial_worker(sys.argv[2:])
     dev = torch.device(DEVICE)
     name, smi_line = card()
     build()
+    if sys.argv[1:2] == ["--sp-control"]:
+        return sp_control(smi_line)
     with tempfile.TemporaryDirectory(prefix="itsd_chip_smoke_") as tmpdir:
         cfg = eval_config(tmpdir)
         params = seeded_params(cfg)
@@ -4395,7 +5164,9 @@ def main() -> int:
             "flagship": (FLAGSHIP_ATTENTION, 10, True),
             "finetune": (ft_shapes, 1, True),
             "vit_train": (vit_train_shapes, 5, True),
-            "vit_eval": (vit_eval_shapes, 5, False)}, dev, timer)
+            "vit_eval": (vit_eval_shapes, 5, False)}, {
+            "flagship_rows": (ft_shapes[0], SP_FLAG_BATCH),
+            "cifar_rows": (train_shapes[0], SP_CIFAR_BATCH)}, dev, timer)
         # the attention batches phase 2 held, for phase 15's search runs
         held = {model: {B for _, attn in paths for B, _, _ in attn}
                 for model, paths in (
@@ -4421,7 +5192,13 @@ def main() -> int:
             "vit_train": (vit_train_shapes, [])}, dev, timer)
         f32.append(train_parity(tmpdir)[1])
         paths["train"], _ = train_path(tmpdir, smi_line)
-        paths["dp_train"] = dp_path(tmpdir, smi_line)
+        paths["dp_train"], paths["dp_ring_train"] = dp_path(tmpdir,
+                                                            smi_line)
+        paths.update(spatial_path(
+            tmpdir, ((len(ft_shapes[0]), len(ft_shapes[1])),
+                     (len(train_shapes[0]), len(train_shapes[1]))),
+            smi_line))
+        f32.append(paths.pop("sp_flagship_ddim_f32"))
         guided, _ = guided_eval_path(cparams, tmpdir, smi_line)
         paths.update(guided)
         f32.append(guided_parity(cparams, tmpdir)[0])

@@ -6,9 +6,9 @@ Usage:
         [--config c.yaml] [--device cuda] [key=value ...]
 
 Overrides take dotted keys (``diffusion.T=50``) and the reference's flat keys
-(``T=50``, ``channel_mult=[1,2]``), as the JAX package's CLI. The options
-that are not yet ported (the sequence-sharded ones) exit with status 2 and
-say so.
+(``T=50``, ``channel_mult=[1,2]``), as the JAX package's CLI. The one
+option that is not yet ported (the ViT under ``train.spatial_shard`` > 1)
+exits with status 2 and says so.
 
 On several GPUs, one process each:
 
@@ -17,6 +17,8 @@ On several GPUs, one process each:
 starts a process group (``parallel.maybe_initialize_distributed``: NCCL on
 ``cuda:LOCAL_RANK``, gloo with ``--device cpu``) before the command runs;
 rank 0 prints the config and the summary and writes the files.
+``train.spatial_shard=K`` splits the images' rows over K of the ranks
+(``parallel.spatial``).
 """
 
 from __future__ import annotations

@@ -14,15 +14,23 @@ Counterpart of ``itsd_tpu/cli/runner.py`` (``build_model``,
 ``finetune_extended_T`` 1345-1405), with the UNet (unconditional and
 conditional) and the ViT, classifier-free guidance, autoguidance, every
 sampler, noise search, FID / IS / CLIP tracking, the cross-T surgery of a
-table time embedding, representation extraction and profiling. Spatial
-meshes (``train.spatial_shard``) are not yet ported and raise, except in
-``run_search``, which runs each candidate whole, as JAX's does.
+table time embedding, representation extraction and profiling.
 
 Under ``torchrun`` (``parallel.mesh``) every rank runs the entry point:
 ``train`` splits each global batch of ``train.batch_size`` rows over the
 ranks (data parallel), ``run_search`` splits the folded candidates where
 JAX's does, and the other entry points run whole on every rank. Rank 0
 alone writes files.
+
+``train.spatial_shard=K`` factors the ranks into (data = W/K, seq = K), as
+JAX's ``_train_mesh`` (``parallel.make_seq_mesh``), and the image rows
+shard over the seq ranks (``parallel.spatial``): ``train`` trains on the
+rank's block of each batch, and ``evaluate``, ``sample_with_metrics`` and
+the training grid sample on the rank's block of the images, gathered
+before they are saved or scored (``_spatial_mesh``: a note, and the
+unsharded run, where K does not divide the world size or the rows).
+``run_search`` and ``finetune_extended_T`` print JAX's notes and run
+unsharded. The ViT under K > 1 is not yet ported.
 
 Unlike JAX's, the model that samples is built with the time-table rows
 it samples (``build_model(cfg, inference=True)``), so that a checkpoint
@@ -58,8 +66,10 @@ from ..metrics.frechet import frechet_from, gaussian_stats
 from ..metrics.is_score import inception_score_from_probs, softmax_probs
 from ..models import (UNet, ViT, ViTConfig, cond_unet_config,
                       uncond_unet_config)
-from ..parallel import (data_group, gather_rows, is_main, replicate,
-                        world_size)
+from ..parallel import (data_group, is_main, make_seq_mesh,
+                        replicate, seq_mesh_scope, world_size)
+from ..parallel.spatial import (all_reduce_sum, gather_image, on_image_rows,
+                                row_shards, splits_batch)
 from ..train import (OptimizerConfig, create_train_state, make_optimizer,
                      make_train_step)
 from ..train.checkpoint import (AsyncCheckpointManager, is_full_checkpoint,
@@ -333,14 +343,45 @@ def _validated_launch_segments(cfg: Config) -> int:
     return seg_n
 
 
+def _spatial_mesh(cfg: Config, img_h: int):
+    """``train.spatial_shard`` at inference, as JAX's ``_spatial_mesh``:
+    the (data, seq) layout to sample on, or None for one process's run,
+    with a note where K does not divide the world size or the image
+    rows."""
+    K = max(1, int(cfg.train.spatial_shard))
+    if K == 1:
+        return None
+    n = world_size()
+    if n % K or img_h % K:
+        if is_main():
+            print(f"[runner] spatial_shard={K} ignored at inference: needs "
+                  f"K | device_count ({n}) and K | H ({img_h})")
+        return None
+    return make_seq_mesh(K)
+
+
+def _sample_images(mesh, fn, x_T, generator, noise_fn=None, h_axis=1,
+                   batch_axis=0):
+    """``fn(x_T, generator, noise_fn)``, a sampler over NHWC images
+    returning a tensor of images (their rows on ``h_axis``, their batch on
+    ``batch_axis``): on this rank's block of them under ``mesh``
+    (``parallel.spatial.on_image_rows``; batch rows over the data ranks
+    where they divide), gathered back on every rank; else whole."""
+    if mesh is None:
+        return fn(x_T, generator, noise_fn)
+    batch = splits_batch(mesh, x_T.shape[0])
+    return gather_image(on_image_rows(fn, x_T, generator, noise_fn, mesh,
+                                      batch), mesh, h_axis, batch,
+                        batch_axis)
+
+
 def evaluate(cfg: Config, params=None, device="cuda") -> dict:
     """Sample ``eval_batch_size`` images with the sampler ``run_sampler``
     picks; write the initial-noise grid and the sample grid under
     ``cfg.sampled_dir``. Returns ``{"images": [B,H,W,3] numpy in [-1, 1],
-    "path": grid path}``."""
+    "path": grid path}``. Under ``train.spatial_shard`` (``_spatial_mesh``)
+    the chain runs on this rank's block of the images."""
     _validated_launch_segments(cfg)
-    if cfg.train.spatial_shard > 1:
-        raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
     model, conditional = build_model(cfg, inference=True)
     weak = load_weak_params(cfg, conditional) if conditional else None
     if params is None:
@@ -360,8 +401,11 @@ def evaluate(cfg: Config, params=None, device="cuda") -> dict:
                                      cfg.sampled_noisy_img_name),
                         nrow=cfg.nrow)
     eps_fn = sampling_eps_fn(cfg, model, conditional, eval_bs, weak)
-    with torch.inference_mode():
-        imgs = run_sampler(cfg, sched, eps_fn, x_T, gen)
+    mesh = _spatial_mesh(cfg, size)
+    with torch.inference_mode(), seq_mesh_scope(mesh):
+        imgs = _sample_images(
+            mesh, lambda x, g, nf: run_sampler(cfg, sched, eps_fn, x, g, nf),
+            x_T, gen)
     images = imgs.cpu().numpy()
     out_path = os.path.join(cfg.sampled_dir, cfg.sampled_img_name)
     if is_main():
@@ -490,8 +534,6 @@ def sample_with_metrics(cfg: Config, params, feature_fn=None,
             "per-step snapshots would not be the monotone t-history the "
             "metrics report. Use `eval` or `search` with restarts, or "
             "clear restart_intervals here.")
-    if cfg.train.spatial_shard > 1:
-        raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
     model, conditional = build_model(cfg, inference=True)
     weak = load_weak_params(cfg, conditional) if conditional else None
     load_weights(cfg, model, params)
@@ -505,11 +547,22 @@ def sample_with_metrics(cfg: Config, params, feature_fn=None,
                           device=device)
     eps_fn = sampling_eps_fn(cfg, model, conditional, eval_bs, weak)
     interval = cfg.train.eval_metric_interval or cfg.train.metric_interval
-    with torch.inference_mode():
+    mesh = _spatial_mesh(cfg, size)
+    snap_ts = []
+
+    def chain(x, g, nf):
+        """x_0 and the snapshots, stacked: [1 + points, B, H, W, C]."""
         x0, ts, snaps = sample_with_snapshots(
-            sched, eps_fn, x_T.to(device), interval,
-            clip_denoised=cfg.diffusion.clip_denoised, generator=gen,
-            noise_fn=noise_fn)
+            sched, eps_fn, x, interval,
+            clip_denoised=cfg.diffusion.clip_denoised, generator=g,
+            noise_fn=nf)
+        snap_ts.append(ts)
+        return torch.cat([x0[None], snaps])
+
+    with torch.inference_mode(), seq_mesh_scope(mesh):
+        states = _sample_images(mesh, chain, x_T.to(device), gen, noise_fn,
+                                h_axis=2, batch_axis=1)
+        x0, snaps, ts = states[0], states[1:], snap_ts[0]
         fid_to_real = (None if real_features is None
                        else frechet_from(*gaussian_stats(real_features)))
         history = []
@@ -765,14 +818,13 @@ def run_search(cfg: Config, params=None, verifier_fn=None, device="cuda",
     rows, JAX's count) are split over the ranks when there are several and
     they divide ``n_fold``, as JAX's candidate sharding; rank 0 writes.
     ``train.spatial_shard`` > 1 does not apply: each candidate runs
-    whole."""
+    whole, after JAX's note."""
     from ..search import algorithms as A
 
     if cfg.train.spatial_shard > 1 and is_main():
-        print("[search] note: train.spatial_shard splits images in train, "
-              "eval and inference-metrics (not yet ported there); search "
-              "runs unsharded per candidate (candidates are the sharded "
-              "axis)")
+        print("[runner] note: train.spatial_shard applies to train/eval/"
+              "inference-metrics; search runs unsharded per candidate "
+              "(candidates are the sharded axis)")
     model, conditional = build_model(cfg, inference=True)
     weak = load_weak_params(cfg, conditional) if conditional else None
     if params is None:
@@ -986,22 +1038,60 @@ def train(cfg: Config, max_steps: Optional[int] = None,
 
     Under ``torchrun`` this is data parallel: ``train.batch_size`` is the
     global batch, which the world size must divide; each rank trains on its
-    rows (``make_train_step(shard=...)``), the representations are gathered
+    rows (``make_train_step(mesh=...)``), the representations are gathered
     to the global batch's rows, and rank 0 alone writes the checkpoints,
     ``train_metrics.jsonl``, the loss curve, the sample grids, the trace
-    and the representations. The in-train evals run on every rank.
+    and the representations. The in-train evals run on every rank. With
+    ``train.spatial_shard=K`` (``_train_mesh``) the W ranks are data = W/K
+    by seq = K: the data ranks must divide the batch, and each rank trains
+    on its image rows of its batch rows.
 
     Returns the final loss, the step count, the checkpoint paths, the
     per-step losses, the metric histories, the trace's path (or None) and
     the ``TrainState``."""
-    if cfg.train.spatial_shard > 1:
-        raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
+    mesh = _train_mesh(cfg)
+    with seq_mesh_scope(mesh):
+        return _train(cfg, mesh, max_steps, device)
+
+
+def _train_mesh(cfg: Config):
+    """The run's (data, seq) layout, as JAX's ``_train_mesh``: with
+    ``train.spatial_shard=K`` > 1, data = W/K by seq = K (ValueError unless
+    K divides the world size W and ``data.img_size``); with K = 1, seq
+    groups of one (pure data parallelism; with ``attention_impl=ring``,
+    local attention and JAX's note)."""
+    K = max(1, int(cfg.train.spatial_shard))
+    if K == 1:
+        if cfg.model.attention_impl == "ring" and is_main():
+            print("[runner] attention_impl=ring with spatial_shard=1: "
+                  "ring runs with a size-1 seq axis during training "
+                  "(local attention, full data parallelism); set "
+                  "train.spatial_shard>1 to actually shard tokens")
+        return make_seq_mesh(1)
+    if cfg.model.backbone == "vit":
+        raise _not_ported("train.spatial_shard > 1 with model.backbone=vit "
+                          "(the ViT's image rows over the seq ranks)")
+    n = world_size()
+    if n % K:
+        raise ValueError(
+            f"train.spatial_shard={K} must divide device count {n}")
+    if cfg.data.img_size % K:
+        raise ValueError(
+            f"train.spatial_shard={K} must divide img_size "
+            f"{cfg.data.img_size} (image rows shard evenly)")
+    return make_seq_mesh(K)
+
+
+def _train(cfg: Config, mesh, max_steps: Optional[int], device) -> dict:
+    """``train`` under its (data, seq) layout ``mesh``."""
     ranks = world_size()
-    if cfg.train.batch_size % ranks:
+    if cfg.train.batch_size % mesh.data:
         raise ValueError(
             f"train.batch_size={cfg.train.batch_size} is the global batch: "
-            f"the world size {ranks} must divide it")
-    shard, main = data_group(), is_main()
+            + (f"the world size {ranks}" if mesh.seq == 1 else
+               f"its {mesh.data} data ranks (world size {ranks} / "
+               f"spatial_shard {mesh.seq})") + " must divide it")
+    main = is_main()
     model, conditional = build_model(cfg)
     weak = load_weak_params(cfg, conditional) if conditional else None
     sched = build_schedule(cfg, device=device)
@@ -1011,7 +1101,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
         images, labels, tracked = _tracked_eval_setup(cfg, images, labels,
                                                       device)
     it = BatchIterator(images, labels if conditional else None,
-                       cfg.train.batch_size, seed=cfg.data.seed, shard=shard)
+                       cfg.train.batch_size, seed=cfg.data.seed, mesh=mesh)
     if len(it) == 0:
         raise ValueError(
             f"train.batch_size={cfg.train.batch_size} exceeds the dataset "
@@ -1022,8 +1112,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
         model.load_state_dict(restore_params(os.path.join(
             cfg.save_weight_dir, cfg.train.training_load_weight)))
     model.to(device)
-    if shard is not None:
-        replicate(model, shard)
+    replicate(model)
     tx = make_optimizer(OptimizerConfig(
         lr=cfg.train.lr, weight_decay=cfg.train.weight_decay,
         grad_clip=cfg.train.grad_clip, multiplier=cfg.train.multiplier,
@@ -1036,7 +1125,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
         loss_reduction=cfg.train.loss_reduction,
         loss_weighting=cfg.train.loss_weighting,
         snr_gamma=cfg.train.snr_gamma, label_dropout=cfg.train.label_dropout,
-        ema_decay=cfg.train.ema_decay, shard=shard)
+        ema_decay=cfg.train.ema_decay, mesh=mesh)
 
     logger = MetricsLogger(
         os.path.join(cfg.metrics_save_dir, "train_metrics.jsonl")
@@ -1061,9 +1150,10 @@ def train(cfg: Config, max_steps: Optional[int] = None,
                 metrics.append(step_fn(state, batch, generator))
             step += 1
             if extract_freq and batch_i % extract_freq == 0:
-                reps.append(tuple(gather_rows(a, shard) for a in
-                                  _representation(state.model, batch,
-                                                  sched.T)))
+                reps.append(tuple(
+                    gather_image(a, mesh, None)
+                    for a in _representation(state.model, batch, sched.T,
+                                             mesh)))
             if max_steps is not None and step >= max_steps:
                 break
         if reps and cfg.train.save_representations and main:
@@ -1122,17 +1212,21 @@ def train(cfg: Config, max_steps: Optional[int] = None,
             "metrics_history": metrics_history, "trace": profiler.path}
 
 
-def _representation(model, batch: dict, T: int):
+def _representation(model, batch: dict, T: int, mesh=None):
     """(the activation before ``tail_norm`` averaged over the pixels,
     [B, C] float32; the batch's labels) of the conditional ``model`` on
     ``batch`` at t = T // 2 and labels + 1, deterministic, without a
-    gradient: JAX's ``repr_fn`` hook."""
+    gradient: JAX's ``repr_fn`` hook. Under ``mesh`` the batch holds this
+    rank's image rows, and the mean is over the whole images."""
     x, labels = batch["image"], batch["label"]
     t = torch.full((x.shape[0],), T // 2, dtype=torch.int64,
                    device=x.device)
-    with torch.no_grad():
+    with torch.no_grad(), row_shards(mesh):
         _, rep = model(x, t, labels.long() + 1, return_representation=True)
-    return rep.float().mean(dim=(1, 2)), labels
+    rep = rep.float().mean(dim=(1, 2))
+    if mesh is not None and mesh.seq > 1:
+        rep = all_reduce_sum(rep, mesh.seq_group) / mesh.seq
+    return rep, labels
 
 
 def _tracked_eval_setup(cfg: Config, images, labels, device):
@@ -1185,8 +1279,11 @@ def _sample_grid_during_training(cfg: Config, state, epoch: int,
     size = cfg.data.img_size
     x_T = torch.randn((eval_bs, size, size, 3), generator=gen, device=device)
     eps_fn = sampling_eps_fn(cfg, model, conditional, eval_bs, weak_params)
-    with torch.inference_mode():
-        imgs = run_sampler(cfg, sched, eps_fn, x_T, gen)
+    mesh = _spatial_mesh(cfg, size)
+    with torch.inference_mode(), seq_mesh_scope(mesh):
+        imgs = _sample_images(
+            mesh, lambda x, g, nf: run_sampler(cfg, sched, eps_fn, x, g, nf),
+            x_T, gen)
     path = os.path.join(cfg.sampled_dir, f"epoch_{epoch}_sampled.png")
     if is_main():
         os.makedirs(cfg.sampled_dir, exist_ok=True)
@@ -1207,9 +1304,12 @@ def finetune_extended_T(cfg: Config, max_steps: Optional[int] = None,
     ``save_weight_dir``. Returns ``final_loss``, the per-step ``losses``,
     the ``steps``, the ``checkpoints``, the ``TrainState`` and
     ``ckpt_T_detected`` (the checkpoint's table rows, None for a
-    functional embedding)."""
-    if cfg.train.spatial_shard > 1:
-        raise _not_ported("train.spatial_shard > 1 (spatial meshes)")
+    functional embedding). ``train.spatial_shard`` > 1 does not apply:
+    it prints JAX's note and runs unsharded."""
+    if cfg.train.spatial_shard > 1 and is_main():
+        print("[runner] note: train.spatial_shard is not applied by "
+              "finetune-t (small embedding-only updates); it runs "
+              "unsharded")
     model, conditional = build_model(cfg)
     sched = build_schedule(cfg, device=device)
     params = load_eval_params(cfg)

@@ -48,14 +48,16 @@ def diffusion_train_terms(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(t, noise, x_t) for one training step: uniform t in [0, T) and
     gaussian noise drawn from ``generator`` (t first), unless passed in;
-    a ``parallel.RowDraws`` draws them for the global batch and keeps this
-    rank's rows. JAX draws both from a split threefry key, which torch
-    cannot reproduce, so the tests pass JAX's t and noise in."""
+    a ``parallel.RowDraws`` draws them for the global batch (the noise for
+    the global images) and keeps this rank's block. JAX draws both from a
+    split threefry key, which torch cannot reproduce, so the tests pass
+    JAX's t and noise in."""
     if t is None:
         t = draw(functools.partial(torch.randint, 0, sched.T),
                  (x_0.shape[0],), generator, device=x_0.device)
     if noise is None:
-        noise = draw(torch.randn, x_0.shape, generator, dtype=x_0.dtype,
+        noise = draw(torch.randn, x_0.shape, generator,
+                     h_axis=1 if x_0.dim() == 4 else None, dtype=x_0.dtype,
                      device=x_0.device)
     return t, noise, q_sample(sched, x_0, t, noise)
 

@@ -45,7 +45,9 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel import draw, local_rows, on_local_rows, under_row_windows
+from ..parallel import (draw, local_rows, on_local_rows, under_row_windows,
+                        world_size)
+from ..parallel.spatial import all_reduce_sum, row_shard_mesh
 from .process import EpsFn, p_sample_step
 from .schedules import DiffusionSchedule
 
@@ -64,7 +66,9 @@ def _eps(eps_fn: EpsFn, x: torch.Tensor, t: int) -> torch.Tensor:
 def _draw(x: torch.Tensor, i: int, t: int, generator, noise_fn):
     if noise_fn is not None:
         return noise_fn(i, t)
-    return draw(torch.randn, x.shape, generator, dtype=x.dtype,
+    # NHWC images: under the seq axis their rows (axis 1) are split
+    return draw(torch.randn, x.shape, generator,
+                h_axis=1 if x.dim() == 4 else None, dtype=x.dtype,
                 device=x.device)
 
 
@@ -509,7 +513,9 @@ def parallel_picard_sample(sched: DiffusionSchedule, eps_fn: EpsFn,
     ``parallel.mesh``) each sweep's n*B rows are split over its ranks, each
     rank evaluates its ``local_rows`` and the eps are gathered back, so
     every rank refreshes the whole trajectory; the world size must divide
-    n*B. Returns ``(x_0, sweeps)``."""
+    n*B. On row shards (``parallel.spatial.row_shards``) x_T is this rank's
+    block of the images and delta is the mean over the whole images, the
+    same on every rank. Returns ``(x_0, sweeps)``."""
     T = sched.T
     n = num_steps
     if not 2 <= n <= T:
@@ -525,6 +531,7 @@ def parallel_picard_sample(sched: DiffusionSchedule, eps_fn: EpsFn,
 
     B = x_T.shape[0]
     dev = x_T.device
+    rows = row_shard_mesh()
     t_fold = _to_device(np.repeat(ts, B), dev)
     if shard is not None:
         t_fold = local_rows(t_fold, shard)
@@ -544,7 +551,16 @@ def parallel_picard_sample(sched: DiffusionSchedule, eps_fn: EpsFn,
         cums = torch.cumsum(g, dim=0)
         X_new = torch.cat([X[:1], x_T.unsqueeze(0) + cums[:-1]])
         final = x_T + cums[-1]
-        delta = (X_new - X).abs().mean(dim=tuple(range(1, X.dim()))).max()
+        change = (X_new - X).abs()
+        if rows is None:
+            delta = change.mean(dim=tuple(range(1, X.dim()))).max()
+        else:
+            # the mean over the whole images, whose blocks the ranks hold
+            # (a block held by several data ranks is counted as often as
+            # its elements)
+            total = all_reduce_sum(change.sum(dim=tuple(range(1, X.dim()))),
+                                   None)
+            delta = (total / (change[0].numel() * world_size())).max()
         X = X_new
         sweeps += 1
         if not delta.item() > tol:

@@ -44,6 +44,21 @@
 //   786,432 / 8 = 384 KB) is not held: its second and third reads come
 //   again from memory, most of it from the 50 MB L2, which the cluster's
 //   just-read span (3 MB) fits.
+//
+// GroupNorm over row shards (itsd_groupnorm_partial_stats and
+// itsd_groupnorm_apply, below) replaces no TPU kernel of its own: under
+// JAX's spatial sharding GSPMD splits the XLA GroupNorm
+// (itsd_tpu/kernels/groupnorm.py:groupnorm_swish_xla) into per-shard
+// partial sums and a cross-device reduction. When the seq ranks each hold
+// some rows of an image, the two passes of the statistics need the sums of
+// every rank: the stats kernel gives this rank's partial sum of a span (x,
+// or (x - mean)^2 around a given mean), the caller all-reduces it, and the
+// apply kernel normalizes with the global mean and rstd. Both are bound by
+// bytes (one read of x; one read and one write), and use the plan above:
+// the stats kernel is the fused kernel's reduction pass, a cluster's
+// partials added in rank order (no atomics: the sum is the same from run
+// to run); the apply kernel is its last pass, a grid-stride loop of 16-byte
+// vectors.
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -335,6 +350,161 @@ cudaError_t dispatch(const void* x, const void* w, const void* b, void* y,
                                 act, stream);
 }
 
+// The stats kernel: out[s] = the f32 sum over span s of x, or with kSq of
+// (x - mean[s])^2. The launch covers the spans as plan() says; the team of
+// a span (or the cluster of its parts) reduces as the fused kernel does.
+template <typename T, int kVec, bool kSq>
+__global__ void __launch_bounds__(kMaxThreads)
+    groupnorm_stats_kernel(const T* __restrict__ x,
+                           const float* __restrict__ mean,
+                           float* __restrict__ out, long long spans, int span,
+                           int team, int nblk, int part) {
+  __shared__ float scratch[32];
+  __shared__ float slot;  // this block's partial, for the cluster
+  const int tid = threadIdx.x;
+  const int spb = blockDim.x / team;
+  const int ti = tid / team, lt = tid % team;
+  long long s, lo, hi;  // the team's span and its elements [lo, hi)
+  int rank = 0;
+  if (nblk > 1) {
+    rank = (int)cg::this_cluster().block_rank();
+    s = blockIdx.x / nblk;
+    lo = s * span + (long long)rank * part;
+    hi = s * span + min((long long)span, (long long)(rank + 1) * part);
+    lo = min(lo, hi);
+  } else {
+    s = (long long)blockIdx.x * spb + ti;
+    lo = min(s, spans) * span;
+    hi = min(s + 1, spans) * span;
+  }
+  const float m = (kSq && s < spans) ? mean[s] : 0.f;
+  float acc = 0.f;
+  for (long long i = lo / kVec + lt; i < hi / kVec; i += team) {
+    float f[kVec];
+    load_vec<T, kVec>(x + i * kVec, f);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      if constexpr (kSq) {
+        const float d = f[e] - m;
+        acc += d * d;
+      } else {
+        acc += f[e];
+      }
+    }
+  }
+  acc = cluster_sum(team_sum(acc, team, scratch), nblk, &slot);
+  if (s < spans && lt == 0 && rank == 0) out[s] = acc;
+  // no block leaves while another block of its cluster may still read its
+  // slot
+  if (nblk > 1) cg::this_cluster().sync();
+}
+
+// The apply kernel: y = swish?((x - mean[s]) * rstd[s] * weight[c] +
+// bias[c]) with the fused kernel's arithmetic (a = weight * rstd, shift =
+// bias - mean * a, one FMA), kVec elements a thread and step.
+template <typename T, int kVec>
+__global__ void __launch_bounds__(256)
+    groupnorm_apply_kernel(const T* __restrict__ x,
+                           const float* __restrict__ mean,
+                           const float* __restrict__ rstd,
+                           const float* __restrict__ weight,
+                           const float* __restrict__ bias, T* __restrict__ y,
+                           long long n_vec, int C, int HW, int G, int act) {
+  const int cg_ = C / G;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_vec; i += (long long)gridDim.x * blockDim.x) {
+    const long long e0 = i * kVec;
+    const long long bc = e0 / HW;  // b * C + c; a vector lies in one channel
+    const int c = (int)(bc % C);
+    const long long s = (bc / C) * G + c / cg_;
+    const float a = weight[c] * rstd[s];
+    const float shift = bias[c] - mean[s] * a;
+    float f[kVec];
+    load_vec<T, kVec>(x + e0, f);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      float u = fmaf(f[e], a, shift);
+      if (act) u = u * (1.f / (1.f + expf(-u)));
+      f[e] = u;
+    }
+    store_vec<T, kVec>(y + e0, f);
+  }
+}
+
+template <typename T, int kVec, bool kSq>
+cudaError_t launch_stats(const Plan& p, const void* x, const float* mean,
+                         float* out, long long spans, int span,
+                         cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.blocks);
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.nblk;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.nblk > 1 ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, groupnorm_stats_kernel<T, kVec, kSq>, static_cast<const T*>(x),
+      mean, out, spans, span, p.team, p.nblk, p.part);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_stats(const void* x, const void* mean, void* out, int B,
+                           int C, int HW, int G, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int cg_ = C / G;
+  const int span = cg_ * HW;
+  const long long spans = (long long)B * G;
+  const bool vec_ok = HW % kVec == 0 && (uintptr_t)x % 16 == 0;
+  // the fused kernel's plan; nothing is held in shared memory here
+  const Plan p = plan(spans, span, cg_, sizeof(T), vec_ok);
+  const float* m = static_cast<const float*>(mean);
+  float* o = static_cast<float*>(out);
+  if (mean == nullptr)
+    return vec_ok ? launch_stats<T, kVec, false>(p, x, m, o, spans, span,
+                                                 stream)
+                  : launch_stats<T, 1, false>(p, x, m, o, spans, span,
+                                              stream);
+  return vec_ok ? launch_stats<T, kVec, true>(p, x, m, o, spans, span, stream)
+                : launch_stats<T, 1, true>(p, x, m, o, spans, span, stream);
+}
+
+template <typename T>
+cudaError_t dispatch_apply(const void* x, const void* mean, const void* rstd,
+                           const void* w, const void* b, void* y, int B,
+                           int C, int HW, int G, int act,
+                           cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const bool vec_ok = HW % kVec == 0 &&
+                      ((uintptr_t)x | (uintptr_t)y) % 16 == 0;
+  const long long n = (long long)B * C * HW;
+  const int vec = vec_ok ? kVec : 1;
+  const long long n_vec = n / vec;
+  constexpr int kThreads = 256;
+  const int blocks = (int)std::min<long long>((n_vec + kThreads - 1) /
+                                                  kThreads,
+                                              (long long)kSMs * 16);
+  const float* mf = static_cast<const float*>(mean);
+  const float* rf = static_cast<const float*>(rstd);
+  const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(b);
+  if (vec_ok)
+    groupnorm_apply_kernel<T, kVec><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), mf, rf, wf, bf, static_cast<T*>(y), n_vec,
+        C, HW, G, act);
+  else
+    groupnorm_apply_kernel<T, 1><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), mf, rf, wf, bf, static_cast<T*>(y), n_vec,
+        C, HW, G, act);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, y: [B, C, HW] contiguous (f32 or bf16, per `dtype`); weight, bias: [C]
@@ -354,6 +524,57 @@ extern "C" int itsd_groupnorm_swish(const void* x, const void* weight,
     case ITSD_BF16:
       return (int)dispatch<__nv_bfloat16>(x, weight, bias, y, B, C, HW, G,
                                           eps, act, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+namespace {
+
+bool bad_shape(int B, int C, int HW, int G) {
+  return B <= 0 || C <= 0 || HW <= 0 || G <= 0 || C % G != 0 ||
+         B > 65535 || (long long)(C / G) * HW > (1LL << 30);
+}
+
+}  // namespace
+
+// x: [B, C, HW] contiguous (f32 or bf16, per `dtype`); out: [B, G] f32,
+// each (sample, group) span's sum of x, or, given `mean` [B, G] f32 (else
+// null), its sum of (x - mean)^2. Returns the first CUDA error of the
+// launch, or 0.
+extern "C" int itsd_groupnorm_partial_stats(const void* x, const void* mean,
+                                            void* out, int B, int C, int HW,
+                                            int G, int dtype, void* stream) {
+  if (bad_shape(B, C, HW, G)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case ITSD_F32:
+      return (int)dispatch_stats<float>(x, mean, out, B, C, HW, G, s);
+    case ITSD_BF16:
+      return (int)dispatch_stats<__nv_bfloat16>(x, mean, out, B, C, HW, G,
+                                                s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// x, y: [B, C, HW] contiguous (f32 or bf16); mean, rstd: [B, G] f32;
+// weight, bias: [C] f32. y = x normalized with the given statistics, the
+// affine, then swish when `act`. Returns the first CUDA error, or 0.
+extern "C" int itsd_groupnorm_apply(const void* x, const void* mean,
+                                    const void* rstd, const void* weight,
+                                    const void* bias, void* y, int B, int C,
+                                    int HW, int G, int act, int dtype,
+                                    void* stream) {
+  if (bad_shape(B, C, HW, G)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case ITSD_F32:
+      return (int)dispatch_apply<float>(x, mean, rstd, weight, bias, y, B, C,
+                                        HW, G, act, s);
+    case ITSD_BF16:
+      return (int)dispatch_apply<__nv_bfloat16>(x, mean, rstd, weight, bias,
+                                                y, B, C, HW, G, act, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

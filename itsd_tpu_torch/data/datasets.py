@@ -25,24 +25,25 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from ..parallel import local_rows
+from ..parallel.spatial import image_rows
 
 
 class BatchIterator:
-    """Shuffling batch iterator over in-memory arrays. With ``shard`` (a
-    process group) it shuffles and flips the global batch of
-    ``batch_size`` rows as one process does and yields this rank's
-    ``local_rows`` of it."""
+    """Shuffling batch iterator over in-memory arrays. With ``mesh`` (a
+    ``parallel.SeqMesh``) it shuffles and flips the global batch of
+    ``batch_size`` rows as one process does and yields this rank's block
+    of it (``parallel.spatial.image_rows``: batch rows over the data axis,
+    image rows over the seq axis)."""
 
     def __init__(self, images: np.ndarray, labels: Optional[np.ndarray],
                  batch_size: int, seed: int = 0, flip: bool = True,
-                 drop_remainder: bool = True, shard=None):
+                 drop_remainder: bool = True, mesh=None):
         self.images = images
         self.labels = labels
         self.batch_size = batch_size
         self.flip = flip
         self.drop_remainder = drop_remainder
-        self.shard = shard
+        self.mesh = mesh
         self._rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -63,8 +64,9 @@ class BatchIterator:
             batch = {"image": imgs.astype(np.float32)}
             if self.labels is not None:
                 batch["label"] = self.labels[idx].astype(np.int32)
-            if self.shard is not None:
-                batch = {k: local_rows(v, self.shard)
+            if self.mesh is not None:
+                batch = {k: image_rows(v, self.mesh,
+                                       1 if v.ndim == 4 else None)
                          for k, v in batch.items()}
             yield batch
 

@@ -44,6 +44,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, weight, bias, y, B, C, HW, G, eps, act, dtype, stream
     "itsd_groupnorm_swish": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    # x, mean (or null), out, B, C, HW, G, dtype, stream
+    "itsd_groupnorm_partial_stats": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, mean, rstd, weight, bias, y, B, C, HW, G, act, dtype, stream
+    "itsd_groupnorm_apply": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P),
     # q, k, v, o, lse, B, N, C, scale, dtype, stream
     "itsd_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "itsd_flash_attention_mma": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I,

@@ -33,16 +33,29 @@ route. Every kernel puts the batch in ``gridDim.y``, which CUDA caps at
 ``spatial_attention`` also takes the model's ``attention_impl``: "auto"
 (unless ``ITSD_ATTN_IMPL`` says otherwise) and "flash" take the path above;
 "xla" takes the plain version on any device, and only when asked for;
-"ring" is not yet ported. ``mha_attention`` folds the heads of
-multi-head attention into the batch, as the ViT needs.
+"ring" splits the tokens over the seq ranks of the registered layout, or
+without one over every rank, as JAX's default (``kernels.ring_attention``,
+the global view; tokens that do not tile warn and run unsharded, through
+the kernels). The global view needs every seq rank to hold the same
+q, k and v: where the ranks hold different rows of a batch and no layout
+is registered (a rank's window of rows, ``parallel.on_local_rows``: the
+searches, Picard), "ring" is the local call. When the activations are row
+shards of the images (``parallel.spatial.row_shards``: a rank's rows are
+a contiguous share of the H-major tokens), every impl goes around the
+ring, as JAX's "auto" routes through the ring under a spatial mesh; "xla"
+then runs each hop through the plain versions. ``mha_attention`` folds
+the heads of multi-head attention into the batch, as the ViT needs.
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 
 import torch
 
+from ..parallel import default_seq_mesh, get_seq_mesh, row_windows
+from ..parallel.spatial import row_shard_mesh
 from . import _build
 
 # Kernel launches so far: the forward (both entry points, every route), the
@@ -374,7 +387,7 @@ def resolve_impl(impl: str = "auto") -> str:
     explicit request only; "ring": the sequence-sharded path), or for
     "auto" the environment's ``ITSD_ATTN_IMPL`` (default "auto", which
     takes the kernels), as ``itsd_tpu/kernels/attention.py:spatial_attention``
-    reads it. "ring" raises: it is not yet ported."""
+    reads it."""
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl: {impl!r}; expected one "
                          f"of {IMPLS}")
@@ -383,23 +396,18 @@ def resolve_impl(impl: str = "auto") -> str:
         if impl not in IMPLS:
             raise ValueError(f"unknown ITSD_ATTN_IMPL={impl!r}; expected "
                              f"one of {IMPLS}")
-    if impl == "ring":
-        raise NotImplementedError(
-            "attention_impl=ring (sequence-sharded attention) is not yet "
-            "ported")
-    return "xla" if impl == "xla" else "flash"
+    return "flash" if impl == "auto" else impl
 
 
-def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      impl: str = "auto") -> torch.Tensor:
-    """Single-head attention over ``[B, N, C]`` tokens with scale
-    ``C ** -0.5``, as the reference's AttnBlock, on the path
-    ``resolve_impl(impl)`` names. On the kernels' path a wanted gradient
-    goes through ``flash_attention``; otherwise the forward runs alone,
-    without the lse. The plain path ("xla") is differentiable through
-    PyTorch's autograd."""
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    path: str = "flash") -> torch.Tensor:
+    """One device's attention over all of ``[B, N, C]``, scale
+    ``C ** -0.5``: "xla" the plain version; "flash" the kernels on CUDA
+    tensors (through ``flash_attention`` when a gradient is wanted, else
+    the forward alone, without the lse) and the plain version on the
+    CPU."""
     scale = float(q.shape[-1]) ** -0.5
-    if resolve_impl(impl) == "xla":
+    if path == "xla":
         return attention_plain(q, k, v, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -407,6 +415,34 @@ def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _on_cpu(q):
         return attention_plain(q, k, v, scale)
     return _flash(q, k, v, scale, emit_lse=False)
+
+
+def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      impl: str = "auto") -> torch.Tensor:
+    """Single-head attention over ``[B, N, C]`` tokens with scale
+    ``C ** -0.5``, as the reference's AttnBlock, on the path
+    ``resolve_impl(impl)`` names (see the module docstring for the ring).
+    Differentiable on every path."""
+    from .ring_attention import ring_attention, sequence_sharded_attention
+
+    path = resolve_impl(impl)
+    rows = row_shard_mesh()
+    if rows is not None:
+        return ring_attention(q, k, v, rows, plain=path == "xla")
+    if path != "ring":
+        return local_attention(q, k, v, path)
+    mesh = get_seq_mesh()
+    if mesh is None and not row_windows():
+        mesh = default_seq_mesh()
+    if mesh is None or mesh.seq == 1:
+        return local_attention(q, k, v, "flash")
+    if q.shape[1] % mesh.seq:
+        warnings.warn(
+            f"attention_impl=ring: the token count ({q.shape[1]}) does not "
+            f"tile over the seq axis ({mesh.seq} ranks): running it "
+            "unsharded", stacklevel=2)
+        return local_attention(q, k, v, "flash")
+    return sequence_sharded_attention(q, k, v, mesh)
 
 
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -17,6 +17,15 @@ the forward is called with ``deterministic=False`` on a module in training
 mode (``model.train()``), never under ``model.eval()``. Its masks come from
 the ``generator`` passed to the forward, as the Flax module takes its
 dropout key.
+
+Spatial sharding (``train.spatial_shard``). Inside
+``parallel.spatial.row_shards`` the input is this rank's block of image
+rows and so is every activation: each convolution takes the rows it needs
+from its neighbours (``halo_conv2d``, ``halo_conv_transpose2d``) and pads
+only in W, GroupNorm reduces its statistics over the seq ranks
+(``groupnorm_swish_rows``), and attention goes around the ring on the
+rank's contiguous H-major tokens (``spatial_attention``). Every level's
+rows must split evenly over the seq ranks.
 """
 
 from __future__ import annotations
@@ -29,9 +38,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.attention import spatial_attention
-from ..kernels.groupnorm import groupnorm_swish
+from ..kernels.attention import IMPLS, spatial_attention
+from ..kernels.groupnorm import groupnorm_swish, groupnorm_swish_rows
 from ..parallel import draw
+from ..parallel.spatial import (halo_conv2d, halo_conv_transpose2d,
+                                row_shard_mesh)
 from .embeddings import (TINY_GAIN, ConditionalEmbedding, Dense,
                          FunctionalTimeEmbedding, TableTimeEmbedding)
 
@@ -53,7 +64,7 @@ class UNetConfig:
     up_attn: bool = True
     down_type: str = "conv"               # "conv" | "dual_conv"
     up_type: str = "nearest_conv"         # "nearest_conv" | "transpose_conv"
-    attention_impl: str = "auto"          # "auto" | "flash" | "xla"
+    attention_impl: str = "auto"          # "auto" | "flash" | "xla" | "ring"
     dtype: str = "float32"                # compute dtype
     remat: bool = False                   # recompute each ResBlock
 
@@ -96,20 +107,29 @@ def _groups(ch: int) -> int:
 
 
 class Conv(nn.Conv2d):
-    """``nn.Conv2d`` that computes in its input's dtype."""
+    """``nn.Conv2d`` that computes in its input's dtype; on row shards,
+    with the halo of its window."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype),
-                                  self.bias.to(x.dtype))
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        mesh = row_shard_mesh()
+        if mesh is not None:
+            return halo_conv2d(x, w, b, self.stride, self.padding, mesh)
+        return self._conv_forward(x, w, b)
 
 
 class ConvT(nn.ConvTranspose2d):
-    """``nn.ConvTranspose2d`` that computes in its input's dtype."""
+    """``nn.ConvTranspose2d`` that computes in its input's dtype; on row
+    shards, with the halo of its window."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(
-            x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride,
-            self.padding, self.output_padding)
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        mesh = row_shard_mesh()
+        if mesh is not None:
+            return halo_conv_transpose2d(x, w, b, self.stride, self.padding,
+                                         self.output_padding, mesh)
+        return F.conv_transpose2d(x, w, b, self.stride, self.padding,
+                                  self.output_padding)
 
 
 class Dense1x1(Dense):
@@ -123,7 +143,8 @@ class Dense1x1(Dense):
 
 class GNAct(nn.Module):
     """GroupNorm with optional fused swish, through
-    ``kernels.groupnorm.groupnorm_swish``."""
+    ``kernels.groupnorm.groupnorm_swish`` (on row shards,
+    ``groupnorm_swish_rows``: the statistics of the whole images)."""
 
     def __init__(self, ch: int, act: bool):
         super().__init__()
@@ -133,6 +154,11 @@ class GNAct(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = row_shard_mesh()
+        if mesh is not None:
+            return groupnorm_swish_rows(x.contiguous(), self.weight,
+                                        self.bias, self.groups, mesh,
+                                        eps=1e-5, act=self.act)
         return groupnorm_swish(x.contiguous(), self.weight, self.bias,
                                self.groups, eps=1e-5, act=self.act)
 
@@ -163,12 +189,14 @@ def dropout(h: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout as Flax's ``nn.Dropout``: keep each element with
     probability 1 - rate and divide the kept ones by it. A ``RowDraws``
-    generator draws the mask for the global batch and keeps this rank's
-    rows (``parallel.draw``)."""
+    generator draws the mask for the global batch (and image) and keeps
+    this rank's block (``parallel.draw``; the image rows of NCHW ``h`` are
+    its axis 2)."""
     if rate == 0.0:
         return h
     keep = 1.0 - rate
-    mask = draw(torch.rand, h.shape, generator, device=h.device) < keep
+    mask = draw(torch.rand, h.shape, generator, h_axis=2,
+                device=h.device) < keep
     return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype,
                                                    device=h.device))
 
@@ -287,11 +315,7 @@ class UNet(nn.Module):
         super().__init__()
         if cfg.time_embed not in ("functional", "table"):
             raise ValueError(f"unknown time_embed {cfg.time_embed!r}")
-        if cfg.attention_impl == "ring":
-            raise NotImplementedError(
-                "attention_impl='ring' (sequence-sharded attention) is not "
-                "yet ported")
-        if cfg.attention_impl not in ("auto", "flash", "xla"):
+        if cfg.attention_impl not in IMPLS:
             raise ValueError(
                 f"unknown attention_impl {cfg.attention_impl!r}")
         self.cfg = cfg
@@ -341,6 +365,20 @@ class UNet(nn.Module):
         self.add_module(name, module)
         self.plan.append((name, kind))
 
+    def check_rows(self, rows: int, seq: int) -> None:
+        """Raise ValueError unless ``seq`` ranks split the image rows of
+        every level evenly: ``rows`` global rows at the top, half as many a
+        level down. (JAX's GSPMD pads a level it cannot split; the port
+        does not.)"""
+        for i in range(len(self.cfg.ch_mult)):
+            n = rows >> i
+            if n % seq or n == 0 or (n << i) != rows:
+                raise ValueError(
+                    f"train.spatial_shard={seq} does not divide the {n} "
+                    f"image rows of level {i} ({rows} / 2^{i}) of the "
+                    "UNet: every level's rows must split evenly over the "
+                    "seq ranks")
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """Xavier-uniform weights (gain TINY_GAIN on the output layers of
@@ -374,9 +412,14 @@ class UNet(nn.Module):
         gradient wanted, each ResBlock is recomputed in the backward
         (``rematerialized``). ``return_representation`` also returns the
         activation before ``tail_norm`` ([B, H, W, C], compute dtype), the
-        hook of representation analysis."""
+        hook of representation analysis. Under
+        ``parallel.spatial.row_shards`` ``x`` (and the output) is this
+        rank's block of image rows (see the module docstring)."""
         deterministic = deterministic or not self.training
         dtype = self.cfg.torch_dtype
+        mesh = row_shard_mesh()
+        if mesh is not None:
+            self.check_rows(x.shape[1] * mesh.seq, mesh.seq)
         h = x.to(dtype).permute(0, 3, 1, 2).contiguous()
         temb = self.time_embedding(t, dtype)
         cemb = None

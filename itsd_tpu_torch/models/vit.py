@@ -17,7 +17,10 @@ LayerNorms (float32, epsilon 1e-6 as Flax's) and the Dense layers are plain
 PyTorch, as XLA left them in JAX. Dtypes and dropout follow the UNet
 (``models/unet.py``): float32 parameters, compute in ``cfg.dtype``,
 dropout only with ``deterministic=False`` in training mode, its masks from
-the ``generator`` passed to the forward.
+the ``generator`` passed to the forward. ``attention_impl="ring"`` splits
+each attention call's tokens over the seq ranks (the global view of
+``kernels.ring_attention``); the ViT on row shards of its images
+(``train.spatial_shard > 1``) is not yet ported.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.attention import mha_attention
+from ..kernels.attention import IMPLS, mha_attention
+from ..parallel.spatial import row_shard_mesh
 from .embeddings import Dense, FunctionalTimeEmbedding
 from .unet import _DTYPES, Conv, dropout, rematerialized
 
@@ -113,11 +117,7 @@ class ViT(nn.Module):
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        if cfg.attention_impl == "ring":
-            raise NotImplementedError(
-                "attention_impl='ring' (sequence-sharded attention) is not "
-                "yet ported")
-        if cfg.attention_impl not in ("auto", "flash", "xla"):
+        if cfg.attention_impl not in IMPLS:
             raise ValueError(
                 f"unknown attention_impl {cfg.attention_impl!r}")
         if cfg.img_size % cfg.patch_size:
@@ -160,6 +160,10 @@ class ViT(nn.Module):
         recomputed in the backward (``rematerialized``)."""
         if labels is not None:
             raise ValueError("the ViT is unconditional: it takes no labels")
+        if row_shard_mesh() is not None:
+            raise NotImplementedError(
+                "the ViT under train.spatial_shard > 1 (its image rows over "
+                "the seq ranks) is not yet ported")
         cfg = self.cfg
         deterministic = deterministic or not self.training
         dtype = cfg.torch_dtype

@@ -17,12 +17,22 @@ Unlike the JAX step, which is pure, this one updates the model, the
 optimizer's moments and the EMA in place. It makes no host sync: the loss
 and the pre-clip gradient norm come back as device tensors.
 
-Data parallel (``shard``, a process group): each rank holds the model and
-takes its rows of the global batch; every draw is made for the global batch
-and cut to the rank's rows (``parallel.RowDraws``), and the gradients and
-the loss are summed over the ranks and scaled to the global batch's before
-the clip, so that the clip, AdamW and the EMA run alike on every rank and
-the result does not depend on the world size.
+Sharded (``mesh``, a ``parallel.SeqMesh`` over every rank:
+``make_seq_mesh(1)`` for data parallelism, ``make_seq_mesh(K)`` for
+``train.spatial_shard=K``): each rank holds the model and takes its block
+of the global batch, the batch rows of its data index and, with several
+seq ranks, the image rows of its seq index. The forward and the backward
+run under the layout (``parallel.seq_mesh_scope``) and, with several seq
+ranks, on row shards (``parallel.spatial.row_shards``), so that the
+convolutions, GroupNorm and attention exchange what they need, the
+rematerialized blocks included. Every draw is made for the global batch
+and images and cut to the rank's block (``parallel.RowDraws``). A rank's
+loss is its pixels' mean (or sum over its batch rows squared); the one
+all-reduce of the gradients and the loss over every rank and the weight
+1/W for the mean (1/D^2 for the sum over b^2, D the data ranks) make the
+global batch's loss and gradient before the clip, so that the clip, AdamW
+and the EMA run alike on every rank and the result does not depend on the
+layout.
 """
 
 from __future__ import annotations
@@ -36,7 +46,8 @@ import torch
 from ..core.process import (diffusion_train_terms, loss_reduce,
                             min_snr_weight, mse_elementwise)
 from ..core.schedules import DiffusionSchedule
-from ..parallel import RowDraws, all_reduce_sum_, draw, local_rows, world_size
+from ..parallel import RowDraws, all_reduce_sum_, draw, seq_mesh_scope
+from ..parallel.spatial import image_rows, row_shards
 from .schedule import warmup_cosine_epochs
 
 
@@ -117,7 +128,7 @@ def make_train_step(sched: DiffusionSchedule, *, conditional: bool = False,
                     loss_reduction: str = "mean",
                     loss_weighting: str = "none", snr_gamma: float = 5.0,
                     label_dropout: float = 0.1,
-                    ema_decay: Optional[float] = 0.999, shard=None):
+                    ema_decay: Optional[float] = 0.999, mesh=None):
     """``step_fn(state, batch, generator, t=None, noise=None, drop=None)
     -> metrics``.
 
@@ -133,24 +144,27 @@ def make_train_step(sched: DiffusionSchedule, *, conditional: bool = False,
     norm is theirs (JAX's metric is over every gradient, which is the same
     set unless the time-embedding fine-tune froze the rest).
 
-    With ``shard`` (a process group; see the module docstring) ``batch`` is
-    this rank's rows of the global batch, the draws and any ``t``,
-    ``noise`` and ``drop`` passed in are the global batch's, and the loss
-    and the gradient norm are the global batch's."""
+    With ``mesh`` (see the module docstring) ``batch`` is this rank's
+    block of the global batch (``parallel.spatial.image_rows``), the
+    draws and any ``t``, ``noise`` and ``drop`` passed in are the global
+    batch's, and the loss and the gradient norm are the global batch's."""
     if loss_weighting not in ("none", "min_snr"):
         raise ValueError(f"unknown loss weighting: {loss_weighting!r}")
-    # the global loss over W ranks of equal batches: the mean of the
-    # ranks' means, or for sum / b^2 their sum over W^2
-    ranks = world_size(shard) if shard is not None else 1
+    # the global loss over W ranks of equal blocks: the mean of the ranks'
+    # means, or for sum / b^2 their sum over D^2, D the ranks that split
+    # the batch rows
+    ranks = mesh.data * mesh.seq if mesh is not None else 1
     rank_weight = 1.0 / (ranks if loss_reduction == "mean"
-                         else ranks * ranks)
+                         else mesh.data ** 2 if mesh is not None else 1)
 
     def rows(a):
-        return a if a is None or shard is None else local_rows(a, shard)
+        if a is None or mesh is None:
+            return a
+        return image_rows(a, mesh, 1 if a.dim() == 4 else None)
 
     def loss_fn(model, batch, generator, t, noise, drop):
-        if shard is not None:
-            generator = RowDraws(generator, shard)
+        if mesh is not None:
+            generator = RowDraws(generator, mesh)
         t, noise, drop = rows(t), rows(noise), rows(drop)
         t, noise, x_t = diffusion_train_terms(sched, generator,
                                               batch["image"], t, noise)
@@ -178,16 +192,17 @@ def make_train_step(sched: DiffusionSchedule, *, conditional: bool = False,
         params = [p for g in tx.optimizer.param_groups for p in g["params"]]
         for p in params:
             p.grad = None
-        loss = loss_fn(model, batch, generator, t, noise, drop)
-        loss.backward()
+        with seq_mesh_scope(mesh), row_shards(mesh):
+            loss = loss_fn(model, batch, generator, t, noise, drop)
+            loss.backward()
         for p in params:  # optax sees a zero gradient for an unused leaf
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         loss = loss.detach()
-        if shard is not None:
+        if ranks > 1:
             # the global batch's gradient and loss, alike on every rank
             grads = [p.grad for p in params]
-            all_reduce_sum_(grads + [loss.reshape(1)], shard)
+            all_reduce_sum_(grads + [loss.reshape(1)])
             torch._foreach_mul_(grads, rank_weight)
             loss = loss * rank_weight
         grad_norm = clip_by_global_norm_([p.grad for p in params],

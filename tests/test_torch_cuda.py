@@ -32,7 +32,9 @@ against plain, with ``-k gradient_search``. The metric networks
 modules on the CPU: ``-k extractor``. The ViT's multi-head attention (12
 heads of 64 folded into the batch: mma at C=64) and the ViT against its
 plain path: ``-k vit``; remat against no remat on the card: ``-k
-remat``.
+remat``. The stats and apply kernels of GroupNorm over row shards (the
+images' rows split over the seq ranks) at the flagship's and the CIFAR
+UNet's row shards: ``-k rows``.
 
 The backward kernels against ``attention_bwd_plain`` (the same formula and
 roundings): f32 2e-5 absolute on values O(1), sums in another order
@@ -506,6 +508,83 @@ def test_groupnorm_at_the_cfg_small_maps(cuda_device, dtype, S, C):
     for act in (True, False):
         _gn_forward_and_backward((8, C, S, S), act, dtype, C + S,
                                  cuda_device)
+
+
+# GroupNorm over row shards: (B, C, H / K, W) of the 256x256 flagship at
+# batch 2 (ch 128, ch_mult 1,2,3,4) and of the CIFAR-10 UNet at batch 8, at
+# K = 2 and 4 seq ranks.
+ROWS_GN = [(2, 128, 256 // K, 256) for K in (2, 4)] + [
+    (2, 256, 128 // K, 128) for K in (2, 4)] + [
+    (2, 384, 64 // K, 64) for K in (2, 4)] + [
+    (2, 512, 32 // K, 32) for K in (2, 4)] + [
+    (8, 128, 32 // K, 32) for K in (2, 4)] + [
+    (8, 256, 8 // K, 8) for K in (2, 4)] + [(8, 256, 1, 4), (3, 24, 1, 5)]
+
+
+def _stats_close(got, want, x, G, what):
+    """A span's f32 sum in another order: within 1e-5 of the sum of the
+    terms' magnitudes (a sum of squares: 2e-5 of itself)."""
+    terms = (groupnorm.groupnorm_partial_stats_plain(x.abs(), G)
+             if what == "sum" else 2 * want)
+    assert ((got - want).abs() <= 1e-5 * terms + 1e-6).all(), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ROWS_GN)
+def test_groupnorm_rows_kernels_match_plain(cuda_device, dtype, shape):
+    """The stats kernel (each span's sum, and its sum of squared deviations
+    around a given mean) and the apply kernel against their plain
+    versions; two launches equal bit for bit; one launch counted a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[1] + shape[2])
+    x, w, b = _gn_inputs(shape, dtype, gen, cuda_device)
+    G = _groups(shape[1])
+    before = (groupnorm.stats_launches, groupnorm.apply_launches)
+    s1 = groupnorm.groupnorm_partial_stats(x, G)
+    mean = s1 / x[0].numel() * G
+    s2 = groupnorm.groupnorm_partial_stats(x, G, mean)
+    again = groupnorm.groupnorm_partial_stats(x, G, mean)
+    rstd = torch.rsqrt(s2 / x[0].numel() * G + 1e-5)
+    y = groupnorm.groupnorm_apply(x, mean, rstd, w, b, G)
+    y2 = groupnorm.groupnorm_apply(x, mean, rstd, w, b, G)
+    torch.cuda.synchronize()
+    assert (groupnorm.stats_launches - before[0],
+            groupnorm.apply_launches - before[1]) == (3, 2)
+    assert torch.equal(s2, again) and torch.equal(y, y2)
+    _stats_close(s1, groupnorm.groupnorm_partial_stats_plain(x, G), x, G,
+                 "sum")
+    _stats_close(s2, groupnorm.groupnorm_partial_stats_plain(x, G, mean), x,
+                 G, "squares")
+    for act in (True, False):
+        _gn_close(groupnorm.groupnorm_apply(x, mean, rstd, w, b, G, act),
+                  groupnorm.groupnorm_apply_plain(x, mean, rstd, w, b, G,
+                                                  act), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [2, 4])
+def test_groupnorm_rows_of_slices_make_the_whole(cuda_device, dtype, K):
+    """The flagship's 256x256 GroupNorm cut into K row slices: their stats,
+    summed, are the whole image's, and each slice normalized with the
+    global statistics is its rows of the fused kernel's output."""
+    shape = (2, 128, 256, 256)
+    gen = torch.Generator(device=cuda_device).manual_seed(K)
+    x, w, b = _gn_inputs(shape, dtype, gen, cuda_device)
+    G = _groups(shape[1])
+    n = x[0].numel() // G
+    slices = [s.contiguous() for s in x.chunk(K, dim=2)]
+    s1 = sum(groupnorm.groupnorm_partial_stats(s, G) for s in slices)
+    _stats_close(s1, groupnorm.groupnorm_partial_stats(x, G), x, G, "sum")
+    mean = s1 / n
+    s2 = sum(groupnorm.groupnorm_partial_stats(s, G, mean) for s in slices)
+    _stats_close(s2, groupnorm.groupnorm_partial_stats(x, G, mean), x, G,
+                 "squares")
+    rstd = torch.rsqrt(s2 / n + 1e-5)
+    got = torch.cat([groupnorm.groupnorm_apply(s, mean, rstd, w, b, G)
+                     for s in slices], dim=2)
+    torch.cuda.synchronize()
+    _gn_close(got, groupnorm.groupnorm_swish(x, w, b, G), dtype)
 
 
 @pytest.mark.cuda

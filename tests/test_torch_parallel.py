@@ -24,10 +24,6 @@ Tolerances (float32):
   limits of tests/test_torch_search.py and tests/test_parallel_sampling.py.
 """
 
-import os
-import socket
-import subprocess
-import sys
 import types
 from unittest import mock
 
@@ -59,7 +55,6 @@ from itsd_tpu_torch.utils import load_config
 import _torch_dist_worker as worker
 from _torch_port import flax_params, one_torch_thread  # noqa: F401
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER_TIMEOUT = 180  # seconds, each worker
 OPT = dict(lr=1e-3, weight_decay=0.5, grad_clip=1.0, multiplier=2.0,
            epochs=3, steps_per_epoch=1)
@@ -95,12 +90,6 @@ CFG_SEARCH = {
                      "search.prune_schedule=[[6,2],[3,1]]"],
     "gradient": CFG + ["search.algorithm=gradient", "search.n_iterations=2",
                        "search.gradient_lr=0.05"]}
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _jax_keys(i):
@@ -261,35 +250,9 @@ def ranks(tmp_path_factory):
                   runner=dict(overrides=TINY, search=SEARCH,
                               cond=COND_TRAIN, cfg_search=CFG_SEARCH))
     torch.save(inputs, out / "inputs.pt")
-    port = _free_port()
-    env = dict(os.environ)
-    env.pop("ITSD_MULTIHOST", None)
-    for v in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
-        env.pop(v, None)
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.join(ROOT, "tests", "_torch_dist_worker.py"),
-         str(port), str(r), "2", str(out)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        cwd=ROOT, env=env) for r in range(2)]
-    logs = []
-    try:
-        # JAX's steps compile while the workers run
-        jax_out = _jax_train(cases, jax_params)
-        for p in procs:
-            try:
-                logs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
-            except subprocess.TimeoutExpired:
-                p.kill()
-                logs.append(p.communicate()[0] + "\n[killed: time limit]")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed ({p.returncode}):\n{log}"
-    got = [torch.load(out / f"rank{r}.pt", weights_only=False)
-           for r in range(2)]
+    # JAX's steps compile while the workers run
+    jax_out, got, logs = worker.run_ranks(
+        out, "data", WORKER_TIMEOUT, lambda: _jax_train(cases, jax_params))
     return dict(got=got, inputs=inputs, jax_train=jax_out, dir=out,
                 search_key=search["jax_key"], logs=logs)
 
@@ -400,6 +363,21 @@ def test_dp_train_steps_equal_one_process(ranks, name):
     zero = ref["tiny_grads"]
     for got in ranks["got"]:
         g = got["train"][name]
+        for (gl, gn), (wl, wn) in zip(g["metrics"], ref["metrics"]):
+            np.testing.assert_allclose(gl, wl, rtol=1e-5)
+            np.testing.assert_allclose(gn, wn, rtol=1e-5)
+        _check_params(g["params"], ref["params"], zero)
+        _check_params(g["ema"], ref["ema"], zero)
+
+
+def test_dp_train_steps_with_ring_from_the_environment(ranks):
+    """ITSD_ATTN_IMPL=ring at two data ranks, each on its own batch rows:
+    the step runs under its layout (seq groups of one), so the ring is
+    each rank's local attention and the steps equal one process's."""
+    ref = _one_process(ranks, "jax_uncond")
+    zero = ref["tiny_grads"]
+    for got in ranks["got"]:
+        g = got["train_ring_env"]
         for (gl, gn), (wl, wn) in zip(g["metrics"], ref["metrics"]):
             np.testing.assert_allclose(gl, wl, rtol=1e-5)
             np.testing.assert_allclose(gn, wn, rtol=1e-5)

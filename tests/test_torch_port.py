@@ -137,23 +137,28 @@ def test_evaluate_needs_weights():
 
 @pytest.mark.parametrize("override", [
     "train.spatial_shard=2", "model.backbone=vit", "model.remat=true"])
-def test_unported_eval_options_raise(tmp_path, override):
-    """Only the multi-device option still raises "not yet ported"; the
-    ViT backbone (patches of 2 on the 8x8 images) and remat, ported since,
-    evaluate to finite images."""
+def test_unported_eval_options_raise(tmp_path, override, capsys):
+    """No eval option raises "not yet ported" any more. The ViT backbone
+    (patches of 2 on the 8x8 images) and remat evaluate to finite images;
+    train.spatial_shard=2 in one process, where a seq axis of 2 does not
+    divide the one rank, prints JAX's note and samples what the run
+    without it samples (tests/test_torch_spatial.py runs it on two
+    ranks)."""
     cfg = load_config(None, TINY + [f"sampled_dir={tmp_path}", override,
                                     "model.patch_size=2",
                                     "model.embed_dim=32", "model.depth=2",
                                     "model.num_heads=4"])
     model, _ = runner.build_model(cfg)
     params = runner.init_params(cfg, model)
-    if override == "train.spatial_shard=2":
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            runner.evaluate(cfg, params, device="cpu")
-        return
     imgs = runner.evaluate(cfg, params, device="cpu")["images"]
     assert imgs.shape == (2, 8, 8, 3) and np.isfinite(imgs).all()
     assert type(model).__name__ == ("ViT" if "vit" in override else "UNet")
+    if override == "train.spatial_shard=2":
+        assert ("spatial_shard=2 ignored at inference: needs K | "
+                "device_count (1)") in capsys.readouterr().out
+        cfg.train.spatial_shard = 1
+        want = runner.evaluate(cfg, params, device="cpu")["images"]
+        np.testing.assert_array_equal(imgs, want)
 
 
 @pytest.mark.parametrize("overrides", [

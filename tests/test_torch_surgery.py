@@ -62,7 +62,7 @@ from itsd_tpu_torch.models import torch_convert
 from itsd_tpu_torch.models.convert import expected_shapes
 from itsd_tpu_torch.train import (OptimizerConfig, create_train_state,
                                   make_optimizer, make_train_step, surgery)
-from itsd_tpu_torch.train.checkpoint import restore_params
+from itsd_tpu_torch.train.checkpoint import restore_params, save_params
 from itsd_tpu_torch.train.trainer import Trainer
 from itsd_tpu_torch.utils import load_config
 
@@ -336,11 +336,20 @@ def test_finetune_cli_and_trainer_on_cpu(tmp_path, capsys):
         assert imgs.shape == (4, 8, 8, 3) and np.isfinite(imgs).all()
 
 
-def test_finetune_raises_on_spatial_shard(tmp_path):
+def test_finetune_raises_on_spatial_shard(tmp_path, capsys):
+    """train.spatial_shard does not apply to finetune-t: as JAX's, it
+    prints a note and runs unsharded, with the result of the run without
+    it."""
     cfg = load_config(None, KEYS + ["T=32", f"save_weight_dir={tmp_path}",
-                                    "train.spatial_shard=2"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        runner.finetune_extended_T(cfg, device="cpu")
+                                    "train.spatial_shard=2",
+                                    "test_load_weight=w"])
+    model, _ = runner.build_model(cfg)
+    save_params(str(tmp_path / "w"), runner.init_params(cfg, model))
+    got = runner.finetune_extended_T(cfg, max_steps=1, device="cpu")
+    assert "not applied by finetune-t" in capsys.readouterr().out
+    cfg.train.spatial_shard = 1
+    want = runner.finetune_extended_T(cfg, max_steps=1, device="cpu")
+    assert got["losses"] == want["losses"]
 
 
 def test_jax_cross_T_eval_raises_where_the_port_samples(tmp_path):

@@ -591,12 +591,14 @@ def test_cond_train_on_cpu_carries_labels_and_samples_guided_grids(
     "train.extract_representation_freq=1", "data.dataset=cifar10",
     "data.dataset=imagefolder"])
 def test_unported_train_options_raise(tmp_path, override, monkeypatch):
-    """Only the multi-device option still raises "not yet ported".
-    Tracked metrics (on by default, "none") train; profiling traces the
-    first step; representation extraction applies to the conditional
-    model only, so this unconditional one trains without it; CIFAR-10 and
-    the image folder are read from disk and raise FileNotFoundError when
-    they are not there."""
+    """No train option raises "not yet ported" any more. Tracked metrics
+    (on by default, "none") train; profiling traces the first step;
+    representation extraction applies to the conditional model only, so
+    this unconditional one trains without it; CIFAR-10 and the image folder
+    are read from disk and raise FileNotFoundError when they are not
+    there; train.spatial_shard=2 raises JAX's ValueError in one process,
+    whose one rank a seq axis of 2 does not divide
+    (tests/test_torch_spatial.py trains on two ranks)."""
     monkeypatch.setenv("ITSD_PIXEL_FEATURES", "1")
     cfg = _cfg(tmp_path, override, f"data.root={tmp_path}/none")
     if override in ("train.track_metrics=none", "train.profile_steps=1",
@@ -614,7 +616,8 @@ def test_unported_train_options_raise(tmp_path, override, monkeypatch):
     error, match = {
         "data.dataset=cifar10": (FileNotFoundError, "CIFAR-10 not found"),
         "data.dataset=imagefolder": (FileNotFoundError, "none"),
-        "train.spatial_shard=2": (NotImplementedError, "not yet ported"),
+        "train.spatial_shard=2": (
+            ValueError, "train.spatial_shard=2 must divide device count 1"),
     }[override]
     with pytest.raises(error, match=match):
         runner.train(cfg, max_steps=1, device="cpu")
@@ -671,7 +674,8 @@ def test_cli_train_on_cpu(tmp_path, capsys):
     assert rc == 0
     assert "final loss:" in capsys.readouterr().out
     assert (tmp_path / "ckpt" / "ckpt_0").is_file()
+    # the one option left unported: the ViT on row shards
     rc = cli_main.main(["train", "--device", "cpu", *TINY,
-                        "train.spatial_shard=2"])
+                        "train.spatial_shard=2", "model.backbone=vit"])
     assert rc == 2
     assert "not yet ported" in capsys.readouterr().err

@@ -147,14 +147,13 @@ def test_conv_and_dense_layouts():
                                 dict(attention_impl="flash"),
                                 dict(attention_impl="ring")])
 def test_unported_variants_raise(kw):
-    """Only "ring" (sequence-sharded attention) still raises; "xla" and
-    "flash" build (tests/test_torch_vit.py checks what they compute)."""
-    if kw["attention_impl"] != "ring":
-        assert UNet(uncond_unet_config(**SMALL, **kw)).cfg.attention_impl \
-            == kw["attention_impl"]
-        return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        UNet(uncond_unet_config(**SMALL, **kw))
+    """Every attention_impl builds, "ring" (sequence-sharded attention)
+    too (tests/test_torch_vit.py and tests/test_torch_ring_attention.py
+    check what they compute); an unknown one raises."""
+    assert UNet(uncond_unet_config(**SMALL, **kw)).cfg.attention_impl \
+        == kw["attention_impl"]
+    with pytest.raises(ValueError, match="unknown attention_impl"):
+        UNet(uncond_unet_config(**SMALL, attention_impl="sparse"))
 
 
 def test_cond_config_matches_jax():

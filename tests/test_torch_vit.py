@@ -247,8 +247,9 @@ def test_mha_attention_matches_jax():
 def test_attention_impl_and_the_environment(impl, env, path, monkeypatch):
     """"auto" reads ITSD_ATTN_IMPL as JAX's spatial_attention does; an
     explicit impl does not. "flash" takes the kernels' entry (the plain
-    version on a CPU tensor), "xla" the plain version, "ring" raises "not
-    yet ported", an unknown value ValueError."""
+    version on a CPU tensor), "xla" the plain version, "ring" the ring over
+    the default layout (one process: one seq rank, so the kernels' entry
+    too), an unknown value ValueError."""
     if env is None:
         monkeypatch.delenv("ITSD_ATTN_IMPL", raising=False)
     else:
@@ -256,11 +257,10 @@ def test_attention_impl_and_the_environment(impl, env, path, monkeypatch):
     rng = np.random.default_rng(8)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 16, 8)).astype(
         np.float32)).requires_grad_() for _ in range(3))
-    if path in ("ring", "bad env", "bad impl"):
-        error = (NotImplementedError, "not yet ported") if path == "ring" \
-            else (ValueError, "ITSD_ATTN_IMPL" if path == "bad env"
-                  else "unknown attention impl")
-        with pytest.raises(error[0], match=error[1]):
+    if path in ("bad env", "bad impl"):
+        with pytest.raises(ValueError, match="ITSD_ATTN_IMPL"
+                           if path == "bad env"
+                           else "unknown attention impl"):
             attention.spatial_attention(q, k, v, impl=impl)
         return
     calls = []
@@ -269,7 +269,7 @@ def test_attention_impl_and_the_environment(impl, env, path, monkeypatch):
                         lambda *a: calls.append(1) or real(*a))
     assert attention.resolve_impl(impl) == path
     o = attention.spatial_attention(q, k, v, impl=impl)
-    assert len(calls) == (path == "flash")
+    assert len(calls) == (path in ("flash", "ring"))
     want = attention.attention_plain(q, k, v, 8 ** -0.5)
     torch.testing.assert_close(o, want, atol=1e-6, rtol=0)
     o.sum().backward()
@@ -279,7 +279,8 @@ def test_attention_impl_and_the_environment(impl, env, path, monkeypatch):
 @pytest.mark.parametrize("impl", ["flash", "xla"])
 def test_models_take_attention_impl(impl):
     """The UNet and the ViT build with "flash" and "xla" and, on the CPU,
-    compute what "auto" computes; "ring" raises "not yet ported"."""
+    compute what "auto" computes; with "ring" too, in one process (one seq
+    rank: the local call; tests/test_torch_ring_attention.py runs two)."""
     x, t = _inputs()
     unet_kw = dict(ch=32, ch_mult=(1, 2), attn=(1,), num_res_blocks=1)
     for build, kw in ((UNet, uncond_unet_config(**unet_kw)),
@@ -292,8 +293,11 @@ def test_models_take_attention_impl(impl):
             a = auto.eval()(torch.from_numpy(x), torch.from_numpy(t))
             b = other.eval()(torch.from_numpy(x), torch.from_numpy(t))
         assert torch.equal(a, b)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            build(dataclasses.replace(kw, attention_impl="ring"))
+        ring = build(dataclasses.replace(kw, attention_impl="ring"))
+        ring.load_state_dict(auto.state_dict())
+        with torch.no_grad():
+            assert torch.equal(
+                ring.eval()(torch.from_numpy(x), torch.from_numpy(t)), a)
 
 
 # ---------------------------------------------------------------------------
