@@ -6,10 +6,13 @@ Run from the root of a checkout, with one card visible:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --sp-control`` builds the kernels and runs phase
-22's gradient check alone: one step of each train run at two ranks, as
-is and with a fault planted in the backward (the halo's gradients
-dropped; the ring's last hop home skipped), against one process. It exits
-0 when the run as is stays within the limits and each fault goes beyond.
+22's checks alone, then its gradient check with a fault planted: one step
+of each train run a fault concerns, at two ranks, against one process.
+The faults: the halo's gradients dropped (the UNets); the ring's last hop
+home skipped (the UNets and the ViT); every rank adding rank 0's share of
+the ViT's position embedding; the ViT's dropout masks drawn per rank
+instead of cut from the global draw. It exits 0 when the run as is stays
+within the limits and each fault goes beyond in every run it concerns.
 
 Phases, each ending with one line that carries its elapsed seconds:
 
@@ -43,7 +46,10 @@ Phases, each ending with one line that carries its elapsed seconds:
    GroupNorm of its forward, attention at [48, 4096, 384] and
    [48, 1024, 512], wide in bf16) and phase 20's ViT (12 heads of 64
    folded into the batch: [192, 256, 64] at train batch 16, [96, 256, 64]
-   at eval batch 8; mma in bf16). Then GroupNorm over row shards (phase
+   at eval batch 8; mma in bf16) and phase 22's ViT on the rows of one of
+   2 ranks (each call's two ring hops at [24, 128, 64], with lse; phase 5
+   checks and times its dq and dk/dv there too). Then GroupNorm over row
+   shards (phase
    22): the stats kernel (each span's f32 sum, and its sum of squared
    deviations around a given mean) and the apply kernel against their
    plain versions at every GroupNorm call of the flagship's forward at
@@ -232,21 +238,25 @@ Phases, each ending with one line that carries its elapsed seconds:
     starting one gloo group through this script's ``--spatial`` mode, run
     ``runner.train`` from seeded weights on the 256x256 flagship
     (``configs/imagenet256_uncond.yaml``, bf16) at batch 2 for 3 steps
-    and on the CIFAR-10 UNet at batch 8 for 3 steps, and
-    ``runner.evaluate`` of the flagship's seeded weights, DDIM 10 at batch
-    2, in bf16 and in f32; then this process runs the same without the
-    ranks. Each rank holds its half of every image's rows: halo exchanges,
-    GroupNorm's statistics all-reduced (the stats and apply kernels) and
-    ring attention (the wide kernels at [2, 2048, 384] and [2, 512, 512],
-    the mma ones at CIFAR's [8, 128, 256]), every exchange staged through
-    host memory (gloo cannot send a CUDA tensor). Exact launches on both
-    ranks, the ranks' losses, first gradients and images equal, and
-    against one process: the losses, the first step's gradient (before
-    the clip and Adam), the bf16 images' mean error and the f32 images'
-    largest (the bf16 chain from seeded weights amplifies its roundings to
-    whole pixels), each reading printed beside its limit; each run's step
-    ms, its share in the exchanges and in the gradients' all-reduce, and
-    the peak memory of each rank and of one process.
+    and on the CIFAR-10 UNet at batch 8 for 3 steps, the ViT-B/16 of
+    phase 20 at batch 2 for 3 steps, and ``runner.evaluate`` of the
+    flagship's and the ViT's seeded weights, DDIM 10 at batch 2, in bf16
+    and in f32; then this process runs the same without the ranks. Each
+    rank holds its half of every image's rows: halo exchanges, GroupNorm's
+    statistics all-reduced (the stats and apply kernels) and ring
+    attention (the wide kernels at [2, 2048, 384] and [2, 512, 512], the
+    mma ones at CIFAR's [8, 128, 256] and the ViT's [24, 128, 64]: its
+    patch rows, its share of the position embedding, its dropout masks
+    cut along the tokens), every exchange staged through host memory
+    (gloo cannot send a CUDA tensor). Exact launches on both ranks, the
+    ranks' losses, first gradients and images equal, and against one
+    process: the losses, the first step's gradient (before the clip and
+    Adam; for the ViT also its position embedding's share), the bf16
+    images' mean error and the f32 images' largest (the bf16 chain from
+    seeded weights amplifies its roundings to whole pixels), each reading
+    printed beside its limit; each run's step ms, its share in the
+    exchanges and in the gradients' all-reduce, and the peak memory of
+    each rank and of one process.
 
 Then it prints the ``nvidia-smi`` line, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -262,7 +272,8 @@ GroupNorm; the ViT (phase 20) the mma kernels at C=64; the torchrun train
 (phase 21, twice: the second through attention_impl=ring) the mma
 kernels and GroupNorm; the two-rank runs of phase 22 (both ranks' launches
 summed) the stats and apply kernels and the ring's hops, wide for the
-flagship and mma for the CIFAR UNet. The kernels' JSON line carries each
+flagship and mma for the CIFAR UNet and the ViT. The kernels' JSON line
+carries each
 kernel's launches summed over these paths, and per path; the simt
 forward, dq and dk/dv, which no bf16 path runs, carry their launches on
 the f32 kernel paths of phases 4, 6, 10, 11, 14, 16, 18, 20 and 22 (its
@@ -443,27 +454,35 @@ SP_FLAG_STEPS = 3
 SP_FLAG_DDIM = 10
 SP_CIFAR_BATCH = 8
 SP_CIFAR_STEPS = 3
+SP_VIT_STEPS = 3            # the ViT at the flagship's batch and DDIM
 SP_TIMEOUT = 600            # seconds for the two ranks
 # Phase 22 limits, two ranks against one process, about 3-4x the
 # readings on an H100 (NVIDIA H100 80GB HBM3, 700 W): the rows' GroupNorm
 # sums, the ring's merge of its bf16 partials and the halo convolutions'
 # algorithms round otherwise. The train runs start from the seeded
 # weights (every branch live), where 3 bf16 steps carry those roundings
-# into the losses: 2.96e-3 (flagship) and 1.03e-3 (CIFAR) relative, the
-# largest over the steps. The first step's gradient, all-reduced to the
-# global batch's and taken before the clip and Adam (which would saturate
-# a difference at ~lr a step), as ||g2 - g1|| / ||g1||: 4.48e-3
-# (flagship), 4.29e-3 (CIFAR). ``--sp-control`` plants a dropped halo
-# gradient (2.99e-2 and 0.151) and a ring backward without its hop home
-# (4.24e-2 and 8.62e-2): each goes beyond SP_GRAD_RTOL. The DDIM images:
-# from seeded weights the bf16 chain's first step divides by sqrt(abar) =
-# 0.006 and turns roundings into whole pixels at the clip (max |err| 2),
-# so the bf16 images are held by their mean |err| (0.0039) and the f32
-# images, which differ by summation order, by their max (1.1e-3).
-SP_LOSS_RTOL = {"flagship_train": 1.2e-2, "cifar_train": 4e-3}
-SP_GRAD_RTOL = {"flagship_train": 1.5e-2, "cifar_train": 1.5e-2}
-SP_IMAGE_MEAN_TOL = 0.016
-SP_IMAGE_TOL = 5e-3
+# into the losses: 2.96e-3 (flagship), 1.03e-3 (CIFAR) and 1.22e-4 (ViT)
+# relative, the largest over the steps. The first step's gradient,
+# all-reduced to the global batch's and taken before the clip and Adam
+# (which would saturate a difference at ~lr a step), as ||g2 - g1|| /
+# ||g1||: 4.48e-3 (flagship), 4.29e-3 (CIFAR), 4.33e-3 (ViT; its position
+# embedding's share alone 6.55e-3). ``--sp-control`` plants a dropped halo
+# gradient (2.99e-2 and 0.151), a ring backward without its hop home
+# (4.24e-2, 8.62e-2 and 0.174), rank 0's share of the ViT's position
+# embedding on every rank (5.32e-2; its own gradient 0.996) and the ViT's
+# dropout drawn per rank (0.125): each goes beyond SP_GRAD_RTOL. The DDIM
+# images: from seeded weights the bf16 chain's first step divides by
+# sqrt(abar) = 0.006 and turns roundings into whole pixels at the clip
+# (max |err| 2), so the bf16 images are held by their mean |err| (0.0039
+# flagship, 0.0026 ViT) and the f32 images, which differ by summation
+# order, by their max (1.1e-3, 2.8e-4).
+SP_LOSS_RTOL = {"flagship_train": 1.2e-2, "cifar_train": 4e-3,
+                "vit_train": 5e-4}
+SP_GRAD_RTOL = {"flagship_train": 1.5e-2, "cifar_train": 1.5e-2,
+                "vit_train": 1.5e-2}
+SP_POS_GRAD_RTOL = 2.5e-2
+SP_IMAGE_MEAN_TOL = {"flagship_ddim": 0.016, "vit_ddim": 0.01}
+SP_IMAGE_TOL = {"flagship_ddim_f32": 5e-3, "vit_ddim_f32": 1e-3}
 # Phase 2, GroupNorm over row shards: the flagship's forward at batch 2
 # and the CIFAR-10 UNet's at batch 8, each call's rows cut over K seq
 # ranks. The stats kernel's f32 sums in another order than the plain
@@ -623,10 +642,13 @@ class DeviceTimer:
         end.synchronize()
         self.cycles_per_ms = cycles / start.elapsed_time(end)
 
-    def __call__(self, fn, n: int = 50, warmup: int = 3, reps: int = 2):
+    def __call__(self, fn, n: int = 50, warmup=None, reps: int = 2):
         """(device ms per call, host us to launch one call: median). Two
-        repetitions (three until the seq axis's phase came)."""
-        for _ in range(warmup):
+        repetitions (three until the seq axis's phase came); ``warmup``
+        calls first, by default 3 but no more than ``n`` (the fine-tune's
+        shapes, timed one call at a time, take up to ~1 s a call on the
+        CUDA cores: 3 until the ViT's rows came)."""
+        for _ in range(min(3, n) if warmup is None else warmup):
             fn()
         torch.cuda.synchronize()
         dev, host = [], []
@@ -2193,6 +2215,26 @@ def sp_flagship_config(root: str, *extra):
         f"metrics_save_dir={root}/flag_metrics", *extra])
 
 
+def sp_vit_config(root: str, *extra):
+    """Phase 20's ViT-B/16 (configs/imagenet256_uncond.yaml with
+    model.backbone=vit: 256x256, bf16, dropout 0.15) at the flagship's
+    phase 22 settings: SP_VIT_STEPS batches of SP_FLAG_BATCH, one epoch,
+    no grid; DDIM SP_FLAG_DDIM at the same batch."""
+    from itsd_tpu_torch.utils import load_config
+
+    n_images = SP_VIT_STEPS * SP_FLAG_BATCH
+    return load_config(IMAGENET_YAML, [
+        "model.backbone=vit", "data.use_full_dataset=false",
+        f"data.train_subset_ratio={n_images / 2048}",
+        f"batch_size={SP_FLAG_BATCH}", "train.epoch=1",
+        "train.track_metrics=false", "train.eval_freq=1000000", "seed=0",
+        f"train.eval_batch_size={SP_FLAG_BATCH}", "diffusion.sampler=ddim",
+        f"diffusion.ddim_steps={SP_FLAG_DDIM}",
+        f"save_weight_dir={root}/vit_ckpt",
+        f"sampled_dir={root}/vit_sampled",
+        f"metrics_save_dir={root}/vit_metrics", *extra])
+
+
 def sp_cifar_config(root: str, *extra):
     """Phase 7's configuration (configs/cifar10_uncond.yaml on shapes) at
     batch SP_CIFAR_BATCH for SP_CIFAR_STEPS steps, one epoch, no grid."""
@@ -2204,18 +2246,19 @@ def sp_cifar_config(root: str, *extra):
         "train.eval_freq=1000000", *extra)
 
 
-def sp_run(root: str, spatial: bool, control: bool = False) -> dict:
-    """Phase 22's runs in this process: ``runner.train`` of the flagship and
-    of the CIFAR-10 UNet and ``runner.evaluate`` of the flagship (DDIM, its
-    seeded weights, in bf16 and in f32), with train.spatial_shard=2 when
-    ``spatial`` (each rank of the group on its image rows), else whole.
-    Per run: the losses (or images), the launches, each step's wall ms,
-    the ms of the steps spent in the halo, GroupNorm and ring exchanges
-    and in the gradients' all-reduce (each synchronized, host clock), the
-    peak memory, and the first step's gradient (flat f32 on the host:
-    all-reduced and weighted to the global batch's, before the clip).
-    With ``control`` the two train runs take one step and nothing else
-    runs."""
+def sp_run(root: str, spatial: bool, control=None) -> dict:
+    """Phase 22's runs in this process: ``runner.train`` of the flagship,
+    of the CIFAR-10 UNet and of the ViT, and ``runner.evaluate`` of the
+    flagship and of the ViT (DDIM, their seeded weights, in bf16 and in
+    f32), with train.spatial_shard=2 when ``spatial`` (each rank of the
+    group on its image rows), else whole. Per run: the losses (or images),
+    the launches, each step's wall ms, the ms of the steps spent in the
+    halo, GroupNorm and ring exchanges and in the gradients' all-reduce
+    (each synchronized, host clock), the peak memory, and the first step's
+    gradient (flat f32 on the host: all-reduced and weighted to the global
+    batch's, before the clip; for the ViT also its position embedding's
+    share, ``grad_pos``). With ``control`` (train run names) those train
+    runs take one step and nothing else runs."""
     from itsd_tpu_torch import parallel
     from itsd_tpu_torch.cli import runner
     from itsd_tpu_torch.kernels import ring_attention
@@ -2239,7 +2282,7 @@ def sp_run(root: str, spatial: bool, control: bool = False) -> dict:
 
     make_step = runner.make_train_step
     clip = loop.clip_by_global_norm_
-    first_grads, current = {}, [None]
+    first_grads, current, names = {}, [None], {}
 
     def clip_after_keeping_the_first(grads, max_norm):
         if current[0] not in first_grads:
@@ -2251,6 +2294,9 @@ def sp_run(root: str, spatial: bool, control: bool = False) -> dict:
         step = make_step(*a, **kw)
 
         def run(*args, **kwargs):
+            # the optimizer holds every parameter, in the model's order
+            names.setdefault(current[0], [
+                (n, p.numel()) for n, p in args[0].model.named_parameters()])
             torch.cuda.synchronize()
             before, s0 = dict(clock), time.perf_counter()
             out = step(*args, **kwargs)
@@ -2268,7 +2314,10 @@ def sp_run(root: str, spatial: bool, control: bool = False) -> dict:
     configs = {"flagship_train": (sp_flagship_config(root, *extra),
                                   SP_FLAG_STEPS),
                "cifar_train": (sp_cifar_config(root, *extra),
-                               SP_CIFAR_STEPS)}
+                               SP_CIFAR_STEPS),
+               "vit_train": (sp_vit_config(root, *extra), SP_VIT_STEPS)}
+    if control is not None:
+        configs = {k: v for k, v in configs.items() if k in control}
     seeded = {}
     os.makedirs(root, exist_ok=True)
     for name, (cfg, _) in configs.items():
@@ -2299,25 +2348,38 @@ def sp_run(root: str, spatial: bool, control: bool = False) -> dict:
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
             s0 = time.perf_counter()
-            res = runner.train(cfg, max_steps=1 if control else n,
-                               device=DEVICE)
+            res = runner.train(
+                cfg, max_steps=n if control is None else 1, device=DEVICE)
             torch.cuda.synchronize()
             out[name] = dict(
                 losses=res["losses"], launches=read_launches(),
                 steps=steps[:], wall_s=time.perf_counter() - s0,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                grad=first_grads[name])
+                grad=first_grads[name], grad_pos=None)
+            sizes = names[name]
+            if sum(size for _, size in sizes) != first_grads[name].numel():
+                fail(f"phase 22 {name}: the optimizer's gradients are not "
+                     "the model's parameters")
+            at = 0
+            for key, size in sizes:
+                if key == "pos_embed":
+                    out[name]["grad_pos"] = first_grads[name][at:at + size]
+                at += size
             del res
-        if control:
+        if control is not None:
             return out
-        params = seeded["flagship_train"]
-        for name, dtype in (("flagship_ddim", "bfloat16"),
-                            ("flagship_ddim_f32", "float32")):
-            cfg = sp_flagship_config(root, f"model.dtype={dtype}", *extra)
+        for name, dtype, make, weights in (
+                ("flagship_ddim", "bfloat16", sp_flagship_config,
+                 "flagship_train"),
+                ("flagship_ddim_f32", "float32", sp_flagship_config,
+                 "flagship_train"),
+                ("vit_ddim", "bfloat16", sp_vit_config, "vit_train"),
+                ("vit_ddim_f32", "float32", sp_vit_config, "vit_train")):
+            cfg = make(root, f"model.dtype={dtype}", *extra)
             torch.cuda.empty_cache()
             reset_launches()
             s0 = time.perf_counter()
-            ev = runner.evaluate(cfg, params=params, device=DEVICE)
+            ev = runner.evaluate(cfg, params=seeded[weights], device=DEVICE)
             torch.cuda.synchronize()
             out[name] = dict(images=ev["images"], launches=read_launches(),
                              wall_s=time.perf_counter() - s0)
@@ -2357,12 +2419,41 @@ def _ring_backward_without_the_hop_home(ctx, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
-# ``--sp-control``'s planted faults: (class, its replacement backward)
+def _positions_of_rank0(pos_embed, n, mesh):
+    """A planted fault: every seq rank adds rank 0's share of the ViT's
+    position embedding (``models.vit.rank_positions``)."""
+    return pos_embed.narrow(1, 0, n)
+
+
+def _dropout_drawn_per_rank(h, rate, generator, h_axis=2):
+    """A planted fault: the ViT's dropout masks drawn for the rank's own
+    block from the generator (``models.unet.dropout`` without
+    ``RowDraws``), not cut from the global draw."""
+    from itsd_tpu_torch.models import unet
+    from itsd_tpu_torch.parallel import RowDraws
+
+    if isinstance(generator, RowDraws):
+        generator = generator.generator
+    return unet.dropout(h, rate, generator, h_axis)
+
+
+# ``--sp-control``'s planted faults: (module, class or None, attribute,
+# replacement, the train runs whose first gradient must show it)
 SP_FAULTS = {
-    "halo_gradient_dropped": ("itsd_tpu_torch.parallel.spatial", "_Halo",
-                              _halo_backward_dropping_the_halo),
-    "ring_without_hop_home": ("itsd_tpu_torch.kernels.ring_attention",
-                              "_Ring", _ring_backward_without_the_hop_home)}
+    "halo_gradient_dropped": (
+        "itsd_tpu_torch.parallel.spatial", "_Halo", "backward",
+        staticmethod(_halo_backward_dropping_the_halo),
+        ("flagship_train", "cifar_train")),
+    "ring_without_hop_home": (
+        "itsd_tpu_torch.kernels.ring_attention", "_Ring", "backward",
+        staticmethod(_ring_backward_without_the_hop_home),
+        ("flagship_train", "cifar_train", "vit_train")),
+    "vit_positions_of_rank0": (
+        "itsd_tpu_torch.models.vit", None, "rank_positions",
+        _positions_of_rank0, ("vit_train",)),
+    "vit_dropout_per_rank": (
+        "itsd_tpu_torch.models.vit", None, "dropout",
+        _dropout_drawn_per_rank, ("vit_train",))}
 
 
 def spatial_worker(argv) -> int:
@@ -2371,8 +2462,8 @@ def spatial_worker(argv) -> int:
     (the port's ``maybe_initialize_distributed``, so that the runner finds
     it up), runs ``sp_run`` on ``cuda:0`` and writes its results to
     ``ROOT/rank{RANK}.pt``. With FAULT (a key of ``SP_FAULTS``) it runs
-    ``sp_run``'s control, one step of each train run, with that fault
-    planted."""
+    ``sp_run``'s control, one step of each train run the fault concerns,
+    with that fault planted ("none": every train run, no fault)."""
     import importlib
 
     import torch.distributed as dist
@@ -2389,13 +2480,17 @@ def spatial_worker(argv) -> int:
              "world_size": dist.get_world_size(),
              "start_s": time.perf_counter() - s0}
     try:
+        control = None
         with contextlib.ExitStack() as stack:
-            if fault not in (None, "none"):
-                module, cls, backward = SP_FAULTS[fault]
-                stack.enter_context(mock.patch.object(
-                    getattr(importlib.import_module(module), cls),
-                    "backward", staticmethod(backward)))
-            res = sp_run(root, spatial=True, control=fault is not None)
+            if fault == "none":
+                control = tuple(SP_GRAD_RTOL)
+            elif fault is not None:
+                module, cls, attr, value, control = SP_FAULTS[fault]
+                target = importlib.import_module(module)
+                if cls is not None:
+                    target = getattr(target, cls)
+                stack.enter_context(mock.patch.object(target, attr, value))
+            res = sp_run(root, spatial=True, control=control)
         res["group"] = group
         torch.save(res, os.path.join(root, f"rank{rank}.pt"))
     finally:
@@ -2450,24 +2545,27 @@ def grad_rel(got: torch.Tensor, want: torch.Tensor) -> float:
 def sp_control(card_line: str) -> int:
     """``python3 chip_smoke.py --sp-control``: phase 22's runs at two ranks
     and in one process, compared as phase 22 compares them (``sp_compare``),
-    then one step of each train run at two ranks with each of
-    ``SP_FAULTS`` planted, its first gradient against one process's.
-    Exits 0 when phase 22's checks pass and each fault goes beyond the
-    gradient's limit on both UNets."""
+    then one step of the train runs each of ``SP_FAULTS`` concerns at two
+    ranks with that fault planted, their first gradients against one
+    process's. Exits 0 when phase 22's checks pass and each fault goes
+    beyond a gradient limit (``sp_grad_readings``) in every run it
+    concerns."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="itsd_sp_control_") as tmpdir:
         got = sp_ranks(os.path.join(tmpdir, "two"))
         want = sp_run(os.path.join(tmpdir, "one"), spatial=False)
         verdict = all(sp_compare(got, want).values())
-        for fault in SP_FAULTS:
+        for fault, (*_, runs) in SP_FAULTS.items():
             res = sp_ranks(os.path.join(tmpdir, fault), fault)[0]
-            for name, limit in SP_GRAD_RTOL.items():
-                rel = grad_rel(res[name]["grad"], want[name]["grad"])
-                beyond = limit is not None and rel > limit
+            for name in runs:
+                readings = sp_grad_readings(name, res[name], want[name])
+                beyond = any(limit is not None and value > limit
+                             for value, limit in readings.values())
                 verdict = verdict and beyond
-                log(f"sp-control, {fault}: {name} first step's gradient "
-                    f"rel L2 {rel:.4g} (limit {limit}) -> "
-                    f"{'caught' if beyond else 'NOT CAUGHT'}; loss "
+                log(f"sp-control, {fault}: {name} "
+                    + "; ".join(f"{what} {value:.4g} (limit {limit})"
+                                for what, (value, limit) in readings.items())
+                    + f" -> {'caught' if beyond else 'NOT CAUGHT'}; loss "
                     f"{res[name]['losses'][0]:.6f} at 2 ranks, "
                     f"{want[name]['losses'][0]:.6f} in one process, on "
                     f"{card_line}")
@@ -2487,15 +2585,30 @@ def _sp_step_line(run: dict) -> str:
             f"{run['peak_gb']:.3f} GB")
 
 
+def sp_grad_readings(name, got, want) -> dict:
+    """The first step's gradient of train run ``name`` at a rank (``got``)
+    against one process (``want``), as {reading: (value, limit)}: the
+    whole gradient's relative L2 (SP_GRAD_RTOL), and for the ViT its
+    position embedding's (SP_POS_GRAD_RTOL), a share of the whole too
+    small to move it."""
+    out = {"first step's gradient rel L2": (
+        grad_rel(got["grad"], want["grad"]), SP_GRAD_RTOL[name])}
+    if want["grad_pos"] is not None:
+        out["position embedding's gradient rel L2"] = (
+            grad_rel(got["grad_pos"], want["grad_pos"]), SP_POS_GRAD_RTOL)
+    return out
+
+
 def sp_compare(got, want) -> dict:
     """Phase 22's two ranks (``got``) against each other and against one
     process (``want``), each reading printed beside its limit: the losses
-    (SP_LOSS_RTOL), the first step's gradient (SP_GRAD_RTOL), the bf16
-    images' mean error (SP_IMAGE_MEAN_TOL) and the f32 images' largest
-    (SP_IMAGE_TOL). Returns {check: passed}."""
+    (SP_LOSS_RTOL), the first step's gradient (``sp_grad_readings``), the
+    bf16 images' mean error (SP_IMAGE_MEAN_TOL) and the f32 images'
+    largest (SP_IMAGE_TOL). Returns {check: passed}."""
     checks, readings = {}, {}
     for name, steps_n in (("flagship_train", SP_FLAG_STEPS),
-                          ("cifar_train", SP_CIFAR_STEPS)):
+                          ("cifar_train", SP_CIFAR_STEPS),
+                          ("vit_train", SP_VIT_STEPS)):
         losses = [r[name]["losses"] for r in got]
         rel = max(abs(a - b) / abs(b) for a, b in
                   zip(losses[0], want[name]["losses"]))
@@ -2505,11 +2618,13 @@ def sp_compare(got, want) -> dict:
         grads = [r[name]["grad"] for r in got]
         checks[f"{name}: both ranks' first gradients equal"] = (
             torch.equal(*grads))
-        readings[f"{name} first step's gradient rel L2"] = (
-            grad_rel(grads[0], want[name]["grad"]), SP_GRAD_RTOL[name])
+        for what, reading in sp_grad_readings(name, got[0][name],
+                                              want[name]).items():
+            readings[f"{name} {what}"] = reading
         log(f"{name}: losses {[round(x, 6) for x in losses[0]]} at 2 ranks, "
             f"{[round(x, 6) for x in want[name]['losses']]} in one process")
-    for name in ("flagship_ddim", "flagship_ddim_f32"):
+    for name in ("flagship_ddim", "flagship_ddim_f32", "vit_ddim",
+                 "vit_ddim_f32"):
         images = [r[name]["images"] for r in got]
         checks[f"{name}: both ranks' images equal"] = bool(
             np.array_equal(images[0], images[1]))
@@ -2521,12 +2636,12 @@ def sp_compare(got, want) -> dict:
             f"the model's set-up included); images against one process: "
             f"max |err| {diff.max():.4g}, mean {diff.mean():.4g}, share "
             f"beyond 0.1 {(diff > 0.1).mean():.4g}")
-        if name == "flagship_ddim":
+        if name in SP_IMAGE_MEAN_TOL:
             readings[f"{name} images mean abs err"] = (
-                float(diff.mean()), SP_IMAGE_MEAN_TOL)
+                float(diff.mean()), SP_IMAGE_MEAN_TOL[name])
         else:
             readings[f"{name} images max abs err"] = (float(diff.max()),
-                                                      SP_IMAGE_TOL)
+                                                      SP_IMAGE_TOL[name])
     for what, (value, limit) in readings.items():
         ok = limit is not None and np.isfinite(value) and value <= limit
         checks[what] = ok
@@ -2542,19 +2657,21 @@ def spatial_path(tmpdir, counts, card_line):
     """Phase 22: ``sp_run`` at two ranks of one gloo group on cuda:0
     (``sp_ranks``), then in this process; the ranks must agree with each
     other exactly and with the one-process run to SP_LOSS_RTOL (losses),
-    SP_GRAD_RTOL (the first step's gradient), SP_IMAGE_MEAN_TOL (bf16
-    images) and SP_IMAGE_TOL (f32 images), with exact launches: on row
-    shards each GroupNorm is two stats launches and one apply, each
-    attention call two hops of the flash forward, dq and dk/dv.
-    ``counts``: (GroupNorm calls, attention calls) of one forward of the
-    flagship and of the CIFAR UNet. Returns the two ranks' launches
-    summed, per run."""
+    SP_GRAD_RTOL and SP_POS_GRAD_RTOL (the first step's gradient),
+    SP_IMAGE_MEAN_TOL (bf16 images) and SP_IMAGE_TOL (f32 images), with
+    exact launches: on row shards each GroupNorm is two stats launches and
+    one apply, each attention call two hops of the flash forward, dq and
+    dk/dv. ``counts``:
+    (GroupNorm calls, attention calls) of one forward of the flagship, of
+    the CIFAR UNet and of the ViT. Returns the two ranks' launches summed,
+    per run."""
     t0 = time.perf_counter()
     got = sp_ranks(os.path.join(tmpdir, "sp_two"))
     two_s = time.perf_counter() - t0
     want = sp_run(os.path.join(tmpdir, "sp_one"), spatial=False)
 
-    (flag_gn, flag_attn), (cifar_gn, cifar_attn) = counts
+    (flag_gn, flag_attn), (cifar_gn, cifar_attn), (vit_gn, vit_attn) = \
+        counts
 
     def expect(gn, attn, steps, train, route, rows):
         k = 2 if rows else 1
@@ -2574,7 +2691,10 @@ def spatial_path(tmpdir, counts, card_line):
             "flagship_ddim": (flag_gn, flag_attn, SP_FLAG_DDIM, False,
                               "wide"),
             "flagship_ddim_f32": (flag_gn, flag_attn, SP_FLAG_DDIM, False,
-                                  "simt")}
+                                  "simt"),
+            "vit_train": (vit_gn, vit_attn, SP_VIT_STEPS, True, "mma"),
+            "vit_ddim": (vit_gn, vit_attn, SP_FLAG_DDIM, False, "mma"),
+            "vit_ddim_f32": (vit_gn, vit_attn, SP_FLAG_DDIM, False, "simt")}
     g = got[0]
     log(f"phase 22: {SP_RANKS} ranks of a {g['group']['backend']} group "
         f"(world size {g['group']['world_size']}) on cuda:0, started in "
@@ -2586,7 +2706,7 @@ def spatial_path(tmpdir, counts, card_line):
             r[name]["launches"] == expect(*spec, True) for r in got)
         checks[f"{name}: launches, one process"] = (
             want[name]["launches"] == expect(*spec, False))
-    for name in ("flagship_train", "cifar_train"):
+    for name in ("flagship_train", "cifar_train", "vit_train"):
         for who, run in (("rank 0", got[0][name]), ("rank 1", got[1][name]),
                          ("one process", want[name])):
             log(f"  {name}, {who} on {card_line}: {_sp_step_line(run)}")
@@ -4632,13 +4752,15 @@ def vit_config(tmpdir: str, *extra):
         f"metrics_save_dir={tmpdir}/vit_metrics", *extra])
 
 
-def vit_attention_shapes(cfg, batch):
+def vit_attention_shapes(cfg, batch, seq=1):
     """([], the [B*H, N, D] of every attention call of one ViT forward at
-    ``batch``): the heads folded into the batch, in path_shapes' layout."""
+    ``batch``): the heads folded into the batch, in path_shapes' layout.
+    With ``seq`` > 1, on the rows of one of ``seq`` ranks: each call's
+    ``seq`` ring hops at the rank's N / seq tokens."""
     m = cfg.model
     n = (cfg.data.img_size // m.patch_size) ** 2
-    return [], [(batch * m.num_heads, n, m.embed_dim // m.num_heads)] * \
-        m.depth
+    return [], [(batch * m.num_heads, n // seq,
+                 m.embed_dim // m.num_heads)] * (m.depth * seq)
 
 
 def _peak_step_gb(cfg, params, batch, dev):
@@ -4978,8 +5100,9 @@ def cuda_tests():
 
 # The paths whose launches the kernels' JSON line carries: the bf16 runs of
 # runner.evaluate, runner.train, runner.run_search, the tracked entry
-# points, finetune-t, the ViT's train and eval and the torchrun train
-# (phases 3, 7, 9, 12, 13, 15, 17, 19, 20 and 21).
+# points, finetune-t, the ViT's train and eval, the torchrun train and the
+# two-rank runs of the flagship, the CIFAR UNet and the ViT (phases 3, 7,
+# 9, 12, 13, 15, 17, 19, 20, 21 and 22).
 MAIN_PATHS = ("eval", "train", "cfg_eval", "cfg_interval_eval", "auto_eval",
               "cond_train", "ddim_eval", "ddim_eta1_eval", "dpm_eval",
               "restart_eval", "picard_eval",
@@ -4993,7 +5116,7 @@ MAIN_PATHS = ("eval", "train", "cfg_eval", "cfg_interval_eval", "auto_eval",
               "search_ensemble", "search_clip", "finetune", "finetune_eval",
               "finetune_surgery_eval", "vit_train", "vit_eval", "dp_train",
               "dp_ring_train", "sp_flagship_train", "sp_flagship_ddim",
-              "sp_cifar_train")
+              "sp_cifar_train", "sp_vit_train", "sp_vit_ddim")
 WORK = {"train": "one train step of configs/cifar10_uncond.yaml (batch 128, "
                  "bf16)",
         "cond_train": "one train step of configs/cifar10_cfg.yaml (batch "
@@ -5135,6 +5258,10 @@ def main() -> int:
         vcfg = vit_config(tmpdir)
         vit_train_shapes = vit_attention_shapes(vcfg, VIT_BATCH)
         vit_eval_shapes = vit_attention_shapes(vcfg, VIT_EVAL_BATCH)
+        # phase 22's ViT on the rows of one of 2 seq ranks: each call's
+        # two ring hops at a rank's tokens
+        vit_rows_shapes = vit_attention_shapes(vcfg, SP_FLAG_BATCH,
+                                               SP_RANKS)
         from itsd_tpu_torch.kernels import attention
         fwd_routes = collections.Counter(
             attention.route(torch.bfloat16, C, "forward")
@@ -5164,7 +5291,8 @@ def main() -> int:
             "flagship": (FLAGSHIP_ATTENTION, 10, True),
             "finetune": (ft_shapes, 1, True),
             "vit_train": (vit_train_shapes, 5, True),
-            "vit_eval": (vit_eval_shapes, 5, False)}, {
+            "vit_eval": (vit_eval_shapes, 5, False),
+            "vit_rows2": (vit_rows_shapes, 5, True)}, {
             "flagship_rows": (ft_shapes[0], SP_FLAG_BATCH),
             "cifar_rows": (train_shapes[0], SP_CIFAR_BATCH)}, dev, timer)
         # the attention batches phase 2 held, for phase 15's search runs
@@ -5189,16 +5317,19 @@ def main() -> int:
             # attention only: the fine-tune's GroupNorm backward (a plain
             # recompute, no kernel) is timed whole in phase 19's profile
             "finetune": (([], ft_shapes[1]), [], 1),
-            "vit_train": (vit_train_shapes, [])}, dev, timer)
+            "vit_train": (vit_train_shapes, []),
+            "vit_rows2": (vit_rows_shapes, [])}, dev, timer)
         f32.append(train_parity(tmpdir)[1])
         paths["train"], _ = train_path(tmpdir, smi_line)
         paths["dp_train"], paths["dp_ring_train"] = dp_path(tmpdir,
                                                             smi_line)
         paths.update(spatial_path(
             tmpdir, ((len(ft_shapes[0]), len(ft_shapes[1])),
-                     (len(train_shapes[0]), len(train_shapes[1]))),
+                     (len(train_shapes[0]), len(train_shapes[1])),
+                     (0, len(vit_train_shapes[1]))),
             smi_line))
         f32.append(paths.pop("sp_flagship_ddim_f32"))
+        f32.append(paths.pop("sp_vit_ddim_f32"))
         guided, _ = guided_eval_path(cparams, tmpdir, smi_line)
         paths.update(guided)
         f32.append(guided_parity(cparams, tmpdir)[0])

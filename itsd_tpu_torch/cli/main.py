@@ -6,9 +6,7 @@ Usage:
         [--config c.yaml] [--device cuda] [key=value ...]
 
 Overrides take dotted keys (``diffusion.T=50``) and the reference's flat keys
-(``T=50``, ``channel_mult=[1,2]``), as the JAX package's CLI. The one
-option that is not yet ported (the ViT under ``train.spatial_shard`` > 1)
-exits with status 2 and says so.
+(``T=50``, ``channel_mult=[1,2]``), as the JAX package's CLI.
 
 On several GPUs, one process each:
 
@@ -73,31 +71,27 @@ def _run(args) -> int:
         print(to_dict(cfg))
 
     from . import runner
-    try:
-        if args.command == "train":
-            out = runner.train(cfg, device=args.device)
-            summary = (f"final loss: {out['final_loss']} after "
-                       f"{out['steps']} steps; checkpoints: "
-                       f"{out['checkpoints']}")
-        elif args.command == "eval":
-            out = runner.evaluate(cfg, device=args.device)
-            summary = f"sampled grid: {out['path']}"
-        elif args.command == "finetune-t":
-            out = runner.finetune_extended_T(cfg, device=args.device)
-            summary = (f"final loss: {out['final_loss']} "
-                       f"(ckpt T detected: {out['ckpt_T_detected']})")
-        elif args.command == "inference-metrics":
-            out = runner.inference_metrics(cfg, device=args.device)
-            summary = (f"tracked {len(out['history'])} metric points; the "
-                       f"last (t, FID, IS, CLIP): {out['history'][-1]}")
-        else:
-            out = runner.run_search(cfg, device=args.device)
-            summary = f"best score: {out['best_score']} (NFE={out['nfes']})"
-        if main_rank:
-            print(summary)
-    except NotImplementedError as e:
-        print(f"[itsd_tpu_torch] {args.command}: {e}", file=sys.stderr)
-        return 2
+    if args.command == "train":
+        out = runner.train(cfg, device=args.device)
+        summary = (f"final loss: {out['final_loss']} after "
+                   f"{out['steps']} steps; checkpoints: "
+                   f"{out['checkpoints']}")
+    elif args.command == "eval":
+        out = runner.evaluate(cfg, device=args.device)
+        summary = f"sampled grid: {out['path']}"
+    elif args.command == "finetune-t":
+        out = runner.finetune_extended_T(cfg, device=args.device)
+        summary = (f"final loss: {out['final_loss']} "
+                   f"(ckpt T detected: {out['ckpt_T_detected']})")
+    elif args.command == "inference-metrics":
+        out = runner.inference_metrics(cfg, device=args.device)
+        summary = (f"tracked {len(out['history'])} metric points; the "
+                   f"last (t, FID, IS, CLIP): {out['history'][-1]}")
+    else:
+        out = runner.run_search(cfg, device=args.device)
+        summary = f"best score: {out['best_score']} (NFE={out['nfes']})"
+    if main_rank:
+        print(summary)
     return 0
 
 

@@ -30,7 +30,9 @@ the training grid sample on the rank's block of the images, gathered
 before they are saved or scored (``_spatial_mesh``: a note, and the
 unsharded run, where K does not divide the world size or the rows).
 ``run_search`` and ``finetune_extended_T`` print JAX's notes and run
-unsharded. The ViT under K > 1 is not yet ported.
+unsharded. The UNet and the ViT both run on row shards; each raises
+ValueError where the seq ranks cannot split its rows (``check_rows``: a
+UNet level, or the ViT's patches), where JAX's GSPMD pads or reshards.
 
 Unlike JAX's, the model that samples is built with the time-table rows
 it samples (``build_model(cfg, inference=True)``), so that a checkpoint
@@ -80,10 +82,6 @@ from ..train.surgery import (detect_checkpoint_T, extend_time_embedding,
 from ..utils import Config, MetricsLogger, save_image_grid
 from ..utils.plotting import plot_loss_curve, plot_metrics_curves
 from ..utils.profiling import trace_steps
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not yet ported")
 
 
 def build_model(cfg: Config, inference: bool = False):
@@ -599,7 +597,7 @@ def inference_metrics(cfg: Config, feature_fn=None, logit_fn=None,
     from ``resolve_is_logit_fn``, CLIP from ``$ITSD_CLIP_WEIGHTS``), the
     real features of the configured dataset, then
     ``sample_with_metrics``. When the dataset is not on disk (its loader
-    raises FileNotFoundError or NotImplementedError) FID and CLIP are NaN.
+    raises FileNotFoundError) FID and CLIP are NaN.
     Writes ``metrics_meta.json`` beside the history."""
     params = load_eval_params(cfg)
     provenance = is_provenance = "custom"
@@ -619,7 +617,7 @@ def inference_metrics(cfg: Config, feature_fn=None, logit_fn=None,
     real_features = real_clip_features = None
     try:
         images, _ = load_dataset(cfg)
-    except (FileNotFoundError, NotImplementedError) as e:
+    except FileNotFoundError as e:
         print(f"no real dataset available ({e}); FID/CLIP will be NaN")
         images = None
     if images is not None:
@@ -1068,9 +1066,6 @@ def _train_mesh(cfg: Config):
                   "(local attention, full data parallelism); set "
                   "train.spatial_shard>1 to actually shard tokens")
         return make_seq_mesh(1)
-    if cfg.model.backbone == "vit":
-        raise _not_ported("train.spatial_shard > 1 with model.backbone=vit "
-                          "(the ViT's image rows over the seq ranks)")
     n = world_size()
     if n % K:
         raise ValueError(

@@ -186,16 +186,18 @@ class AttnBlock(nn.Module):
 
 
 def dropout(h: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            h_axis: int = 2) -> torch.Tensor:
     """Inverted dropout as Flax's ``nn.Dropout``: keep each element with
     probability 1 - rate and divide the kept ones by it. A ``RowDraws``
     generator draws the mask for the global batch (and image) and keeps
-    this rank's block (``parallel.draw``; the image rows of NCHW ``h`` are
-    its axis 2)."""
+    this rank's block (``parallel.draw``) along ``h_axis``, the axis that
+    the seq ranks split: the image rows of NCHW ``h`` (2), or the ViT's
+    tokens of ``[B, N, E]`` (1)."""
     if rate == 0.0:
         return h
     keep = 1.0 - rate
-    mask = draw(torch.rand, h.shape, generator, h_axis=2,
+    mask = draw(torch.rand, h.shape, generator, h_axis=h_axis,
                 device=h.device) < keep
     return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype,
                                                    device=h.device))

@@ -19,8 +19,22 @@ PyTorch, as XLA left them in JAX. Dtypes and dropout follow the UNet
 dropout only with ``deterministic=False`` in training mode, its masks from
 the ``generator`` passed to the forward. ``attention_impl="ring"`` splits
 each attention call's tokens over the seq ranks (the global view of
-``kernels.ring_attention``); the ViT on row shards of its images
-(``train.spatial_shard > 1``) is not yet ported.
+``kernels.ring_attention``).
+
+Spatial sharding (``train.spatial_shard``). Inside
+``parallel.spatial.row_shards`` the input is this rank's block of image
+rows, ``[B, H/K, W, C]``, as for the UNet. The patch embedding's windows
+stay inside a rank's rows when the patch size divides them
+(``ViT.check_rows``; JAX's GSPMD reshards where it does not, the port
+raises), so its halo is empty. The tokens are H-major, so a rank's patch
+rows are a contiguous share of them: it adds that share of the position
+embedding (``rank_positions``), every attention call goes around the ring
+(``kernels.attention.spatial_attention``), the LayerNorms, Dense layers and
+the head are per token, and the dropout masks are cut along the token axis
+from the global draw. The output is the rank's rows of eps. The train
+step's all-reduce sums the ranks' gradients of the shared position
+embedding (each reaches its own share) and of the time embedding (which
+every seq rank computes for its batch rows).
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.attention import IMPLS, mha_attention
+from ..parallel import SeqMesh
 from ..parallel.spatial import row_shard_mesh
 from .embeddings import Dense, FunctionalTimeEmbedding
 from .unet import _DTYPES, Conv, dropout, rematerialized
@@ -102,13 +117,20 @@ class TransformerBlock(nn.Module):
         q, k, v = (lin(h).reshape(B, N, H, E // H)
                    for lin in (self.q, self.k, self.v))
         o = mha_attention(q, k, v, impl=self.attention_impl).reshape(B, N, E)
-        x = x + dropout(self.out(o), rate, generator)
+        x = x + dropout(self.out(o), rate, generator, h_axis=1)
         if temb is not None:
             x = x + temb[:, None, :]
         h = F.silu(self.mlp1(layer_norm(self.norm2, x)))
-        h = dropout(h, rate, generator)
-        h = dropout(self.mlp2(h), rate, generator)
+        h = dropout(h, rate, generator, h_axis=1)
+        h = dropout(self.mlp2(h), rate, generator, h_axis=1)
         return x + h
+
+
+def rank_positions(pos_embed: torch.Tensor, n: int,
+                   mesh: SeqMesh) -> torch.Tensor:
+    """This seq rank's ``n`` tokens of the position embedding ``[1, N,
+    E]``: its patch rows, which are contiguous in the H-major order."""
+    return pos_embed.narrow(1, mesh.seq_rank * n, n)
 
 
 class ViT(nn.Module):
@@ -150,6 +172,18 @@ class ViT(nn.Module):
                 nn.init.ones_(mod.weight)
                 nn.init.zeros_(mod.bias)
 
+    def check_rows(self, rows: int, seq: int) -> None:
+        """Raise ValueError unless ``seq`` ranks split the ``rows`` global
+        image rows into blocks of whole patch rows: the patch size must
+        divide a rank's rows. (JAX's GSPMD reshards there; the port does
+        not.)"""
+        p = self.cfg.patch_size
+        if rows % seq or (rows // seq) % p:
+            raise ValueError(
+                f"train.spatial_shard={seq} does not split the {rows} image "
+                f"rows into whole patches of the ViT: patch_size {p} must "
+                f"divide a rank's {rows / seq:g} rows")
+
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 labels: Optional[torch.Tensor] = None, *,
                 deterministic: bool = True,
@@ -157,21 +191,25 @@ class ViT(nn.Module):
         """eps for ``x`` at ``t``. Dropout runs only with
         ``deterministic=False`` in training mode; ``generator`` draws its
         masks. With ``cfg.remat`` and a gradient wanted, each block is
-        recomputed in the backward (``rematerialized``)."""
+        recomputed in the backward (``rematerialized``). Under
+        ``parallel.spatial.row_shards`` ``x`` (and the output) is this
+        rank's block of image rows (see the module docstring)."""
         if labels is not None:
             raise ValueError("the ViT is unconditional: it takes no labels")
-        if row_shard_mesh() is not None:
-            raise NotImplementedError(
-                "the ViT under train.spatial_shard > 1 (its image rows over "
-                "the seq ranks) is not yet ported")
         cfg = self.cfg
         deterministic = deterministic or not self.training
         dtype = cfg.torch_dtype
         B, H, W, C = x.shape
         p = cfg.patch_size
+        mesh = row_shard_mesh()
+        if mesh is not None:
+            self.check_rows(H * mesh.seq, mesh.seq)
         h = self.patch_embed(x.to(dtype).permute(0, 3, 1, 2))
         hp, wp = h.shape[2], h.shape[3]
-        h = h.flatten(2).transpose(1, 2) + self.pos_embed.to(dtype)
+        pos = self.pos_embed
+        if mesh is not None:
+            pos = rank_positions(pos, hp * wp, mesh)
+        h = h.flatten(2).transpose(1, 2) + pos.to(dtype)
         temb = self.temb_proj(self.time_embedding(t, dtype))
         remat = cfg.remat and torch.is_grad_enabled()
         for i in range(cfg.depth):

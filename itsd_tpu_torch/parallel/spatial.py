@@ -241,7 +241,11 @@ class _Halo(torch.autograd.Function):
 def halo(x: torch.Tensor, top: int, bottom: int,
          mesh: SeqMesh) -> torch.Tensor:
     """``x`` [B, C, h, W] with ``top`` rows from the previous seq rank and
-    ``bottom`` from the next (zeros at the image's edges); differentiable."""
+    ``bottom`` from the next (zeros at the image's edges); differentiable.
+    A halo of no rows (a window that never crosses a rank's rows, as the
+    ViT's patch embedding) is ``x`` itself: no message, no copy."""
+    if not top and not bottom:
+        return x
     if torch.is_grad_enabled() and x.requires_grad:
         return _Halo.apply(x, top, bottom, mesh)
     return _halo_forward(x, top, bottom, mesh)

@@ -460,11 +460,56 @@ def pixel_means(unit):
     return unit.float().mean(dim=(1, 2))
 
 
+def spatial_runner(overrides, params, real_features, dirs, samplers=None):
+    """The runner with train.spatial_shard=2: evaluate (and with each of
+    ``samplers``), sample_with_metrics and 2 steps of train."""
+    def cfg(*extra):
+        return load_config(None, overrides + dirs + ["train.spatial_shard=2",
+                                                     *extra])
+
+    result = {"evaluate": runner.evaluate(cfg(), params=params,
+                                          device="cpu")["images"]}
+    result["samplers"] = {
+        name: runner.evaluate(cfg(*extra), params=params,
+                              device="cpu")["images"]
+        for name, extra in (samplers or {}).items()}
+    tracked = runner.sample_with_metrics(
+        cfg(), params, feature_fn=pixel_means, real_features=real_features,
+        tag="spatial", device="cpu")
+    result["tracked"] = {k: tracked[k] for k in ("images", "history")}
+    out = runner.train(cfg(), max_steps=2, device="cpu")
+    result["runner_train"] = {"losses": out["losses"],
+                              "params": out["state"].model.state_dict()}
+    return result
+
+
+def vit_suite(v, mesh, rank, out_dir):
+    """The ViT on two ranks' rows: its forward and gradients, a dropout
+    mask cut along the tokens, and the runner."""
+    model = build_unet(v["model"])
+    model.load_state_dict(v["params"])
+    result = {"forward": sharded_grads(
+        lambda x: model(x, v["t"]), list(model.named_parameters()),
+        v["x"], v["cot"], mesh, 1)}
+    tokens = v["dropout_shape"]
+    local = (tokens[0], tokens[1] // mesh.seq, tokens[2])
+    mask = unet_module.dropout(
+        torch.ones(local), 0.5,
+        parallel.RowDraws(torch.Generator().manual_seed(4), mesh), h_axis=1)
+    result["dropout"] = spatial.gather_image(mask, mesh, 1)
+    dirs = [d.replace(f"/r{rank}/", f"/r{rank}/vit_")
+            for d in rank_dirs(out_dir, rank)]
+    result.update(spatial_runner(v["overrides"], v["runner_params"],
+                                 v["real_features"], dirs))
+    return result
+
+
 def spatial_suite(inp, out_dir, rank, started):
     """Image rows over two ranks: each convolution kind's halo, the
-    row-shard GroupNorm (its plain version on the CPU), train steps, the
-    ancestral sampler, and the runner's evaluate, sample_with_metrics and
-    train with train.spatial_shard=2."""
+    row-shard GroupNorm (its plain version on the CPU), train steps of
+    both backbones, the ancestral sampler, the runner's evaluate,
+    sample_with_metrics and train with train.spatial_shard=2, and the ViT
+    (``vit_suite``)."""
     sp = inp["spatial"]
     mesh = parallel.make_seq_mesh(2)
     result = {"mesh": (mesh.data, mesh.seq, mesh.seq_rank)}
@@ -504,23 +549,10 @@ def spatial_suite(inp, out_dir, rank, started):
     result["sampler"] = spatial.gather_image(local, mesh)
 
     r = sp["runner"]
-    dirs = rank_dirs(out_dir, rank)
-    cfg = load_config(None, r["overrides"] + dirs + ["train.spatial_shard=2"])
-    result["evaluate"] = runner.evaluate(cfg, params=r["params"],
-                                         device="cpu")["images"]
-    result["samplers"] = {
-        name: runner.evaluate(load_config(None, r["overrides"] + dirs + [
-            "train.spatial_shard=2", *extra]), params=r["params"],
-            device="cpu")["images"]
-        for name, extra in r["samplers"].items()}
-    tracked = runner.sample_with_metrics(
-        cfg, r["params"], feature_fn=pixel_means,
-        real_features=r["real_features"], tag="spatial", device="cpu")
-    result["tracked"] = {k: tracked[k] for k in ("images", "history")}
-    out = runner.train(load_config(None, r["overrides"] + dirs + [
-        "train.spatial_shard=2"]), max_steps=2, device="cpu")
-    result["runner_train"] = {"losses": out["losses"],
-                              "params": out["state"].model.state_dict()}
+    result.update(spatial_runner(r["overrides"], r["params"],
+                                 r["real_features"], rank_dirs(out_dir, rank),
+                                 r["samplers"]))
+    result["vit"] = vit_suite(sp["vit"], mesh, rank, out_dir)
     return result
 
 

@@ -1,5 +1,5 @@
 """Spatial sharding in the port (image rows over the seq ranks:
-``itsd_tpu_torch/parallel/spatial.py``, the UNet on row shards,
+``itsd_tpu_torch/parallel/spatial.py``, the UNet and the ViT on row shards,
 ``train.spatial_shard``) at two gloo ranks on the CPU, against one process
 and against JAX's unsharded train step; the counterpart of
 tests/test_spatial_partition.py, where GSPMD partitions the same
@@ -25,6 +25,13 @@ Tolerances (float32):
   process the same limits.
 * The sampler, evaluate and train through the runner against one process:
   1e-5 (the same arithmetic but for GroupNorm's and the ring's sums).
+* The ViT (img 16, patch 2, E 32, depth 2, 2 heads, f32: 32 tokens a rank)
+  on two ranks' rows: its forward against one process and against JAX's
+  ViT on the same weights, unsharded and on JAX's ring path (a (1, 2)
+  data x seq mesh of virtual CPU devices), 1e-5; its gradients against one
+  process, 1e-5. Its train steps take the UNet's limits; with remat the
+  step equals the step without it on the same ranks bit for bit (the
+  recompute reruns the same hops on the same draws).
 """
 
 import copy
@@ -39,6 +46,8 @@ from itsd_tpu import core as JC
 from itsd_tpu.core.process import diffusion_train_terms as jax_train_terms
 from itsd_tpu.kernels.groupnorm import groupnorm_swish_xla
 from itsd_tpu.models import UNet as JaxUNet
+from itsd_tpu.models import ViT as JaxViT
+from itsd_tpu.models import ViTConfig as JaxViTConfig
 from itsd_tpu.models import cond_unet_config as jax_cond_config
 from itsd_tpu.models import uncond_unet_config as jax_uncond_config
 from itsd_tpu.train import OptimizerConfig as JaxOptimizerConfig
@@ -49,7 +58,9 @@ from itsd_tpu_torch import core as PC
 from itsd_tpu_torch import parallel
 from itsd_tpu_torch.cli import runner
 from itsd_tpu_torch.kernels import groupnorm as gn
-from itsd_tpu_torch.models import UNet, params_from_jax, uncond_unet_config
+from itsd_tpu_torch.models import unet as unet_module
+from itsd_tpu_torch.models import (UNet, ViT, ViTConfig, params_from_jax,
+                                   uncond_unet_config, vit_params_from_jax)
 from itsd_tpu_torch.parallel import SeqMesh, spatial
 from itsd_tpu_torch.utils import load_config
 
@@ -70,11 +81,20 @@ UNCOND = dict(ch=16, ch_mult=(1, 2), attn=(1,), num_res_blocks=1,
 # every down block and the middle
 COND = dict(ch=16, ch_mult=(1, 2), num_res_blocks=1, dropout=0.0, T=20,
             num_labels=10)
+# 8x8 patches of 2x2, 4 patch rows a rank; 2 heads of 16
+VIT = dict(img_size=16, patch_size=2, embed_dim=32, depth=2, num_heads=2,
+           mlp_ratio=4.0, dropout=0.0)
 JAX_CASES = {
     "jax_uncond": ("uncond", UNCOND, 100, dict(ema_decay=0.999)),
     "jax_cond": ("cond", COND, COND["T"],
                  dict(conditional=True, loss_reduction="sum_div_b2",
-                      label_dropout=0.4, ema_decay=0.999))}
+                      label_dropout=0.4, ema_decay=0.999)),
+    "jax_vit": ("vit", VIT, 100, dict(ema_decay=0.999))}
+# the seeded cases: dropout 0.1 from one seeded generator
+SEEDED = {"seeded": ("uncond", dict(UNCOND, dropout=0.1), 8),
+          "seeded_vit": ("vit", dict(VIT, dropout=0.1), 16),
+          "seeded_vit_remat": ("vit", dict(VIT, dropout=0.1, remat=True),
+                               16)}
 # evaluate's other samplers on the rows: DDIM's noise (eta 1), DPM-Solver++,
 # restart's renoise, Picard's stopping test (a mean over the whole images)
 SAMPLERS = {
@@ -90,6 +110,9 @@ TINY = ["channel=16", "channel_mult=[1,2]", "attn=[1]", "num_res_blocks=1",
         "data.train_subset_ratio=0.005", "train.eval_batch_size=2",
         "train.batch_size=4", "train.epoch=1", "train.eval_freq=1",
         "model.dropout=0.1", "train.eval_metric_interval=3"]
+VIT_TINY = TINY + ["model.backbone=vit", "model.patch_size=2",
+                   "model.embed_dim=32", "model.depth=2", "model.num_heads=2",
+                   "img_size=16"]
 
 
 def _t(a):
@@ -113,41 +136,59 @@ def _jax_keys(i):
     return key, jax.random.split(key, 3)
 
 
+def _jax_model(kind, kw):
+    if kind == "vit":
+        return JaxViT(JaxViTConfig(**kw))
+    return JaxUNet((jax_cond_config if kind == "cond"
+                    else jax_uncond_config)(**kw))
+
+
+def _port_params(kind, kw, params):
+    """JAX's params in the port's layout."""
+    if kind == "vit":
+        return vit_params_from_jax(params, ViTConfig(**kw))
+    return params_from_jax(params, worker.build_unet((kind, kw)).cfg)
+
+
 def _train_inputs(rng):
     """The train-step cases: JAX's seeded params, one batch and JAX's draws
-    (t, the noise, the label-dropout mask) for two steps; and a seeded
-    init with the UNet's dropout at 0.1 from a seeded generator."""
+    (t, the noise, the label-dropout mask) for two steps; and seeded inits
+    with the dropout at 0.1 from a seeded generator (the ViT with and
+    without remat)."""
     x0 = rng.standard_normal((4, 8, 8, 3)).astype(np.float32)
+    vit_rng = np.random.default_rng(29)
+    x0_vit = vit_rng.standard_normal((4, 16, 16, 3)).astype(np.float32)
     raw = np.array([0, 6, 9, 3], np.int32)
     cases, jax_params = {}, {}
     for name, (kind, kw, T, step_kw) in JAX_CASES.items():
         cond = kind == "cond"
-        jm = JaxUNet((jax_cond_config if cond else jax_uncond_config)(**kw))
-        params = flax_params(jm, x0, np.zeros(4, np.int32), 10,
+        jm = _jax_model(kind, kw)
+        x = x0_vit if kind == "vit" else x0
+        params = flax_params(jm, x, np.zeros(4, np.int32), 10,
                              raw if cond else None)
         jax_params[name] = (jm, params)
         draws = []
         for i in range(2):
             _, (_, tkey, lkey) = _jax_keys(i)
             t, noise, _ = jax_train_terms(JC.linear_schedule(1e-4, 0.02, T),
-                                          tkey, jnp.asarray(x0))
+                                          tkey, jnp.asarray(x))
             drop = (torch.from_numpy(np.array(
                 jax.random.uniform(lkey, raw.shape) < 0.4)) if cond
                 else None)
             draws.append((torch.from_numpy(np.array(t)).long(),
                           torch.from_numpy(np.array(noise)), drop))
-        batch = {"image": x0, "label": raw} if cond else {"image": x0}
+        batch = {"image": x, "label": raw} if cond else {"image": x}
         cases[name] = dict(
             model=(kind, kw), opt=OPT, T=T, step=step_kw, seed=None,
-            params=params_from_jax(params, worker.build_unet((kind,
-                                                               kw)).cfg),
-            draws=draws, masks=None,
+            params=_port_params(kind, kw, params), draws=draws, masks=None,
             batches=[{k: torch.from_numpy(v) for k, v in batch.items()}] * 2)
-    cases["seeded"] = dict(
-        model=("uncond", dict(UNCOND, dropout=0.1)), params=None, opt=OPT,
-        T=100, seed=5, draws=None, masks=None, step=dict(ema_decay=0.999),
-        batches=[{"image": _t(rng.standard_normal((4, 8, 8, 3)))}
-                 for _ in range(2)])
+    for name, (kind, kw, size) in SEEDED.items():
+        r = rng if kind != "vit" else np.random.default_rng(31)
+        cases[name] = dict(
+            model=(kind, kw), params=None, opt=OPT, T=100, seed=5,
+            draws=None, masks=None, step=dict(ema_decay=0.999),
+            batches=[{"image": _t(r.standard_normal((4, size, size, 3)))}
+                     for _ in range(2)])
     return cases, jax_params
 
 
@@ -168,11 +209,10 @@ def _jax_train(cases, jax_params):
             key, _ = _jax_keys(i)
             jstate, m = jstep(jstate, batch, key)
             losses.append(float(m["loss"]))
-        tcfg = worker.build_unet((kind, kw)).cfg
         out[name] = dict(
             losses=losses,
-            params=params_from_jax(jax.device_get(jstate.params), tcfg),
-            ema=params_from_jax(jax.device_get(jstate.ema_params), tcfg))
+            params=_port_params(kind, kw, jax.device_get(jstate.params)),
+            ema=_port_params(kind, kw, jax.device_get(jstate.ema_params)))
     return out
 
 
@@ -191,23 +231,43 @@ def _sampler_inputs(rng):
             "x_T": _t(rng.standard_normal((2, 8, 8, 3))), "T": 10, "seed": 3}
 
 
+def _vit_inputs():
+    """The ViT cases: JAX's seeded params (and in the port's layout), two
+    images with their t and a cotangent, the dropout test's token shape
+    [B, N, E], and the runner's tiny ViT with its seeded init."""
+    rng = np.random.default_rng(37)
+    x = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
+    t = np.array([3, 71], np.int32)
+    jm = JaxViT(JaxViTConfig(**VIT))
+    params = flax_params(jm, x, t, 11)
+    cfg = load_config(None, VIT_TINY)
+    model, _ = runner.build_model(cfg)
+    return {"model": ("vit", VIT), "params": _port_params("vit", VIT, params),
+            "x": _t(x), "t": torch.from_numpy(t).long(),
+            "cot": _t(rng.standard_normal(x.shape)),
+            "dropout_shape": (2, 64, 8), "overrides": VIT_TINY,
+            "runner_params": runner.init_params(cfg, model),
+            "real_features": rng.standard_normal((64, 3))}, (jm, params)
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     out = tmp_path_factory.mktemp("spatial")
     rng = np.random.default_rng(23)
     cases, jax_params = _train_inputs(rng)
+    vit, jax_vit = _vit_inputs()
     g = {"x": _t(rng.standard_normal((2, 8, 8, 6)) * 2 + 0.5),
          "weight": _t(1 + 0.1 * rng.standard_normal(8)),
          "bias": _t(0.1 * rng.standard_normal(8)), "groups": 4, "act": True,
          "cot": _t(rng.standard_normal((2, 8, 8, 6)))}
     inputs = {"spatial": {"convs": _conv_inputs(rng), "gn": g,
                           "train": cases, "sampler": _sampler_inputs(rng),
-                          "runner": _runner_inputs(rng)}}
+                          "runner": _runner_inputs(rng), "vit": vit}}
     torch.save(inputs, out / "inputs.pt")
     jax_out, got, logs = worker.run_ranks(
         out, "spatial", WORKER_TIMEOUT, lambda: _jax_train(cases, jax_params))
     return dict(got=got, inputs=inputs["spatial"], jax=jax_out, dir=out,
-                logs=logs)
+                logs=logs, jax_vit=jax_vit)
 
 
 def _close(got, want, tol=TOL):
@@ -310,12 +370,12 @@ def test_spatial_train_step_matches_jax(ranks, name):
         _check_params(g["ema"], want["ema"], zero)
 
 
-@pytest.mark.parametrize("name", list(JAX_CASES) + ["seeded"])
+@pytest.mark.parametrize("name", list(JAX_CASES) + list(SEEDED))
 def test_spatial_train_step_equals_one_process(ranks, name):
-    """The same steps in one process on the whole images; "seeded" draws
-    t, the noise and the UNet's dropout masks (rate 0.1) for the global
+    """The same steps in one process on the whole images; the seeded cases
+    draw t, the noise and the dropout masks (rate 0.1) for the global
     batch and images from one seeded generator, and each rank keeps its
-    rows."""
+    rows (the UNet's image rows, the ViT's tokens)."""
     ref = _one_process(ranks, name)
     for got in ranks["got"]:
         g = got["train"][name]
@@ -439,8 +499,8 @@ def test_levels_the_seq_ranks_do_not_divide_raise():
 def test_train_mesh_follows_jax(monkeypatch, capsys):
     """``train.spatial_shard`` as JAX's ``_train_mesh``: K must divide the
     world size and img_size (JAX's messages); K=1 with ring prints JAX's
-    note and sizes the seq axis 1; the ViT under K > 1 is not yet
-    ported."""
+    note and sizes the seq axis 1; the ViT takes the UNet's layout, seq
+    = K."""
     cfg = load_config(None, TINY + ["train.spatial_shard=2"])
     with pytest.raises(ValueError,
                        match="spatial_shard=2 must divide device count 1"):
@@ -452,10 +512,195 @@ def test_train_mesh_follows_jax(monkeypatch, capsys):
         runner._train_mesh(odd)
     vit = copy.deepcopy(cfg)
     vit.model.backbone = "vit"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        runner._train_mesh(vit)
+    monkeypatch.setattr(runner, "make_seq_mesh", lambda k: ("layout", k))
+    assert runner._train_mesh(vit) == ("layout", 2)
     monkeypatch.undo()
     ring = load_config(None, TINY + ["model.attention_impl=ring"])
     mesh = runner._train_mesh(ring)
     assert (mesh.data, mesh.seq) == (1, 1)
     assert "ring runs with a size-1 seq axis" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the ViT
+
+
+def test_vit_check_rows_needs_whole_patches():
+    """The ViT on row shards wants whole patch rows a rank: img 12 with
+    patch 4 splits over 3 ranks (4 rows each) but not over 2 (6 rows),
+    where it raises ValueError before any exchange (JAX's GSPMD
+    reshards)."""
+    model = ViT(ViTConfig(img_size=12, patch_size=4, embed_dim=8, depth=1,
+                          num_heads=1))
+    model.check_rows(12, 3)
+    with pytest.raises(ValueError, match="patch_size 4 must divide a "
+                       "rank's 6 rows"):
+        model.check_rows(12, 2)
+    with spatial.row_shards(SeqMesh(data=1, seq=2)), \
+            pytest.raises(ValueError, match="patch_size 4"):
+        model(torch.zeros(1, 6, 12, 3), torch.zeros(1, dtype=torch.int64))
+
+
+def test_zero_row_halo_posts_no_message(monkeypatch):
+    """A halo of no rows (the ViT's patch embedding: kernel = stride =
+    patch, no padding) is x itself, with or without a gradient, and posts
+    no message; the patch embedding of a rank's rows is those rows of the
+    unsharded one."""
+    def posted(*args, **kwargs):
+        raise AssertionError("a message was posted")
+
+    monkeypatch.setattr(spatial, "p2p", posted)
+    mesh = SeqMesh(data=1, seq=2)
+    x = _t(np.random.default_rng(41).standard_normal((2, 3, 8, 8)))
+    assert spatial.halo(x, 0, 0, mesh) is x
+    xg = x.clone().requires_grad_()
+    assert spatial.halo(xg, 0, 0, mesh) is xg
+    conv = ViT(ViTConfig(**VIT)).patch_embed
+    with torch.no_grad():
+        whole = conv(x)
+        with spatial.row_shards(mesh):
+            top = conv(x[:, :, :4])
+    _close(top, whole[:, :, :2])
+
+
+def _vit_one_process(ranks):
+    """The ViT case in this process on the whole images: the model (its
+    parameters' gradients of sum(out * cot) set), the output and the
+    gradient of x."""
+    v = ranks["inputs"]["vit"]
+    model = worker.build_unet(v["model"])
+    model.load_state_dict(v["params"])
+    x = v["x"].clone().requires_grad_()
+    out = model(x, v["t"])
+    (out * v["cot"]).sum().backward()
+    return model, out.detach(), x.grad
+
+
+def test_vit_on_rows_matches_one_process_and_jax(ranks):
+    """The ViT on two ranks' rows (each rank's share of the position
+    embedding, the ring in every block): the gathered output against one
+    process and JAX's ViT on the same weights, and the gradients of x and
+    of every parameter (summed over the ranks) against one process's."""
+    v = ranks["inputs"]["vit"]
+    jm, jparams = ranks["jax_vit"]
+    model, out, dx = _vit_one_process(ranks)
+    want = jm.apply(jparams, jnp.asarray(v["x"].numpy()),
+                    jnp.asarray(v["t"].numpy()))
+    for got in ranks["got"]:
+        g = got["vit"]["forward"]
+        _close(g["out"], out)
+        _close(g["out"], np.asarray(want))
+        _close(g["dx"], dx)
+        for k, p in model.named_parameters():
+            _close(g["dparams"][k], p.grad)
+
+
+def test_vit_on_rows_matches_jax_ring_path(ranks, monkeypatch):
+    """JAX's ViT with its input on a (1, 2) data x seq mesh of virtual CPU
+    devices under ``seq_mesh_scope``, as ``train.spatial_shard=2`` runs it:
+    every attention call goes around JAX's ring (GSPMD partitions the
+    rest); the ranks' gathered output matches it."""
+    from itsd_tpu.kernels import attention as jax_attention
+    from itsd_tpu.parallel import make_mesh, seq_mesh_scope, spatial_sharding
+
+    v = ranks["inputs"]["vit"]
+    jm, jparams = ranks["jax_vit"]
+    ring_calls = []
+    dispatch = jax_attention._ring_dispatch
+
+    def counted(*args, **kwargs):
+        ring_calls.append(None)
+        return dispatch(*args, **kwargs)
+
+    monkeypatch.setattr(jax_attention, "_ring_dispatch", counted)
+    mesh = make_mesh((1, 2), ("data", "seq"), devices=jax.devices()[:2])
+    x = jax.device_put(jnp.asarray(v["x"].numpy()), spatial_sharding(mesh))
+    with seq_mesh_scope(mesh):
+        want = jm.apply(jparams, x, jnp.asarray(v["t"].numpy()))
+    assert len(ring_calls) == VIT["depth"]
+    for got in ranks["got"]:
+        _close(got["vit"]["forward"]["out"], np.asarray(want))
+
+
+def test_vit_dropout_masks_are_cut_along_the_tokens(ranks):
+    """A ViT dropout mask ([B, N, E]) under ``RowDraws`` at two seq ranks:
+    drawn for the global tokens and cut along them (axis 1), the ranks'
+    masks put together are one process's mask from the same generator;
+    the UNet's default axis (NCHW rows) is unchanged."""
+    shape = ranks["inputs"]["vit"]["dropout_shape"]
+    want = unet_module.dropout(torch.ones(shape), 0.5,
+                               torch.Generator().manual_seed(4), h_axis=1)
+    for got in ranks["got"]:
+        assert torch.equal(got["vit"]["dropout"], want)
+    h = torch.ones(2, 4, 6, 6)
+    assert torch.equal(
+        unet_module.dropout(h, 0.5, torch.Generator().manual_seed(4)),
+        unet_module.dropout(h, 0.5, torch.Generator().manual_seed(4),
+                            h_axis=2))
+
+
+def test_vit_remat_step_equals_no_remat_on_rows(ranks):
+    """Two seeded ViT steps (dropout 0.1) on two ranks' rows with remat:
+    the recompute reruns each block's ring hops in the backward on every
+    rank in one order, with the same dropout masks, and gives the step
+    without remat bit for bit."""
+    for got in ranks["got"]:
+        a, b = got["train"]["seeded_vit_remat"], got["train"]["seeded_vit"]
+        assert a["metrics"] == b["metrics"]
+        for k, p in b["params"].items():
+            assert torch.equal(a["params"][k], p), k
+
+
+def test_vit_evaluate_with_spatial_shard_matches_one_process(ranks,
+                                                             tmp_path):
+    """runner.evaluate of the tiny ViT with train.spatial_shard=2 at two
+    ranks against one process."""
+    v = ranks["inputs"]["vit"]
+    cfg = load_config(None, v["overrides"] + [f"sampled_dir={tmp_path}"])
+    want = runner.evaluate(cfg, params=v["runner_params"],
+                           device="cpu")["images"]
+    for got in ranks["got"]:
+        _close(got["vit"]["evaluate"], want)
+
+
+def test_vit_sample_with_metrics_with_spatial_shard_matches_one_process(
+        ranks, tmp_path):
+    """The tiny ViT's metric-tracked chain with train.spatial_shard=2 at
+    two ranks: the one-process run's images and Fréchet distances."""
+    v = ranks["inputs"]["vit"]
+    cfg = load_config(None, v["overrides"] + [
+        f"sampled_dir={tmp_path}", f"metrics_save_dir={tmp_path}"])
+    want = runner.sample_with_metrics(
+        cfg, v["runner_params"], feature_fn=worker.pixel_means,
+        real_features=v["real_features"], device="cpu")
+    for got in ranks["got"]:
+        g = got["vit"]["tracked"]
+        _close(g["images"], want["images"])
+        np.testing.assert_allclose([h[1] for h in g["history"]],
+                                   [h[1] for h in want["history"]],
+                                   rtol=1e-4)
+
+
+def test_vit_runner_train_with_spatial_shard_matches_one_process(ranks):
+    """runner.train of the tiny ViT with train.spatial_shard=2 at two ranks
+    for 2 steps (dropout 0.1, masks cut along the tokens): the one-process
+    run's losses and weights."""
+    out = ranks["dir"]
+    assert (out / "r0" / "vit_ckpt" / "ckpt_0").is_file()
+    assert not (out / "r1" / "vit_ckpt").exists()
+    cfg = load_config(None, VIT_TINY + [
+        f"save_weight_dir={out}/one_vit/ckpt",
+        f"metrics_save_dir={out}/one_vit/metrics",
+        f"sampled_dir={out}/one_vit/sampled"])
+    want = runner.train(cfg, max_steps=2, device="cpu")
+    model = want["state"].model
+    # the key projection's bias has an exact gradient of 0 (the softmax
+    # does not see a shift of every key by one vector)
+    zero = {k for k, p in model.named_parameters()
+            if p.grad.abs().max().item() < 1e-6}
+    assert {k for k in zero if not k.endswith("k.bias")} == set(), zero
+    for got in ranks["got"]:
+        g = got["vit"]["runner_train"]
+        np.testing.assert_allclose(g["losses"], want["losses"], rtol=TOL)
+        _check_params(g["params"], model.state_dict(), zero,
+                      4 * cfg.train.lr * cfg.train.multiplier)
