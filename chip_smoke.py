@@ -19,7 +19,10 @@ Phases, each ending with one line that carries its elapsed seconds:
 0. card: the device name and the power limit ``nvidia-smi`` reports;
 1. build: the port's kernels, compiled from ``itsd_tpu_torch/csrc`` by one
    nvcc per source, all started together, and a link (its time and the
-   ``-Xptxas -v`` registers and spills; a spill fails the run);
+   ``-Xptxas -v`` registers and spills; a spill fails the run); the
+   ``HGMMA`` and ``UTMALDG`` instructions of each Hopper kernel (the mma
+   route's forward and dk/dv) in ``cuobjdump -sass`` of the library, none
+   of either failing the run;
 2. forward kernels: GroupNorm+swish and flash attention against their
    plain PyTorch versions at every shape the eval path (batch 8) and the
    train path (batch 128) give them, and the CFG model's guided eval
@@ -30,7 +33,9 @@ Phases, each ending with one line that carries its elapsed seconds:
    bf16 at C <= 256, and "wide", of bf16 at 256 < C <= 1024: the CFG
    model's C=512 and C=1024) and the CUDA-core one ("simt", the route of
    f32); the simt kernel is checked and timed on the same bf16 inputs as
-   the tensor-core one at every shape. Also at Picard's folded batches
+   the tensor-core one at every shape, and where bf16 takes mma, the
+   mma.sync forward that the Hopper kernel replaced (forced calls, timed
+   in turns with it). Also at Picard's folded batches
    (phase 13's time grid of 50 points in the batch: 400 rows for the
    unconditional UNet, 800 for the guided CFG UNet) and at phase 15's
    search folds (32 rows for the unconditional UNet: 4 chunked candidates,
@@ -70,7 +75,9 @@ Phases, each ending with one line that carries its elapsed seconds:
    one fed noise sequence;
 5. backward: the dq and dk/dv kernels (each on its bf16 route and on
    simt, as in phase 2; both on the wide route at C=512 and C=1024 and at
-   the flagship's C=384) against their plain versions at both train
+   the flagship's C=384; where bf16 takes mma, the mma.sync dk/dv that the
+   Hopper kernel replaced too, timed in turns with it) against their
+   plain versions at both train
    paths' shapes, gradient search's (the unconditional eval batch 8 and
    the CFG dual batch 16), one more C and the flagship's [1, 4096, 384],
    in bf16 and f32, with a nonzero dlse once, timed beside the plain
@@ -300,6 +307,9 @@ import torch.nn.functional as F
 
 # Published peaks of one H100 SXM (NVIDIA data sheet; dense rates at 700 W).
 HBM_BYTES_PER_S = 3.35e12
+# Kernels built from csrc/flash_attention_hopper.cu (4 padded widths, with
+# and without lse) and csrc/flash_attention_bwd_dkv_hopper.cu (4 widths).
+HOPPER_INSTANTIATIONS = 12
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
 
@@ -670,6 +680,19 @@ class DeviceTimer:
             host.append(host_ms * 1e3 / n)
         return min(dev), float(np.median(host))
 
+    def pair(self, fn_a, fn_b, n: int = 50):
+        """(device ms of fn_a, of fn_b, host us of fn_a, of fn_b): the two
+        timed in turns, a repetition of one, then of the other, so that a
+        redesigned kernel and the kernel it replaced meet the same card
+        state."""
+        a, b = [], []
+        for _ in range(2):
+            a.append(self(fn_a, n=n, reps=1))
+            b.append(self(fn_b, n=n, reps=1, warmup=1))
+        return (min(x[0] for x in a), min(x[0] for x in b),
+                float(np.median([x[1] for x in a])),
+                float(np.median([x[1] for x in b])))
+
 
 # ---------------------------------------------------------------------------
 # phases
@@ -711,6 +734,19 @@ def build():
             spills.append(fn)
     if spills:
         fail(f"ptxas reports spills in {spills}")
+    # the Hopper kernels must be built from wgmma and TMA loads
+    hopper = [fn for fn, *_ in kernels.ptxas if "hopper_kernel" in fn]
+    counts = {fn: c for fn, c in _build.sass_counts(
+        kernels.path, functions=hopper or None).items()
+        if "hopper_kernel" in fn}
+    if len(counts) != HOPPER_INSTANTIATIONS:
+        fail(f"cuobjdump lists {len(counts)} Hopper kernels, want "
+             f"{HOPPER_INSTANTIATIONS}: {sorted(counts)}")
+    for fn, c in sorted(counts.items()):
+        log(f"  sass {fn}: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}")
+        if not c["HGMMA"] or not c["UTMALDG"]:
+            fail(f"{fn}: {c['HGMMA']} HGMMA and {c['UTMALDG']} UTMALDG "
+                 "instructions; a Hopper kernel needs both")
     phase_done(1, "build", t0, "(no spills)" if kernels.built else "")
 
 
@@ -1078,21 +1114,24 @@ def check_flash_forward(attn_calls, dev, timer, n, with_lse):
     """The flash forward kernels (with and without lse) against their plain
     version at every [B, N, C] of ``attn_calls``: the route's kernel in
     bf16 (mma or wide) and in f32 (simt), and the simt kernel on the bf16
-    inputs too. Times at bf16 of the route's kernel and of the simt kernel
-    on the same inputs (the variant with lse when ``with_lse``, as on a
-    train path). Rows: the route's kernel at each shape, and the simt
-    kernel's forced calls where bf16 takes wide (the calls bf16 sent to
-    simt before the wide kernels). Returns {kernel: (max error, rows)}."""
+    inputs too; where bf16 takes mma, also the mma.sync kernel that the
+    Hopper kernel replaced (forced calls). Times at bf16 of the route's
+    kernel and of the simt kernel on the same inputs (the variant with lse
+    when ``with_lse``, as on a train path), and of the mma.sync kernel in
+    turns with the Hopper one. Rows: the route's kernel at each shape, the
+    simt kernel's forced calls where bf16 takes wide (the calls bf16 sent
+    to simt before the wide kernels), the mma.sync kernel's where bf16
+    takes mma. Returns {kernel: (max error, rows)}."""
     from itsd_tpu_torch.kernels import attention
 
     gen = torch.Generator(device=dev).manual_seed(1)
     names = ("flash_attention_mma", "flash_attention_wide",
-             "flash_attention_simt")
+             "flash_attention_simt", "flash_attention_mma_sync")
     worst = dict.fromkeys(names, 0.0)
     rows = {k: [] for k in names}
     log("flash_attention: [B,N,C] x calls/step route | max_abs_err o: route "
-        "bf16, simt bf16 f32; lse | ms (bf16): route simt plain sdpa bound | "
-        "host us/call route simt")
+        "bf16, simt bf16 f32, mma.sync bf16; lse | ms (bf16): route simt "
+        "plain sdpa bound mma.sync | host us/call route simt")
 
     def forward(fn_lse, fn, q, k, v, scale, what):
         o, lse = fn_lse(q, k, v, scale)
@@ -1109,6 +1148,8 @@ def check_flash_forward(attn_calls, dev, timer, n, with_lse):
         errs, lse_err = {(bf16_route, torch.bfloat16): nan}, 0.0
         cases = ([(torch.bfloat16, bf16_route)] if bf16_route != "simt"
                  else [])
+        if bf16_route == "mma":
+            cases.append((torch.bfloat16, "mma_sync"))
         for dtype, which in cases + [(torch.bfloat16, "simt"),
                                      (torch.float32, "simt")]:
             what = f"flash_attention {which} {(B, N, C)} {dtype}"
@@ -1120,9 +1161,11 @@ def check_flash_forward(attn_calls, dev, timer, n, with_lse):
                     lambda q, k, v, s: attention.spatial_attention(q, k, v),
                     q, k, v, scale, what)
             else:
+                forced = (attention._flash_mma_sync if which == "mma_sync"
+                          else attention._flash_simt)
                 o, lse = forward(
-                    lambda *a: attention._flash_simt(*a, emit_lse=True),
-                    lambda *a: attention._flash_simt(*a, emit_lse=False),
+                    lambda *a: forced(*a, emit_lse=True),
+                    lambda *a: forced(*a, emit_lse=False),
                     q, k, v, scale, what)
             n1 = read_launches()
             if (n1[f"flash_attention_{which}"]
@@ -1143,13 +1186,16 @@ def check_flash_forward(attn_calls, dev, timer, n, with_lse):
             worst[name] = max(worst[name], errs[which, dtype], lse_e)
         q, k, v = (_rand((B, N, C), gen, dev, torch.bfloat16)
                    for _ in range(3))
-        r_ms = r_host = nan
-        if bf16_route != "simt":
-            r_ms, r_host = timer(
-                (lambda: attention.attention_with_lse(q, k, v, scale))
-                if with_lse else (lambda: attention.spatial_attention(q, k,
-                                                                      v)),
-                n=n)
+        r_ms = r_host = y_ms = nan
+        route_fn = ((lambda: attention.attention_with_lse(q, k, v, scale))
+                    if with_lse else
+                    (lambda: attention.spatial_attention(q, k, v)))
+        if bf16_route == "mma":
+            r_ms, y_ms, r_host, _ = timer.pair(
+                route_fn, lambda: attention._flash_mma_sync(
+                    q, k, v, scale, emit_lse=with_lse), n=n)
+        elif bf16_route != "simt":
+            r_ms, r_host = timer(route_fn, n=n)
         s_ms, s_host = timer(
             lambda: attention._flash_simt(q, k, v, scale, emit_lse=with_lse),
             n=n)
@@ -1164,12 +1210,18 @@ def check_flash_forward(attn_calls, dev, timer, n, with_lse):
             f"{' (with lse)' if with_lse else ''} | "
             f"{errs[bf16_route, torch.bfloat16]:.3g}, "
             f"{errs['simt', torch.bfloat16]:.3g} "
-            f"{errs['simt', torch.float32]:.3g}; {lse_err:.3g} | "
+            f"{errs['simt', torch.float32]:.3g} "
+            f"{errs.get(('mma_sync', torch.bfloat16), nan):.3g}; "
+            f"{lse_err:.3g} | "
             f"{r_ms:.5f} {s_ms:.5f} {p_ms:.5f} {l_ms:.5f} "
-            f"{max(by_bytes, by_ops):.5f} | {r_host:.1f} {s_host:.1f}")
+            f"{max(by_bytes, by_ops):.5f} {y_ms:.5f} | {r_host:.1f} "
+            f"{s_host:.1f}")
         rows[f"flash_attention_{bf16_route}"].append(
             (calls, r_ms if bf16_route != "simt" else s_ms, p_ms, l_ms,
              by_bytes, by_ops))
+        if bf16_route == "mma":
+            rows["flash_attention_mma_sync"].append(
+                (calls, y_ms, p_ms, l_ms, by_bytes, by_ops))
         if bf16_route == "wide":
             rows["flash_attention_simt"].append(
                 (calls, s_ms, p_ms, l_ms, by_bytes, by_ops))
@@ -1322,18 +1374,19 @@ def check_backward_kernels(paths, dev, timer):
     gen = torch.Generator(device=dev).manual_seed(5)
     kernels = ("flash_bwd_dq_mma", "flash_bwd_dq_wide", "flash_bwd_dq_simt",
                "flash_bwd_dkv_mma", "flash_bwd_dkv_wide",
-               "flash_bwd_dkv_simt")
+               "flash_bwd_dkv_simt", "flash_bwd_dkv_mma_sync")
     out = {k: {} for k in kernels}
     log("flash backward: [B,N,C] x calls/step routes | max_abs_err dq dk dv "
-        "bf16 (routes), dq dk dv bf16 simt, dq dk dv f32 (simt) | ms (bf16): "
-        "dq route simt plain bound, dkv route simt plain bound | sdpa bwd ms "
-        "| host us/call dq route simt, dkv route simt")
+        "bf16 (routes), dq dk dv bf16 simt, dq dk dv f32 (simt), dk dv bf16 "
+        "mma.sync | ms (bf16): dq route simt plain bound, dkv route simt "
+        "plain bound mma.sync | sdpa bwd ms | host us/call dq route simt, "
+        "dkv route simt")
     log(f"  tolerance: f32 {BWD_F32_TOL}; bf16 2^-7*max|plain| + "
         f"2^-7*|plain| + the f32 summation-order bound of dq and dk")
 
-    def check_grads(what, got, want, dtype, bounds):
+    def check_grads(what, got, want, dtype, bounds, names=("dq", "dk", "dv")):
         e = []
-        for name, g, w, bound in zip(("dq", "dk", "dv"), got, want, bounds):
+        for name, g, w, bound in zip(names, got, want, bounds):
             if dtype == torch.float32:
                 atol, rtol, bound = BWD_F32_TOL, 0.0, None
             else:
@@ -1397,6 +1450,21 @@ def check_backward_kernels(paths, dev, timer):
                     errs["simt"] = check_grads(f"{what} simt", got, want,
                                                dtype, bounds)
                     note(errs["simt"], ("simt", "simt"))
+                if routes[1] == "mma":
+                    # the mma.sync dk/dv the Hopper kernel replaced, forced
+                    n0 = read_launches()
+                    got = attention._flash_bwd_dkv_mma_sync(q, k, v, do, lse,
+                                                            dd, scale)
+                    n1 = read_launches()
+                    torch.cuda.synchronize()
+                    if (n1["flash_bwd_dkv_mma_sync"]
+                            - n0["flash_bwd_dkv_mma_sync"] != 1):
+                        fail(f"{what}: the mma.sync dk/dv not launched")
+                    errs["mma_sync"] = check_grads(
+                        f"{what} mma.sync", got, want[1:], dtype, bounds[1:],
+                        names=("dk", "dv"))
+                    worst["flash_bwd_dkv_mma_sync"] = max(
+                        worst["flash_bwd_dkv_mma_sync"], *errs["mma_sync"])
             if bf16_routes == ("simt", "simt"):
                 errs["simt"] = errs[torch.bfloat16]
             q, k, v, do = (_rand((B, N, C), gen, dev, torch.bfloat16)
@@ -1409,9 +1477,16 @@ def check_backward_kernels(paths, dev, timer):
                               if bf16_routes[0] != "simt" else nan)
             dq_simt_ms, dq_simt_host = timer(
                 lambda: attention._flash_bwd_dq_simt(*args), n=n)
-            dkv_ms, dkv_host = (timer(lambda: attention.flash_bwd_dkv(*args),
-                                      n=n)
-                                if bf16_routes[1] != "simt" else nan)
+            sync_ms = float("nan")
+            if bf16_routes[1] == "mma":
+                dkv_ms, sync_ms, dkv_host, _ = timer.pair(
+                    lambda: attention.flash_bwd_dkv(*args),
+                    lambda: attention._flash_bwd_dkv_mma_sync(*args), n=n)
+            elif bf16_routes[1] != "simt":
+                dkv_ms, dkv_host = timer(
+                    lambda: attention.flash_bwd_dkv(*args), n=n)
+            else:
+                dkv_ms, dkv_host = nan
             simt_ms, simt_host = timer(
                 lambda: attention._flash_bwd_dkv_simt(*args), n=n)
             dq_plain, _ = timer(lambda: attention.flash_bwd_dq_plain(*args),
@@ -1431,10 +1506,12 @@ def check_backward_kernels(paths, dev, timer):
                 f"{bf16_routes[1]} | "
                 f"{' '.join(f'{x:.3g}' for x in errs[torch.bfloat16])}, "
                 f"{' '.join(f'{x:.3g}' for x in errs['simt'])}, "
-                f"{' '.join(f'{x:.3g}' for x in errs[torch.float32])} | "
-                f"dq {dq_ms:.5f} {dq_simt_ms:.5f} {dq_plain:.5f} "
+                f"{' '.join(f'{x:.3g}' for x in errs[torch.float32])}, "
+                f"{' '.join(f'{x:.3g}' for x in errs.get('mma_sync', ()))}"
+                f" | dq {dq_ms:.5f} {dq_simt_ms:.5f} {dq_plain:.5f} "
                 f"{max(b_dq):.5f}, dkv {dkv_ms:.5f} {simt_ms:.5f} "
-                f"{dkv_plain:.5f} {max(b_dkv):.5f} | {sdpa_ms:.5f} | "
+                f"{dkv_plain:.5f} {max(b_dkv):.5f} {sync_ms:.5f} | "
+                f"{sdpa_ms:.5f} | "
                 f"{dq_host:.1f} {dq_simt_host:.1f}, {dkv_host:.1f} "
                 f"{simt_host:.1f}")
             if not calls:
@@ -1446,6 +1523,9 @@ def check_backward_kernels(paths, dev, timer):
             rows[f"flash_bwd_dkv_{dkv_route}"].append(
                 (calls, dkv_ms if dkv_route != "simt" else simt_ms,
                  dkv_plain, sdpa_ms, *b_dkv))
+            if dkv_route == "mma":
+                rows["flash_bwd_dkv_mma_sync"].append(
+                    (calls, sync_ms, dkv_plain, sdpa_ms, *b_dkv))
             if dq_route == "wide":
                 rows["flash_bwd_dq_simt"].append(
                     (calls, dq_simt_ms, dq_plain, sdpa_ms, *b_dq))
@@ -1534,16 +1614,17 @@ def reset_launches():
     groupnorm.launches = 0
     groupnorm.stats_launches = groupnorm.apply_launches = 0
     attention.launches = attention.mma_launches = 0
-    attention.wide_launches = 0
+    attention.wide_launches = attention.mma_sync_launches = 0
     attention.dq_launches = attention.dq_mma_launches = 0
     attention.dq_wide_launches = 0
     attention.dkv_launches = attention.dkv_mma_launches = 0
-    attention.dkv_wide_launches = 0
+    attention.dkv_wide_launches = attention.dkv_mma_sync_launches = 0
 
 
 def read_launches() -> dict:
     """Launches so far: the totals of each function (every route) and, for
-    the flash forward, dq and dk/dv, of each route's kernel."""
+    the flash forward, dq and dk/dv, of each route's kernel (and of the
+    forced calls of the mma.sync forward and dk/dv)."""
     from itsd_tpu_torch.kernels import attention, groupnorm
 
     a = attention
@@ -1554,25 +1635,29 @@ def read_launches() -> dict:
         fwd_wide=a.wide_launches, dq=a.dq_launches,
         dq_mma=a.dq_mma_launches, dq_wide=a.dq_wide_launches,
         dkv=a.dkv_launches, dkv_mma=a.dkv_mma_launches,
-        dkv_wide=a.dkv_wide_launches)
+        dkv_wide=a.dkv_wide_launches, fwd_mma_sync=a.mma_sync_launches,
+        dkv_mma_sync=a.dkv_mma_sync_launches)
 
 
 def route_counts(gn=0, fwd=0, fwd_mma=0, fwd_wide=0, dq=0, dq_mma=0,
                  dq_wide=0, dkv=0, dkv_mma=0, dkv_wide=0, gn_stats=0,
-                 gn_apply=0):
+                 gn_apply=0, fwd_mma_sync=0, dkv_mma_sync=0):
     """Launch counts in the layout of ``read_launches``: each function's
-    total and each route's kernel (simt: what the others leave)."""
+    total and each route's kernel (simt: what the others leave), and the
+    mma.sync forward's and dk/dv's forced calls (no path makes one)."""
     return {"groupnorm_swish": gn, "groupnorm_partial_stats": gn_stats,
             "groupnorm_apply": gn_apply, "flash_attention": fwd,
             "flash_attention_mma": fwd_mma,
             "flash_attention_wide": fwd_wide,
-            "flash_attention_simt": fwd - fwd_mma - fwd_wide,
+            "flash_attention_mma_sync": fwd_mma_sync,
+            "flash_attention_simt": fwd - fwd_mma - fwd_wide - fwd_mma_sync,
             "flash_bwd_dq": dq, "flash_bwd_dq_mma": dq_mma,
             "flash_bwd_dq_wide": dq_wide,
             "flash_bwd_dq_simt": dq - dq_mma - dq_wide,
             "flash_bwd_dkv": dkv,
             "flash_bwd_dkv_mma": dkv_mma, "flash_bwd_dkv_wide": dkv_wide,
-            "flash_bwd_dkv_simt": dkv - dkv_mma - dkv_wide}
+            "flash_bwd_dkv_mma_sync": dkv_mma_sync,
+            "flash_bwd_dkv_simt": dkv - dkv_mma - dkv_wide - dkv_mma_sync}
 
 
 def step_counts(gn, attn, mma=0, wide=0):
@@ -1804,13 +1889,15 @@ def profile_steps(step, state, batch, gen, n=3):
 def _category(name: str) -> str:
     n = name.lower()
     for cat, keys in (
-            ("flash_fwd mma (ours)", ("flash_fwd_mma_kernel",)),
+            ("flash_fwd mma (ours)", ("flash_fwd_hopper_kernel",
+                                      "flash_fwd_mma_kernel")),
             ("flash_fwd wide (ours)", ("flash_fwd_wide_kernel",)),
             ("flash_fwd simt (ours)", ("flash_fwd_kernel",)),
             ("flash_bwd_dq mma (ours)", ("flash_bwd_dq_mma_kernel",)),
             ("flash_bwd_dq wide (ours)", ("flash_bwd_dq_wide_kernel",)),
             ("flash_bwd_dq simt (ours)", ("flash_bwd_dq_kernel",)),
-            ("flash_bwd_dkv mma (ours)", ("flash_bwd_dkv_mma_kernel",)),
+            ("flash_bwd_dkv mma (ours)", ("flash_bwd_dkv_hopper_kernel",
+                                          "flash_bwd_dkv_mma_kernel")),
             ("flash_bwd_dkv wide (ours)", ("flash_bwd_dkv_wide_kernel",)),
             ("flash_bwd_dkv simt (ours)", ("flash_bwd_dkv_kernel",)),
             ("groupnorm (ours)", ("groupnorm_swish_kernel",)),
@@ -5125,6 +5212,14 @@ WORK = {"train": "one train step of configs/cifar10_uncond.yaml (batch 128, "
                             "(batch 2, bf16) on the rows of one of 2 seq "
                             "ranks: its 51 GroupNorm calls"}
 # name -> (source, the TPU kernel it replaces, the step its times sum over)
+# The mma forward and dk/dv are the Hopper kernels; the mma.sync kernels
+# they replaced (EARLIER) are timed beside them in phases 2 and 5, and
+# their times stand in those entries as "mma_sync_ms".
+EARLIER = {
+    "flash_attention_mma": ("flash_attention_mma_sync",
+                            "itsd_tpu_torch/csrc/flash_attention_mma.cu"),
+    "flash_bwd_dkv_mma": ("flash_bwd_dkv_mma_sync",
+                          "itsd_tpu_torch/csrc/flash_attention_bwd_mma.cu")}
 KERNELS = {
     "groupnorm_swish": ("itsd_tpu_torch/csrc/groupnorm.cu",
                         "itsd_tpu/kernels/groupnorm.py:47", "train"),
@@ -5134,7 +5229,7 @@ KERNELS = {
     "groupnorm_apply": ("itsd_tpu_torch/csrc/groupnorm.cu",
                         "itsd_tpu/kernels/groupnorm.py:47",
                         "flagship_rows_k2"),
-    "flash_attention_mma": ("itsd_tpu_torch/csrc/flash_attention_mma.cu",
+    "flash_attention_mma": ("itsd_tpu_torch/csrc/flash_attention_hopper.cu",
                             "itsd_tpu/kernels/attention.py:50", "train"),
     "flash_attention_wide": ("itsd_tpu_torch/csrc/flash_attention_wide.cu",
                              "itsd_tpu/kernels/attention.py:50",
@@ -5148,8 +5243,9 @@ KERNELS = {
                           "itsd_tpu/kernels/attention.py:229", "cond_train"),
     "flash_bwd_dq_simt": ("itsd_tpu_torch/csrc/flash_attention_bwd.cu",
                           "itsd_tpu/kernels/attention.py:229", "cond_train"),
-    "flash_bwd_dkv_mma": ("itsd_tpu_torch/csrc/flash_attention_bwd_mma.cu",
-                          "itsd_tpu/kernels/attention.py:260", "train"),
+    "flash_bwd_dkv_mma": (
+        "itsd_tpu_torch/csrc/flash_attention_bwd_dkv_hopper.cu",
+        "itsd_tpu/kernels/attention.py:260", "train"),
     "flash_bwd_dkv_wide": ("itsd_tpu_torch/csrc/flash_attention_bwd_wide.cu",
                            "itsd_tpu/kernels/attention.py:260",
                            "cond_train"),
@@ -5198,6 +5294,15 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
                 key = ("flagship_batch1" if tag == "flagship"
                        else f"{tag}_step")
                 entry[key] = rows_entry(rows)
+        if name in EARLIER:
+            earlier, earlier_source = EARLIER[name]
+            sync = fwd[earlier] if earlier in fwd else bwd[earlier]
+            entry["mma_sync_source"] = earlier_source
+            entry["mma_sync_ms"] = rows_entry(sync[work][1])["ms"]
+            for tag, (_, rows) in sync.items():
+                if tag != work and rows:
+                    entry[f"{tag}_step"]["mma_sync_ms"] = rows_entry(
+                        rows)["ms"]
         if name not in fwd:
             entry["library"] = ("one SDPA backward, which computes dq, dk "
                                 "and dv together")
@@ -5310,7 +5415,9 @@ def main() -> int:
         f32 = [eval_parity(params, tmpdir)]
         bwd = check_backward_kernels({
             "train": (train_shapes, [(8, 256, 128)]),
-            "cond_train": (cond_shapes, []),
+            # also Picard's CFG fold, where only the forward runs on a
+            # path: dk/dv held and timed there beside mma.sync
+            "cond_train": (cond_shapes, [(800, 1024, 128)]),
             "grad_search": (([], eval_shapes[1]), []),
             "cfg_grad_search": (([], cfg_shapes[1]), []),
             "flagship": (FLAGSHIP_ATTENTION, []),

@@ -1,12 +1,14 @@
-// Single-head flash attention backward, dk and dv, on the tensor cores, for
-// bf16 over [B, N, C].
+// Single-head flash attention backward, dk and dv, on the tensor cores with
+// Ampere's mma.sync, for bf16 over [B, N, C].
 //
-// Replaces the TPU kernel itsd_tpu/kernels/attention.py:_flash_bwd_dkv_kernel
-// (launched by _attention_flash_bwd) for bf16 inputs with C % 16 == 0 and
-// C <= 256; wider bf16 rows take csrc/flash_attention_bwd_wide.cu, f32
-// inputs and other widths the CUDA-core kernel of
-// csrc/flash_attention_bwd.cu, so that f32 never runs on the tensor cores.
-// Same arithmetic as the Pallas kernel: s = (q.k^T summed in f32) * scale,
+// The "mma" route's dk/dv until csrc/flash_attention_bwd_dkv_hopper.cu
+// (wgmma, TMA) took its place; kept under the entry name
+// itsd_flash_bwd_dkv_mma_sync as the same-call yardstick of that kernel. No
+// path routes here: only the forced calls of
+// kernels/attention.py:_flash_bwd_dkv_mma_sync reach it (the CUDA tests and
+// chip_smoke.py). It replaced the TPU kernel
+// itsd_tpu/kernels/attention.py:_flash_bwd_dkv_kernel for bf16 inputs with
+// C % 16 == 0 and C <= 256. Same arithmetic as the Pallas kernel: s = (q.k^T summed in f32) * scale,
 // p = exp(s - lse) from the forward's per-row log-sum-exp, dp = dO.v^T in
 // f32, ds = p * (dp - dd) with dd = rowsum(dO * O) - dlse taken by the
 // caller, then dv = p^T.dO and dk = scale * ds^T.q, with p and ds rounded
@@ -289,11 +291,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // bf16; lse, dd: [B, N] f32. Needs C % 16 == 0, C <= 256 and 16-byte
 // aligned q, k, v, dout, dk, dv. Any N >= 1.
 // Returns the first CUDA error of the launch, or 0.
-extern "C" int itsd_flash_bwd_dkv_mma(const void* q, const void* k,
-                                      const void* v, const void* dout,
-                                      const void* lse, const void* dd,
-                                      void* dk, void* dv, int B, int N, int C,
-                                      float scale, int dtype, void* stream) {
+extern "C" int itsd_flash_bwd_dkv_mma_sync(const void* q, const void* k,
+                                           const void* v, const void* dout,
+                                           const void* lse, const void* dd,
+                                           void* dk, void* dv, int B, int N,
+                                           int C, float scale, int dtype,
+                                           void* stream) {
   if (dtype != ITSD_BF16 || B <= 0 || B > 65535 || N <= 0 || C <= 0 ||
       C > kMaxC || C % 16 != 0)
     return (int)cudaErrorInvalidValue;

@@ -1,13 +1,14 @@
-// Single-head flash attention forward on the tensor cores, for bf16:
-// o = softmax(q k^T * scale) v over [B, N, C], with an optional f32
-// per-row log-sum-exp [B, N].
+// Single-head flash attention forward on the tensor cores with Ampere's
+// mma.sync, for bf16: o = softmax(q k^T * scale) v over [B, N, C], with an
+// optional f32 per-row log-sum-exp [B, N].
 //
-// Replaces the TPU kernel itsd_tpu/kernels/attention.py:_flash_fwd_kernel
-// (launched by _flash_forward for _attention_flash and
-// _attention_flash_stats) for bf16 inputs with C % 16 == 0 and C <= 256;
-// wider bf16 rows take csrc/flash_attention_wide.cu, f32 inputs and other
-// widths csrc/flash_attention.cu (the CUDA-core kernel), so that f32 never
-// runs on the tensor cores. Same arithmetic as the Pallas kernel:
+// The "mma" route's forward until csrc/flash_attention_hopper.cu (wgmma,
+// TMA) took its place; kept under the entry name itsd_flash_attention_mma_sync
+// as the same-call yardstick of that kernel. No path routes here: only the
+// forced calls of kernels/attention.py:_flash_mma_sync reach it (the CUDA
+// tests and chip_smoke.py). It replaced the TPU kernel
+// itsd_tpu/kernels/attention.py:_flash_fwd_kernel for bf16 inputs with
+// C % 16 == 0 and C <= 256, with the same arithmetic as the Pallas kernel:
 // s = (q.k^T summed in f32) * scale, an online softmax
 // with f32 running max m, denominator l and accumulator, p = exp(s - m)
 // rounded to bf16 for the p.v product only (l sums the unrounded p),
@@ -275,10 +276,11 @@ cudaError_t dispatch_lse(const void* q, const void* k, const void* v,
 // [B, N] f32, or null for the plain forward. Needs C % 16 == 0, C <= 256,
 // and 16-byte aligned q, k, v, o. Any N >= 1.
 // Returns the first CUDA error of the launch, or 0.
-extern "C" int itsd_flash_attention_mma(const void* q, const void* k,
-                                        const void* v, void* o, void* lse,
-                                        int B, int N, int C, float scale,
-                                        int dtype, void* stream) {
+extern "C" int itsd_flash_attention_mma_sync(const void* q, const void* k,
+                                             const void* v, void* o,
+                                             void* lse, int B, int N, int C,
+                                             float scale, int dtype,
+                                             void* stream) {
   if (dtype != ITSD_BF16 || B <= 0 || B > 65535 || N <= 0 || C <= 0 ||
       C > kMaxC || C % 16 != 0)
     return (int)cudaErrorInvalidValue;

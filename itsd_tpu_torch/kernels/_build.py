@@ -53,6 +53,8 @@ SIGNATURES = {
     "itsd_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "itsd_flash_attention_mma": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                                  _P),
+    "itsd_flash_attention_mma_sync": (_P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                      _I, _P),
     "itsd_flash_attention_wide": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                                   _P),
     # q, k, v, dout, lse, dd, dq, B, N, C, scale, dtype, stream
@@ -67,6 +69,8 @@ SIGNATURES = {
                            _I, _P),
     "itsd_flash_bwd_dkv_mma": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _F, _I, _P),
+    "itsd_flash_bwd_dkv_mma_sync": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _F, _I, _P),
     "itsd_flash_bwd_dkv_wide": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _F, _I, _P),
 }
@@ -137,6 +141,47 @@ def parse_ptxas(stderr: str) -> tuple:
             rows.append((fn, int(m.group(1)), *spill))
             fn = None
     return tuple(rows)
+
+
+_SASS_FN = re.compile(r"^\s*Function : (\S+)")
+
+
+def sass_counts(path: Path, opcodes=("HGMMA", "UTMALDG"),
+                functions=None) -> dict:
+    """{kernel: {opcode: count}} of the built library's SASS, from
+    ``cuobjdump -sass``: how many instructions of each opcode (a prefix of
+    the mnemonic, as ``HGMMA`` for every ``HGMMA.64x...``) each kernel
+    holds; only the kernels named in ``functions`` (mangled names), when
+    given. Raises when cuobjdump fails."""
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    only = ["-fun", ",".join(functions)] if functions else []
+    proc = subprocess.run([str(cuobjdump), "-sass", *only, str(path)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed (exit {proc.returncode}): "
+                           f"{proc.stderr[-2000:]}")
+    return parse_sass(proc.stdout, opcodes)
+
+
+def parse_sass(text: str, opcodes) -> dict:
+    """The counts of ``sass_counts`` from cuobjdump's text."""
+    counts, fn = {}, None
+    ops = tuple(opcodes)
+    for line in text.splitlines():
+        if m := _SASS_FN.match(line):
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None and "/*" in line:
+            # "        /*0a40*/                   HGMMA.64x64x16.F32.BF16 ..."
+            body = line.split("*/", 1)[-1].split(";", 1)[0].split()
+            for word in body:
+                if word.startswith("@"):
+                    continue  # a predicate guard
+                for op in ops:
+                    if word == op or word.startswith(op + "."):
+                        counts[fn][op] += 1
+                break
+    return counts
 
 
 def _bind(path: Path) -> ctypes.CDLL:

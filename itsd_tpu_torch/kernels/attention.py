@@ -11,9 +11,11 @@ and the backward ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``.
 
 Each of the three functions has three kernels, and ``route`` picks one
 from the function, the dtype and C:
-* "mma": bf16 with C % 16 == 0 and C <= 256, on the tensor cores
-  (``csrc/flash_attention_mma.cu``, ``csrc/flash_attention_bwd_dq_mma.cu``,
-  ``csrc/flash_attention_bwd_mma.cu``);
+* "mma": bf16 with C % 16 == 0 and C <= 256, on the tensor cores: the
+  forward and dk/dv with Hopper's wgmma, TMA and mbarriers
+  (``csrc/flash_attention_hopper.cu``,
+  ``csrc/flash_attention_bwd_dkv_hopper.cu``), dq with mma.sync
+  (``csrc/flash_attention_bwd_dq_mma.cu``);
 * "wide": bf16 with C % 16 == 0 and 256 < C <= 1024, on the tensor cores
   with the head dimension split across warps
   (``csrc/flash_attention_wide.cu``, ``csrc/flash_attention_bwd_dq_wide.cu``,
@@ -23,6 +25,13 @@ from the function, the dtype and C:
   above all, on the CUDA cores in f32 (``csrc/flash_attention.cu``,
   ``csrc/flash_attention_bwd.cu``), so that f32 never runs at the tensor
   cores' reduced precision.
+
+The mma.sync forward and dk/dv that the Hopper kernels replaced
+(``csrc/flash_attention_mma.cu``, ``csrc/flash_attention_bwd_mma.cu``)
+stay in the library as their same-call yardstick: only the forced calls
+``_flash_mma_sync`` and ``_flash_bwd_dkv_mma_sync`` reach them (tests and
+``chip_smoke.py``), as ``_flash_simt`` and the other ``_simt`` calls force
+the CUDA-core kernels; no path routes there.
 
 Every entry point dispatches on where its inputs lie: CPU tensors go to the
 plain versions, CUDA tensors to the kernels, and anything the kernels do not
@@ -60,17 +69,19 @@ from . import _build
 
 # Kernel launches so far: the forward (both entry points, every route), the
 # dq kernel and the dk/dv kernel (every route), and of those the ones on
-# the "mma" and "wide" routes. A run resets them to check what went
-# through the kernels.
+# the "mma" and "wide" routes, and the forced calls of the mma.sync forward
+# and dk/dv. A run resets them to check what went through the kernels.
 launches = 0
 mma_launches = 0
 wide_launches = 0
+mma_sync_launches = 0
 dq_launches = 0
 dq_mma_launches = 0
 dq_wide_launches = 0
 dkv_launches = 0
 dkv_mma_launches = 0
 dkv_wide_launches = 0
+dkv_mma_sync_launches = 0
 
 MAX_C = 1024  # kMaxC of csrc/flash_attention.cu and flash_attention_bwd.cu
 MMA_MAX_C = 256  # kMaxC of the csrc/flash_attention*_mma.cu kernels
@@ -157,13 +168,14 @@ def _check(q, k, v, *more):
 
 def _entry(kernels, base, which):
     """The C entry point of a route's kernel: ``base`` for "simt",
-    ``base_mma`` or ``base_wide`` for the tensor-core ones."""
+    ``base_mma`` or ``base_wide`` for the tensor-core ones (and
+    ``base_mma_sync`` for the mma.sync kernels' forced calls)."""
     name = base if which == "simt" else f"{base}_{which}"
     return getattr(kernels.lib, name), name
 
 
 def _launch_forward(q, k, v, scale, emit_lse, which):
-    global launches, mma_launches, wide_launches
+    global launches, mma_launches, wide_launches, mma_sync_launches
     _check(q, k, v)
     B, N, C = q.shape
     o = torch.empty_like(q)
@@ -179,6 +191,7 @@ def _launch_forward(q, k, v, scale, emit_lse, which):
     launches += 1
     mma_launches += which == "mma"
     wide_launches += which == "wide"
+    mma_sync_launches += which == "mma_sync"
     return (o, lse) if emit_lse else o
 
 
@@ -193,6 +206,23 @@ def _flash_simt(q, k, v, scale, emit_lse):
     it can be held and timed on the same bf16 inputs as the tensor-core
     kernels. No path of the program calls it."""
     return _launch_forward(q, k, v, scale, emit_lse, "simt")
+
+
+def _require_cuda(q, what):
+    """Raise unless ``q`` lies on a CUDA device: a forced call has no plain
+    version to fall back to."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: launches a CUDA kernel; it takes CUDA "
+                         f"tensors only, got {q.device}")
+
+
+def _flash_mma_sync(q, k, v, scale, emit_lse):
+    """The forward through the mma.sync kernel that the Hopper kernel
+    replaced on the "mma" route (bf16, C % 16 == 0, C <= 256), so that the
+    two can be held and timed on the same inputs. No path of the program
+    calls it."""
+    _require_cuda(q, "_flash_mma_sync")
+    return _launch_forward(q, k, v, scale, emit_lse, "mma_sync")
 
 
 def row_dd(o, do, dlse=None):
@@ -305,6 +335,7 @@ def _flash_bwd_dq_simt(q, k, v, do, lse, dd, scale):
 
 def _launch_dkv(q, k, v, do, lse, dd, scale, which):
     global dkv_launches, dkv_mma_launches, dkv_wide_launches
+    global dkv_mma_sync_launches
     _check(q, k, v, do)
     _check_rows(lse, q, "lse")
     _check_rows(dd, q, "dd")
@@ -320,6 +351,7 @@ def _launch_dkv(q, k, v, do, lse, dd, scale, which):
     dkv_launches += 1
     dkv_mma_launches += which == "mma"
     dkv_wide_launches += which == "wide"
+    dkv_mma_sync_launches += which == "mma_sync"
     return dk, dv
 
 
@@ -335,6 +367,14 @@ def _flash_bwd_dkv_simt(q, k, v, do, lse, dd, scale):
     it can be held and timed on the same bf16 inputs as the tensor-core
     kernels. No path of the program calls it."""
     return _launch_dkv(q, k, v, do, lse, dd, scale, "simt")
+
+
+def _flash_bwd_dkv_mma_sync(q, k, v, do, lse, dd, scale):
+    """(dk, dv) through the mma.sync kernel that the Hopper kernel replaced
+    on the "mma" route, so that the two can be held and timed on the same
+    inputs. No path of the program calls it."""
+    _require_cuda(q, "_flash_bwd_dkv_mma_sync")
+    return _launch_dkv(q, k, v, do, lse, dd, scale, "mma_sync")
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

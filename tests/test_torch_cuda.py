@@ -22,7 +22,13 @@ the private ``_flash_simt``, ``_flash_bwd_dq_simt`` and
 ``_flash_bwd_dkv_simt``. Run one route's tests with ``-k mma``, ``-k wide``
 or ``-k simt``, the dq tests of one route with ``-k "dq and mma"``,
 ``-k "wide and cfg"`` or ``-k "routes and simt"``, the tests at the CFG
-UNet's widths and maps with ``-k cfg``, those at Picard's folded batches
+UNet's widths and maps with ``-k cfg``, the Hopper forward and dk/dv
+(the mma route's since they replaced the mma.sync kernels, which forced
+calls still reach: ``_flash_mma_sync``, ``_flash_bwd_dkv_mma_sync``)
+against their plain versions and the mma.sync kernels with ``-k hopper``
+(``-k "hopper and forward"``, ``-k "hopper and dkv"``), the mma.sync
+entries' refusals with ``-k "mma_sync and refuse"``, those at
+Picard's folded batches
 (400 and 800 rows) with ``-k picard``, a batch at CUDA's gridDim.y
 cap and past it with ``-k grid_cap``, and gradient search's backward
 batches (8 and the dual 16), its gradient through DPM-Solver++ and
@@ -609,6 +615,132 @@ def test_mma_entries_refuse_what_they_do_not_take(cuda_device):
         assert lib.itsd_flash_bwd_dq_mma(p, p, p, p, lse.data_ptr(),
                                          lse.data_ptr(), p, 1, 8, C, 0.5,
                                          code, stream) != 0
+
+
+@pytest.mark.cuda
+def test_mma_sync_entries_refuse_what_they_do_not_take(cuda_device):
+    """The mma.sync forward and dk/dv, which the Hopper kernels replaced on
+    the mma route and which only forced calls reach, refuse what they
+    refused as the route's kernels: anything but bf16 with C % 16 == 0 and
+    C <= 256. The forced wrappers raise the kernel's refusal."""
+    from itsd_tpu_torch.kernels import _build
+
+    lib = _build.load().lib
+    for dtype, C in ((torch.float32, 64), (torch.bfloat16, 24),
+                     (torch.bfloat16, 272)):
+        q = torch.zeros((1, 8, C), dtype=dtype, device=cuda_device)
+        lse = torch.zeros((1, 8), device=cuda_device)
+        code = _build.DTYPE_CODES[dtype]
+        stream = _build.stream_ptr(q)
+        p = q.data_ptr()
+        assert lib.itsd_flash_attention_mma_sync(p, p, p, p, None, 1, 8, C,
+                                                 0.5, code, stream) != 0
+        assert lib.itsd_flash_bwd_dkv_mma_sync(
+            p, p, p, p, lse.data_ptr(), lse.data_ptr(), p, p, 1, 8, C, 0.5,
+            code, stream) != 0
+    # C=24 passes the wrapper's checks (C % 4 == 0); the kernel refuses it
+    q = torch.zeros((1, 8, 24), dtype=torch.bfloat16, device=cuda_device)
+    lse = torch.zeros((1, 8), device=cuda_device)
+    with pytest.raises(RuntimeError, match="flash_attention_mma_sync: CUDA"):
+        attention._flash_mma_sync(q, q, q, 0.5, emit_lse=False)
+    with pytest.raises(RuntimeError, match="flash_bwd_dkv_mma_sync: CUDA"):
+        attention._flash_bwd_dkv_mma_sync(q, q, q, q, lse, lse, 0.5)
+
+
+# The mma route's forward and dk/dv run the Hopper kernels
+# (csrc/flash_attention_hopper.cu, csrc/flash_attention_bwd_dkv_hopper.cu:
+# wgmma, TMA, mbarriers), which pad C to the next multiple of 64 through
+# the tensor maps' zero fill. Shapes: the kernel table's (PERF.md: the CFG
+# UNet's train step and its Picard fold, the unconditional train and eval
+# steps, the ViT's heads; for dk/dv the train steps and gradient search's
+# batches), every padded width at N = 1, 16, 17, 255 and 1024 (ragged
+# tiles of queries and keys), the ring's hop [24, 128, 64] and a batch at
+# gridDim.y's cap.
+HOPPER_WIDTHS = [(2, N, C) for C in (16, 48, 64, 96, 128, 144, 240, 256)
+                 for N in (1, 16, 17, 255, 1024)]
+HOPPER_FWD_SHAPES = ([(256, 1024, 128), (800, 1024, 128), (128, 256, 256),
+                      (8, 256, 256), (192, 256, 64)]
+                     + HOPPER_WIDTHS + [(24, 128, 64), (65535, 4, 128)])
+HOPPER_DKV_SHAPES = ([(256, 1024, 128), (16, 1024, 128), (128, 256, 256),
+                      (8, 256, 256), (192, 256, 64)]
+                     + HOPPER_WIDTHS + [(24, 128, 64), (65535, 4, 128)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,C", HOPPER_FWD_SHAPES)
+def test_hopper_forward_matches_plain_and_mma_sync(cuda_device, B, N, C):
+    """The mma route's forward (the Hopper kernel), with and without lse,
+    against its plain version at the bf16 tolerance above (lse 2e-5), and
+    against the mma.sync kernel it replaced (forced), each of the two within
+    the bf16 tolerance of the plain version, so within twice its atol of
+    each other. Two launches agree bit for bit; the variant without lse
+    writes the same o."""
+    assert attention.route(torch.bfloat16, C, "forward") == "mma"
+    gen = torch.Generator(device=cuda_device).manual_seed(B + N * 7 + C)
+    q, k, v = (torch.randn((B, N, C), generator=gen, device=cuda_device)
+               .to(torch.bfloat16) for _ in range(3))
+    scale = C ** -0.5
+    counts, sync0 = _counts(), attention.mma_sync_launches
+    o, lse = attention.attention_with_lse(q, k, v, scale)
+    o2 = attention.spatial_attention(q, k, v)
+    o3, lse3 = attention.attention_with_lse(q, k, v, scale)
+    o_sync, lse_sync = attention._flash_mma_sync(q, k, v, scale,
+                                                 emit_lse=True)
+    want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert _launched(counts)[:3] == (4, 3, 0)
+    assert attention.mma_sync_launches - sync0 == 1
+    assert o.dtype == torch.bfloat16 and o.shape == (B, N, C)
+    assert torch.equal(o, o2) and torch.equal(o, o3)
+    assert torch.equal(lse, lse3)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse_sync, want_lse, atol=2e-5, rtol=0)
+    _close_bf16(o, want_o, v)
+    _close_bf16(o_sync, want_o, v)
+    torch.testing.assert_close(
+        o.float(), o_sync.float(), rtol=BF16_RTOL,
+        atol=2 * BF16_RTOL * v.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,C", HOPPER_DKV_SHAPES)
+def test_hopper_dkv_matches_plain_and_mma_sync(cuda_device, B, N, C):
+    """The mma route's dk/dv (the Hopper kernel), without and with dlse,
+    against its plain version at the bf16 tolerance plus, for dk, the f32
+    summation-order bound (``_dk_order_bound``), and against the mma.sync
+    kernel it replaced (forced), which is held to the same limit. Two
+    launches agree bit for bit."""
+    assert attention.route(torch.bfloat16, C, "dkv") == "mma"
+    gen = torch.Generator(device=cuda_device).manual_seed(B + N * 5 + C)
+    q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = C ** -0.5
+    o, lse = attention.attention_with_lse(q, k, v, scale)
+    bound = _dk_order_bound(q, k, v, do, lse, scale)
+    for dlse in (None, torch.randn((B, N), generator=gen,
+                                   device=cuda_device)):
+        dd = attention.row_dd(o, do, dlse).contiguous()
+        args = (q, k, v, do, lse, dd, scale)
+        counts, sync0 = _counts(), attention.dkv_mma_sync_launches
+        got = attention.flash_bwd_dkv(*args)
+        again = attention.flash_bwd_dkv(*args)
+        sync = attention._flash_bwd_dkv_mma_sync(*args)
+        want = attention.flash_bwd_dkv_plain(*args)
+        torch.cuda.synchronize()
+        assert _launched(counts)[6:] == (3, 2, 0)
+        assert attention.dkv_mma_sync_launches - sync0 == 1
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+        for kernel, grads in (("hopper", got), ("mma.sync", sync)):
+            for name, g, w, b in zip(("dk", "dv"), grads, want,
+                                     (bound, 0.0)):
+                assert g.dtype == torch.bfloat16 and g.shape == (B, N, C)
+                err = (g.float() - w.float()).abs()
+                limit = (BF16_RTOL * w.float().abs().max()
+                         + BF16_RTOL * w.float().abs() + b)
+                assert (err <= limit).all(), (
+                    f"{kernel} {name} dlse={dlse is not None}: max err "
+                    f"{err.max().item():.3g}, worst excess "
+                    f"{(err - limit).max().item():.3g}")
 
 
 @pytest.mark.cuda

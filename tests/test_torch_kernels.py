@@ -308,7 +308,8 @@ def test_a_batch_past_the_grid_cap_raises_before_any_launch(monkeypatch):
 
 COUNTERS = ("launches", "mma_launches", "wide_launches", "dq_launches",
             "dq_mma_launches", "dq_wide_launches", "dkv_launches",
-            "dkv_mma_launches", "dkv_wide_launches")
+            "dkv_mma_launches", "dkv_wide_launches", "mma_sync_launches",
+            "dkv_mma_sync_launches")
 
 
 def _plain_path_launches_nothing(dtype, C, N=16):
@@ -358,6 +359,8 @@ def test_cpu_tensors_at_the_wide_widths_launch_no_kernel(dtype, C):
     ("flash_attention_mma.cu", "MMA_MAX_C", None),
     ("flash_attention_bwd_dq_mma.cu", "MMA_MAX_C", None),
     ("flash_attention_bwd_mma.cu", "MMA_MAX_C", None),
+    ("flash_attention_hopper.cu", "MMA_MAX_C", None),
+    ("flash_attention_bwd_dkv_hopper.cu", "MMA_MAX_C", None),
     ("flash_attention_wide.cu", "WIDE_MAX_C", "MMA_MAX_C"),
     ("flash_attention_bwd_dq_wide.cu", "WIDE_MAX_C", "MMA_MAX_C"),
     ("flash_attention_bwd_wide.cu", "WIDE_MAX_C", "MMA_MAX_C")])
@@ -404,7 +407,8 @@ def test_build_commands_are_one_nvcc_per_source_for_sm90a(tmp_path):
             "flash_attention_mma.cu", "flash_attention_bwd_mma.cu",
             "flash_attention_bwd_dq_mma.cu", "flash_attention_wide.cu",
             "flash_attention_bwd_dq_wide.cu",
-            "flash_attention_bwd_wide.cu"} <= {p.name for p in srcs}
+            "flash_attention_bwd_wide.cu", "flash_attention_hopper.cu",
+            "flash_attention_bwd_dkv_hopper.cu"} <= {p.name for p in srcs}
     assert len(cmds) == len(srcs)
     for cmd, src in zip(cmds, srcs):
         assert cmd[0] == "nvcc" and cmd[-1] == str(src)
@@ -438,6 +442,44 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+@pytest.mark.parametrize("wrapper", ["_flash_mma_sync",
+                                     "_flash_bwd_dkv_mma_sync"])
+def test_mma_sync_forced_calls_take_no_cpu_tensor(wrapper):
+    """The forced calls of the mma.sync kernels (which the Hopper kernels
+    replaced on the mma route) have no plain version to fall back to: a CPU
+    tensor raises before any build or launch, and no count moves."""
+    q = torch.zeros((1, 8, 64), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 8))
+    args = ((q, q, q, 0.125, False) if wrapper == "_flash_mma_sync"
+            else (q, q, q, q, lse, lse, 0.125))
+    before = [getattr(attention, n) for n in COUNTERS]
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        getattr(attention, wrapper)(*args)
+    assert [getattr(attention, n) for n in COUNTERS] == before
+
+
+def test_parse_sass_counts_opcodes_per_kernel():
+    """``cuobjdump -sass`` text to {kernel: {opcode: count}}: a mnemonic
+    counts under each opcode it starts with, after a predicate guard, and
+    a kernel without any counts 0."""
+    text = (
+        "\tcode for sm_90a\n"
+        "\t\tFunction : _Z3fooPf\n"
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;  "
+        "/* 0x000fe20000000f00 */\n"
+        "        /*0010*/                   UTMALDG.3D [UR8], [UR4] ;  "
+        "/* 0x0 */\n"
+        "        /*0020*/              @P0  HGMMA.64x64x16.F32.BF16 R24, "
+        "gdesc[UR4], RZ, !UPT ;  /* 0x0 */\n"
+        "        /*0030*/                   HGMMA.64x64x16.F32.BF16 R24, "
+        "gdesc[UR8], R24, gsb0 ;  /* 0x0 */\n"
+        "\t\tFunction : _Z3barPf\n"
+        "        /*0000*/                   EXIT ;  /* 0x0 */\n")
+    assert _build.parse_sass(text, ("HGMMA", "UTMALDG")) == {
+        "_Z3fooPf": {"HGMMA": 2, "UTMALDG": 1},
+        "_Z3barPf": {"HGMMA": 0, "UTMALDG": 0}}
 
 
 def test_parse_ptxas_report():
