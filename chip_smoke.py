@@ -21,8 +21,8 @@ Phases, each ending with one line that carries its elapsed seconds:
    nvcc per source, all started together, and a link (its time and the
    ``-Xptxas -v`` registers and spills; a spill fails the run); the
    ``HGMMA`` and ``UTMALDG`` instructions of each Hopper kernel (the mma
-   route's forward and dk/dv) in ``cuobjdump -sass`` of the library, none
-   of either failing the run;
+   route's forward, dq and dk/dv) in ``cuobjdump -sass`` of the library,
+   none of either failing the run;
 2. forward kernels: GroupNorm+swish and flash attention against their
    plain PyTorch versions at every shape the eval path (batch 8) and the
    train path (batch 128) give them, and the CFG model's guided eval
@@ -59,8 +59,11 @@ Phases, each ending with one line that carries its elapsed seconds:
    deviations around a given mean) and the apply kernel against their
    plain versions at every GroupNorm call of the flagship's forward at
    batch 2 and the CIFAR UNet's at batch 8, each call's rows cut over 2 and
-   4 seq ranks, in bf16 and f32, two launches equal bit for bit, timed
-   beside the plain versions, ``torch.sum`` over the span and the bound;
+   4 seq ranks, in bf16 and f32, two launches equal bit for bit, with the
+   earlier stats kernel it replaced (a forced call) held to the same
+   limits, timed beside the plain versions, ``torch.sum`` over the span
+   (beside the sum's launches), the bound, the earlier stats kernel in
+   turns with it, and an empty kernel on its grid (a launch's own cost);
    and each call cut into 2 and 4 row slices, whose stats, summed, must
    equal the stats kernel's on the whole and whose outputs, normalized with
    the global statistics, the fused kernel's;
@@ -75,8 +78,9 @@ Phases, each ending with one line that carries its elapsed seconds:
    one fed noise sequence;
 5. backward: the dq and dk/dv kernels (each on its bf16 route and on
    simt, as in phase 2; both on the wide route at C=512 and C=1024 and at
-   the flagship's C=384; where bf16 takes mma, the mma.sync dk/dv that the
-   Hopper kernel replaced too, timed in turns with it) against their
+   the flagship's C=384; where bf16 takes mma, the mma.sync dq and dk/dv
+   that the Hopper kernels replaced too, each timed in turns with its
+   Hopper kernel) against their
    plain versions at both train
    paths' shapes, gradient search's (the unconditional eval batch 8 and
    the CFG dual batch 16), one more C and the flagship's [1, 4096, 384],
@@ -308,8 +312,10 @@ import torch.nn.functional as F
 # Published peaks of one H100 SXM (NVIDIA data sheet; dense rates at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 # Kernels built from csrc/flash_attention_hopper.cu (4 padded widths, with
-# and without lse) and csrc/flash_attention_bwd_dkv_hopper.cu (4 widths).
-HOPPER_INSTANTIATIONS = 12
+# and without lse), csrc/flash_attention_bwd_dq_hopper.cu (4 widths, each
+# also packing several samples a tile for N <= 64 past 132 samples) and
+# csrc/flash_attention_bwd_dkv_hopper.cu (4 widths).
+HOPPER_INSTANTIATIONS = 20
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
 
@@ -972,21 +978,28 @@ def check_groupnorm_rows(gn_calls, batch, K, dev, timer, n):
     """Phase 2: the stats and apply kernels of GroupNorm over row shards at
     every GroupNorm call of ``gn_calls`` (one forward) at ``batch``, its
     rows cut over ``K`` seq ranks, in bf16 and f32 against their plain
-    versions; times at bf16 (the stats kernel twice a call: the sum, then
-    the squared deviations; the library call ``torch.sum`` over the span,
-    for the sum's launches). Returns {kernel: (max absolute error,
-    rows)}."""
+    versions, and the earlier stats kernel (the new one's yardstick, a
+    forced call) beside them; times at bf16 (the stats kernel twice a call:
+    the sum, then the squared deviations, each in turns with the earlier
+    kernel; an empty kernel on the new plan's grid, the launch's own cost;
+    the library call ``torch.sum`` over the span, for the sum's launches).
+    Returns {kernel: (max absolute error, rows)}, with rows of the sum's
+    launches alone (``groupnorm_partial_stats_sum``), of the earlier
+    kernel (``..._cluster``, ``..._cluster_sum``) and of the empty kernel
+    (``..._empty``) beside the kernels'."""
     from itsd_tpu_torch.kernels import groupnorm
     from itsd_tpu_torch.models.unet import _groups
 
     gen = torch.Generator(device=dev).manual_seed(K)
-    worst = {"stats": 0.0, "apply": 0.0}
-    rows = {"stats": [], "apply": []}
+    worst = {"stats": 0.0, "stats_cluster": 0.0, "apply": 0.0}
+    rows = {k: [] for k in ("stats", "stats_sum", "stats_cluster",
+                            "stats_cluster_sum", "stats_empty", "apply")}
     caught = [1.0, 1.0]
     log(f"groupnorm over row shards, batch {batch}, K={K}: shape [B,C,h,W] "
-        f"act x calls | stats err (relative) bf16 f32, apply err bf16 f32 | "
-        f"stats sum / squares / plain / library / bound ms, apply / plain "
-        f"/ bound ms (bf16)")
+        f"act x calls | stats err (relative) bf16 f32, earlier stats "
+        f"kernel's, apply err bf16 f32 | stats sum / squares / plain / "
+        f"library / bound / empty kernel ms, earlier kernel sum / squares "
+        f"ms, apply / plain / bound ms (bf16)")
     calls = collections.Counter(((batch, C, H // K, W), act)
                                 for (_, C, H, W), act in gn_calls)
     for (shape, act), count in calls.items():
@@ -1016,6 +1029,21 @@ def check_groupnorm_rows(gn_calls, batch, K, dev, timer, n):
                 f"{what} squares", s2,
                 groupnorm.groupnorm_partial_stats_plain(x, G, mean), x, G,
                 True)
+            n0 = read_launches()
+            c1 = groupnorm._groupnorm_partial_stats_cluster(x, G)
+            c2 = groupnorm._groupnorm_partial_stats_cluster(x, G, mean)
+            if (read_launches()["groupnorm_partial_stats_cluster"]
+                    - n0["groupnorm_partial_stats_cluster"] != 2):
+                fail(f"{what}: the earlier stats kernel not launched")
+            c_sum, ce_sum = check_stats(
+                f"{what} earlier stats", c1,
+                groupnorm.groupnorm_partial_stats_plain(x, G), x, G, False)
+            c_sq, ce_sq = check_stats(
+                f"{what} earlier squares", c2,
+                groupnorm.groupnorm_partial_stats_plain(x, G, mean), x, G,
+                True)
+            worst["stats_cluster"] = max(worst["stats_cluster"], c_sum,
+                                         c_sq)
             catch = dropped_element_catch(x, G, mean)
             if min(catch) < STATS_CATCH_MIN:
                 fail(f"{what}: the stats limits catch a dropped element at "
@@ -1027,7 +1055,7 @@ def check_groupnorm_rows(gn_calls, batch, K, dev, timer, n):
                 f"{what} apply", y,
                 groupnorm.groupnorm_apply_plain(x, mean, rstd, w, b, G, act),
                 *GN_TOL[dtype])
-            errs.append((max(e_sum, e_sq), e_ap))
+            errs.append((max(e_sum, e_sq), e_ap, max(ce_sum, ce_sq)))
             worst["stats"] = max(worst["stats"], a_sum, a_sq)
             worst["apply"] = max(worst["apply"], e_ap)
         x = _rand(shape, gen, dev, torch.bfloat16, 0.5, 2.0)
@@ -1036,10 +1064,14 @@ def check_groupnorm_rows(gn_calls, batch, K, dev, timer, n):
         rstd = torch.rsqrt(groupnorm.groupnorm_partial_stats(x, G, mean)
                            / span + 1e-5)
         view = x.view(shape[0], G, -1)
-        k_sum, _ = timer(lambda: groupnorm.groupnorm_partial_stats(x, G),
-                         n=n)
-        k_sq, _ = timer(
-            lambda: groupnorm.groupnorm_partial_stats(x, G, mean), n=n)
+        k_sum, c_sum, _, _ = timer.pair(
+            lambda: groupnorm.groupnorm_partial_stats(x, G),
+            lambda: groupnorm._groupnorm_partial_stats_cluster(x, G), n=n)
+        k_sq, c_sq, _, _ = timer.pair(
+            lambda: groupnorm.groupnorm_partial_stats(x, G, mean),
+            lambda: groupnorm._groupnorm_partial_stats_cluster(x, G, mean),
+            n=n)
+        empty, _ = timer(lambda: groupnorm._groupnorm_stats_floor(x, G), n=n)
         p_sum, _ = timer(
             lambda: groupnorm.groupnorm_partial_stats_plain(x, G), n=n)
         p_sq, _ = timer(
@@ -1054,16 +1086,32 @@ def check_groupnorm_rows(gn_calls, batch, K, dev, timer, n):
         sb, so = stats_bound_ms(shape, 2)
         ab, ao = gn_bound_ms(shape, 2, act)
         log(f"  {list(shape)} act={int(act)} x{count} | {errs[0][0]:.3g} "
-            f"{errs[1][0]:.3g}, {errs[0][1]:.3g} {errs[1][1]:.3g} | "
+            f"{errs[1][0]:.3g}, {errs[0][2]:.3g} {errs[1][2]:.3g}, "
+            f"{errs[0][1]:.3g} {errs[1][1]:.3g} | "
             f"{k_sum:.5f} / {k_sq:.5f} / {p_sum + p_sq:.5f} / {l_sum:.5f} / "
-            f"{max(sb, so):.5f}, {k_ap:.5f} / {p_ap:.5f} / {max(ab, ao):.5f}")
-        rows["stats"] += [(count, k_sum, p_sum, l_sum, sb, so),
-                          (count, k_sq, p_sq, 0.0, sb, 1.5 * so)]
+            f"{max(sb, so):.5f} / {empty:.5f}, {c_sum:.5f} / {c_sq:.5f}, "
+            f"{k_ap:.5f} / {p_ap:.5f} / {max(ab, ao):.5f}")
+        sum_row = (count, k_sum, p_sum, l_sum, sb, so)
+        sq_row = (count, k_sq, p_sq, 0.0, sb, 1.5 * so)
+        rows["stats"] += [sum_row, sq_row]
+        rows["stats_sum"].append(sum_row)
+        rows["stats_cluster"] += [(count, c_sum, *sum_row[2:]),
+                                  (count, c_sq, *sq_row[2:])]
+        rows["stats_cluster_sum"].append((count, c_sum, *sum_row[2:]))
+        rows["stats_empty"] += [(count, empty, *sum_row[2:]),
+                                (count, empty, *sq_row[2:])]
         rows["apply"].append((count, k_ap, p_ap, 0.0, ab, ao))
     log(f"  a dropped element beyond the stats limits at >= "
         f"{caught[0]:.3f} (sum) and {caught[1]:.3f} (squares) of each "
         f"checked span's places")
     return {"groupnorm_partial_stats": (worst["stats"], rows["stats"]),
+            "groupnorm_partial_stats_sum": (worst["stats"],
+                                            rows["stats_sum"]),
+            "groupnorm_partial_stats_cluster": (worst["stats_cluster"],
+                                                rows["stats_cluster"]),
+            "groupnorm_partial_stats_cluster_sum": (
+                worst["stats_cluster"], rows["stats_cluster_sum"]),
+            "groupnorm_partial_stats_empty": (0.0, rows["stats_empty"]),
             "groupnorm_apply": (worst["apply"], rows["apply"])}
 
 
@@ -1361,26 +1409,29 @@ def check_backward_kernels(paths, dev, timer):
     ((gn_calls, attn_calls), more shapes[, timing reps])), in bf16 and f32
     (with a random dO, and a nonzero dlse at a path's first shape), and,
     where bf16 routes either to a tensor-core kernel, the simt dq and dk/dv
-    kernels on the bf16 inputs too; times at bf16 of the route's kernels
-    and the simt
-    ones, on the same inputs, beside the plain versions, the backward of
-    SDPA and the bound (rows: the route's kernels, and the simt dq's and
-    dk/dv's forced calls where bf16 takes wide). Then the GroupNorm
-    backward at each path's shapes. Returns {kernel: {tag: (max error,
-    rows)}}."""
+    kernels on the bf16 inputs too, and where it routes to mma, the
+    mma.sync dq and dk/dv the Hopper kernels replaced (forced calls);
+    times at bf16 of the route's kernels and the simt
+    ones, on the same inputs, the Hopper dq and dk/dv each in turns with
+    its mma.sync kernel, beside the plain versions, the backward of
+    SDPA and the bound (rows: the route's kernels, the mma.sync kernels
+    where bf16 takes mma, and the simt dq's and dk/dv's forced calls where
+    it takes wide). Then the GroupNorm backward at each path's shapes.
+    Returns {kernel: {tag: (max error, rows)}}."""
     from itsd_tpu_torch.kernels import attention
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(5)
     kernels = ("flash_bwd_dq_mma", "flash_bwd_dq_wide", "flash_bwd_dq_simt",
                "flash_bwd_dkv_mma", "flash_bwd_dkv_wide",
-               "flash_bwd_dkv_simt", "flash_bwd_dkv_mma_sync")
+               "flash_bwd_dkv_simt", "flash_bwd_dq_mma_sync",
+               "flash_bwd_dkv_mma_sync")
     out = {k: {} for k in kernels}
     log("flash backward: [B,N,C] x calls/step routes | max_abs_err dq dk dv "
-        "bf16 (routes), dq dk dv bf16 simt, dq dk dv f32 (simt), dk dv bf16 "
-        "mma.sync | ms (bf16): dq route simt plain bound, dkv route simt "
-        "plain bound mma.sync | sdpa bwd ms | host us/call dq route simt, "
-        "dkv route simt")
+        "bf16 (routes), dq dk dv bf16 simt, dq dk dv f32 (simt), dq dk dv "
+        "bf16 mma.sync | ms (bf16): dq route simt plain bound mma.sync, dkv "
+        "route simt plain bound mma.sync | sdpa bwd ms | host us/call dq "
+        "route simt, dkv route simt")
     log(f"  tolerance: f32 {BWD_F32_TOL}; bf16 2^-7*max|plain| + "
         f"2^-7*|plain| + the f32 summation-order bound of dq and dk")
 
@@ -1450,21 +1501,24 @@ def check_backward_kernels(paths, dev, timer):
                     errs["simt"] = check_grads(f"{what} simt", got, want,
                                                dtype, bounds)
                     note(errs["simt"], ("simt", "simt"))
-                if routes[1] == "mma":
-                    # the mma.sync dk/dv the Hopper kernel replaced, forced
+                if routes == ("mma", "mma"):
+                    # the mma.sync dq and dk/dv the Hopper kernels
+                    # replaced, forced
                     n0 = read_launches()
-                    got = attention._flash_bwd_dkv_mma_sync(q, k, v, do, lse,
-                                                            dd, scale)
+                    got = (attention._flash_bwd_dq_mma_sync(q, k, v, do, lse,
+                                                            dd, scale),
+                           *attention._flash_bwd_dkv_mma_sync(q, k, v, do,
+                                                              lse, dd,
+                                                              scale))
                     n1 = read_launches()
                     torch.cuda.synchronize()
-                    if (n1["flash_bwd_dkv_mma_sync"]
-                            - n0["flash_bwd_dkv_mma_sync"] != 1):
-                        fail(f"{what}: the mma.sync dk/dv not launched")
+                    for fn in ("flash_bwd_dq_mma_sync",
+                               "flash_bwd_dkv_mma_sync"):
+                        if n1[fn] - n0[fn] != 1:
+                            fail(f"{what}: {fn} not launched")
                     errs["mma_sync"] = check_grads(
-                        f"{what} mma.sync", got, want[1:], dtype, bounds[1:],
-                        names=("dk", "dv"))
-                    worst["flash_bwd_dkv_mma_sync"] = max(
-                        worst["flash_bwd_dkv_mma_sync"], *errs["mma_sync"])
+                        f"{what} mma.sync", got, want, dtype, bounds)
+                    note(errs["mma_sync"], ("mma_sync", "mma_sync"))
             if bf16_routes == ("simt", "simt"):
                 errs["simt"] = errs[torch.bfloat16]
             q, k, v, do = (_rand((B, N, C), gen, dev, torch.bfloat16)
@@ -1472,9 +1526,16 @@ def check_backward_kernels(paths, dev, timer):
             o, lse = attention.attention_with_lse(q, k, v, scale)
             dd = attention.row_dd(o, do).contiguous()
             args = (q, k, v, do, lse, dd, scale)
-            dq_ms, dq_host = (timer(lambda: attention.flash_bwd_dq(*args),
-                                    n=n)
-                              if bf16_routes[0] != "simt" else nan)
+            dq_sync_ms = float("nan")
+            if bf16_routes[0] == "mma":
+                dq_ms, dq_sync_ms, dq_host, _ = timer.pair(
+                    lambda: attention.flash_bwd_dq(*args),
+                    lambda: attention._flash_bwd_dq_mma_sync(*args), n=n)
+            elif bf16_routes[0] != "simt":
+                dq_ms, dq_host = timer(lambda: attention.flash_bwd_dq(*args),
+                                       n=n)
+            else:
+                dq_ms, dq_host = nan
             dq_simt_ms, dq_simt_host = timer(
                 lambda: attention._flash_bwd_dq_simt(*args), n=n)
             sync_ms = float("nan")
@@ -1509,7 +1570,8 @@ def check_backward_kernels(paths, dev, timer):
                 f"{' '.join(f'{x:.3g}' for x in errs[torch.float32])}, "
                 f"{' '.join(f'{x:.3g}' for x in errs.get('mma_sync', ()))}"
                 f" | dq {dq_ms:.5f} {dq_simt_ms:.5f} {dq_plain:.5f} "
-                f"{max(b_dq):.5f}, dkv {dkv_ms:.5f} {simt_ms:.5f} "
+                f"{max(b_dq):.5f} {dq_sync_ms:.5f}, dkv {dkv_ms:.5f} "
+                f"{simt_ms:.5f} "
                 f"{dkv_plain:.5f} {max(b_dkv):.5f} {sync_ms:.5f} | "
                 f"{sdpa_ms:.5f} | "
                 f"{dq_host:.1f} {dq_simt_host:.1f}, {dkv_host:.1f} "
@@ -1523,6 +1585,9 @@ def check_backward_kernels(paths, dev, timer):
             rows[f"flash_bwd_dkv_{dkv_route}"].append(
                 (calls, dkv_ms if dkv_route != "simt" else simt_ms,
                  dkv_plain, sdpa_ms, *b_dkv))
+            if dq_route == "mma":
+                rows["flash_bwd_dq_mma_sync"].append(
+                    (calls, dq_sync_ms, dq_plain, sdpa_ms, *b_dq))
             if dkv_route == "mma":
                 rows["flash_bwd_dkv_mma_sync"].append(
                     (calls, sync_ms, dkv_plain, sdpa_ms, *b_dkv))
@@ -1613,10 +1678,11 @@ def reset_launches():
 
     groupnorm.launches = 0
     groupnorm.stats_launches = groupnorm.apply_launches = 0
+    groupnorm.stats_cluster_launches = 0
     attention.launches = attention.mma_launches = 0
     attention.wide_launches = attention.mma_sync_launches = 0
     attention.dq_launches = attention.dq_mma_launches = 0
-    attention.dq_wide_launches = 0
+    attention.dq_wide_launches = attention.dq_mma_sync_launches = 0
     attention.dkv_launches = attention.dkv_mma_launches = 0
     attention.dkv_wide_launches = attention.dkv_mma_sync_launches = 0
 
@@ -1624,7 +1690,8 @@ def reset_launches():
 def read_launches() -> dict:
     """Launches so far: the totals of each function (every route) and, for
     the flash forward, dq and dk/dv, of each route's kernel (and of the
-    forced calls of the mma.sync forward and dk/dv)."""
+    forced calls of the mma.sync forward, dq and dk/dv, and of the earlier
+    stats kernel)."""
     from itsd_tpu_torch.kernels import attention, groupnorm
 
     a = attention
@@ -1636,16 +1703,21 @@ def read_launches() -> dict:
         dq_mma=a.dq_mma_launches, dq_wide=a.dq_wide_launches,
         dkv=a.dkv_launches, dkv_mma=a.dkv_mma_launches,
         dkv_wide=a.dkv_wide_launches, fwd_mma_sync=a.mma_sync_launches,
-        dkv_mma_sync=a.dkv_mma_sync_launches)
+        dq_mma_sync=a.dq_mma_sync_launches,
+        dkv_mma_sync=a.dkv_mma_sync_launches,
+        gn_stats_cluster=groupnorm.stats_cluster_launches)
 
 
 def route_counts(gn=0, fwd=0, fwd_mma=0, fwd_wide=0, dq=0, dq_mma=0,
                  dq_wide=0, dkv=0, dkv_mma=0, dkv_wide=0, gn_stats=0,
-                 gn_apply=0, fwd_mma_sync=0, dkv_mma_sync=0):
+                 gn_apply=0, fwd_mma_sync=0, dq_mma_sync=0, dkv_mma_sync=0,
+                 gn_stats_cluster=0):
     """Launch counts in the layout of ``read_launches``: each function's
     total and each route's kernel (simt: what the others leave), and the
-    mma.sync forward's and dk/dv's forced calls (no path makes one)."""
+    forced calls of the mma.sync forward, dq and dk/dv and of the earlier
+    stats kernel (no path makes one)."""
     return {"groupnorm_swish": gn, "groupnorm_partial_stats": gn_stats,
+            "groupnorm_partial_stats_cluster": gn_stats_cluster,
             "groupnorm_apply": gn_apply, "flash_attention": fwd,
             "flash_attention_mma": fwd_mma,
             "flash_attention_wide": fwd_wide,
@@ -1653,7 +1725,8 @@ def route_counts(gn=0, fwd=0, fwd_mma=0, fwd_wide=0, dq=0, dq_mma=0,
             "flash_attention_simt": fwd - fwd_mma - fwd_wide - fwd_mma_sync,
             "flash_bwd_dq": dq, "flash_bwd_dq_mma": dq_mma,
             "flash_bwd_dq_wide": dq_wide,
-            "flash_bwd_dq_simt": dq - dq_mma - dq_wide,
+            "flash_bwd_dq_mma_sync": dq_mma_sync,
+            "flash_bwd_dq_simt": dq - dq_mma - dq_wide - dq_mma_sync,
             "flash_bwd_dkv": dkv,
             "flash_bwd_dkv_mma": dkv_mma, "flash_bwd_dkv_wide": dkv_wide,
             "flash_bwd_dkv_mma_sync": dkv_mma_sync,
@@ -1893,14 +1966,16 @@ def _category(name: str) -> str:
                                       "flash_fwd_mma_kernel")),
             ("flash_fwd wide (ours)", ("flash_fwd_wide_kernel",)),
             ("flash_fwd simt (ours)", ("flash_fwd_kernel",)),
-            ("flash_bwd_dq mma (ours)", ("flash_bwd_dq_mma_kernel",)),
+            ("flash_bwd_dq mma (ours)", ("flash_bwd_dq_hopper_kernel",
+                                         "flash_bwd_dq_mma_kernel")),
             ("flash_bwd_dq wide (ours)", ("flash_bwd_dq_wide_kernel",)),
             ("flash_bwd_dq simt (ours)", ("flash_bwd_dq_kernel",)),
             ("flash_bwd_dkv mma (ours)", ("flash_bwd_dkv_hopper_kernel",
                                           "flash_bwd_dkv_mma_kernel")),
             ("flash_bwd_dkv wide (ours)", ("flash_bwd_dkv_wide_kernel",)),
             ("flash_bwd_dkv simt (ours)", ("flash_bwd_dkv_kernel",)),
-            ("groupnorm (ours)", ("groupnorm_swish_kernel",)),
+            ("groupnorm (ours)", ("groupnorm_swish_kernel",
+                                  "groupnorm_stats", "groupnorm_apply")),
             ("optimizer (foreach)", ("multi_tensor", "foreach")),
             ("conv/gemm", ("conv", "gemm", "xmma", "cutlass", "wgrad",
                            "dgrad", "fprop", "nchwtonhwc", "nhwctonchw",
@@ -5212,14 +5287,26 @@ WORK = {"train": "one train step of configs/cifar10_uncond.yaml (batch 128, "
                             "(batch 2, bf16) on the rows of one of 2 seq "
                             "ranks: its 51 GroupNorm calls"}
 # name -> (source, the TPU kernel it replaces, the step its times sum over)
-# The mma forward and dk/dv are the Hopper kernels; the mma.sync kernels
-# they replaced (EARLIER) are timed beside them in phases 2 and 5, and
-# their times stand in those entries as "mma_sync_ms".
+# The mma forward, dq and dk/dv are the Hopper kernels; the mma.sync
+# kernels they replaced (EARLIER) are timed beside them in phases 2 and 5,
+# and their times stand in those entries as "mma_sync_ms".
 EARLIER = {
     "flash_attention_mma": ("flash_attention_mma_sync",
                             "itsd_tpu_torch/csrc/flash_attention_mma.cu"),
+    "flash_bwd_dq_mma": ("flash_bwd_dq_mma_sync",
+                         "itsd_tpu_torch/csrc/flash_attention_bwd_dq_mma.cu"),
     "flash_bwd_dkv_mma": ("flash_bwd_dkv_mma_sync",
                           "itsd_tpu_torch/csrc/flash_attention_bwd_mma.cu")}
+# The stats kernel's entry carries beside its two-launch total (its "ms",
+# "library_ms": torch.sum over the sum's launches, and "bound_ms"): the
+# kernel over the sum's launches alone ("sum_ms", like for like with
+# library_ms), the earlier stats kernel timed in turns with it in phase 2
+# ("cluster_ms", "cluster_sum_ms") and an empty kernel on its grid
+# ("empty_ms"): phase 2's rows of these names.
+STATS_SPLITS = {"groupnorm_partial_stats_sum": "sum_ms",
+                "groupnorm_partial_stats_cluster": "cluster_ms",
+                "groupnorm_partial_stats_cluster_sum": "cluster_sum_ms",
+                "groupnorm_partial_stats_empty": "empty_ms"}
 KERNELS = {
     "groupnorm_swish": ("itsd_tpu_torch/csrc/groupnorm.cu",
                         "itsd_tpu/kernels/groupnorm.py:47", "train"),
@@ -5237,8 +5324,9 @@ KERNELS = {
     "flash_attention_simt": ("itsd_tpu_torch/csrc/flash_attention.cu",
                              "itsd_tpu/kernels/attention.py:50",
                              "cond_train"),
-    "flash_bwd_dq_mma": ("itsd_tpu_torch/csrc/flash_attention_bwd_dq_mma.cu",
-                         "itsd_tpu/kernels/attention.py:229", "train"),
+    "flash_bwd_dq_mma": (
+        "itsd_tpu_torch/csrc/flash_attention_bwd_dq_hopper.cu",
+        "itsd_tpu/kernels/attention.py:229", "train"),
     "flash_bwd_dq_wide": ("itsd_tpu_torch/csrc/flash_attention_bwd_dq_wide.cu",
                           "itsd_tpu/kernels/attention.py:229", "cond_train"),
     "flash_bwd_dq_simt": ("itsd_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -5310,6 +5398,12 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
             entry["library"] = ("torch.sum over each span in f32, for the "
                                 "sum's launches; the squared deviations' "
                                 "have no single PyTorch call")
+            entry["cluster_source"] = "itsd_tpu_torch/csrc/groupnorm.cu"
+            for split, key in STATS_SPLITS.items():
+                entry[key] = rows_entry(fwd[split][work][1])["ms"]
+                for tag, (_, rows) in fwd[split].items():
+                    if tag != work and rows:
+                        entry[f"{tag}_step"][key] = rows_entry(rows)["ms"]
         if name == "groupnorm_apply":
             # no PyTorch call normalizes with given statistics
             entry["library_ms"] = None

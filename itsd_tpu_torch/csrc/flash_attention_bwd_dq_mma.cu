@@ -1,7 +1,11 @@
-// Single-head flash attention backward, dq, on the tensor cores, for bf16
-// over [B, N, C].
+// Single-head flash attention backward, dq, on the tensor cores with
+// mma.sync, for bf16 over [B, N, C]. The "mma" route's dq until the Hopper
+// kernel (csrc/flash_attention_bwd_dq_hopper.cu: wgmma, TMA, mbarriers)
+// replaced it; kept as itsd_flash_bwd_dq_mma_sync, which only a forced call
+// (kernels/attention.py:_flash_bwd_dq_mma_sync) reaches, as the new
+// kernel's same-call yardstick.
 //
-// Replaces the TPU kernel itsd_tpu/kernels/attention.py:_flash_bwd_dq_kernel
+// Replaced the TPU kernel itsd_tpu/kernels/attention.py:_flash_bwd_dq_kernel
 // (launched by _attention_flash_bwd) for bf16 inputs with C % 16 == 0 and
 // C <= 256; f32 inputs and other widths take the CUDA-core kernel of
 // csrc/flash_attention_bwd.cu, so that f32 never runs on the tensor cores.
@@ -252,11 +256,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // lse, dd: [B, N] f32. Needs C % 16 == 0, C <= 256 and 16-byte aligned q,
 // k, v, dout, dq. Any N >= 1.
 // Returns the first CUDA error of the launch, or 0.
-extern "C" int itsd_flash_bwd_dq_mma(const void* q, const void* k,
-                                     const void* v, const void* dout,
-                                     const void* lse, const void* dd,
-                                     void* dq, int B, int N, int C,
-                                     float scale, int dtype, void* stream) {
+extern "C" int itsd_flash_bwd_dq_mma_sync(const void* q, const void* k,
+                                          const void* v, const void* dout,
+                                          const void* lse, const void* dd,
+                                          void* dq, int B, int N, int C,
+                                          float scale, int dtype,
+                                          void* stream) {
   if (dtype != ITSD_BF16 || B <= 0 || B > 65535 || N <= 0 || C <= 0 ||
       C > kMaxC || C % 16 != 0)
     return (int)cudaErrorInvalidValue;

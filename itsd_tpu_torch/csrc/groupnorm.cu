@@ -54,11 +54,38 @@
 // every rank: the stats kernel gives this rank's partial sum of a span (x,
 // or (x - mean)^2 around a given mean), the caller all-reduces it, and the
 // apply kernel normalizes with the global mean and rstd. Both are bound by
-// bytes (one read of x; one read and one write), and use the plan above:
-// the stats kernel is the fused kernel's reduction pass, a cluster's
-// partials added in rank order (no atomics: the sum is the same from run
-// to run); the apply kernel is its last pass, a grid-stride loop of 16-byte
-// vectors.
+// bytes (one read of x; one read and one write). The apply kernel is the
+// fused kernel's last pass, a grid-stride loop of 16-byte vectors. The
+// stats kernel has a launch plan of its own (stats_plan(), below), made for
+// a streaming reduction: it holds nothing in shared memory, so the parts of
+// a span are sized for the loads in flight, not for the hold limit.
+// * A span of up to 1024 16-byte vectors (every span of the CIFAR UNet's
+//   rows, most of the flagship's at 16x32 and below) gets a team of one thread
+//   a vector: each thread issues one load, and no cluster is needed (teams
+//   of 1-32 threads share a block of 32-256, at least 2 blocks an SM where
+//   the call allows).
+// * A larger span is cut into nblk parts (a thread-block cluster of up to
+//   8 blocks) of up to 256 threads, and each thread issues kStatsVpt = 8
+//   independent 16-byte loads at once (unrolled, each vector into a
+//   partial sum of its own, the partials then added in a fixed order),
+//   128 bytes in flight a thread; a part beyond 256 x 8 vectors takes more
+//   trips. Loads from registers rather than bulk TMA copies into a ring: a
+//   thread's 8 loads cover its share of the flagship rows' parts in one
+//   or two trips, so there is no stream to pipeline, and the scalar path
+//   (HW not a multiple of the vector, an unaligned view) keeps the same
+//   code. On the card, 8 loads a thread in blocks of 256 beat 1-4 loads in
+//   blocks of up to 1024 on these spans, and lost to one load a thread on
+//   the small ones (whose teams then shrink to a few threads, each reading
+//   neighbouring vectors of its own).
+// * A cluster's partials are combined in rank order in block 0 of the
+//   cluster through distributed shared memory, behind one cluster barrier
+//   (every block arrives on a first one as it starts, and waits on it only
+//   once its loads are done, before it writes into block 0's shared
+//   memory): no atomics, so the sum is the same from run to run.
+// The fused kernel's plan, which sizes clusters to hold a span in shared
+// memory, left the stats kernel at a quarter of its bound; that kernel
+// stays in the library as itsd_groupnorm_partial_stats_cluster, the new
+// one's yardstick, which only a forced call reaches.
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -350,15 +377,17 @@ cudaError_t dispatch(const void* x, const void* w, const void* b, void* y,
                                 act, stream);
 }
 
-// The stats kernel: out[s] = the f32 sum over span s of x, or with kSq of
-// (x - mean[s])^2. The launch covers the spans as plan() says; the team of
-// a span (or the cluster of its parts) reduces as the fused kernel does.
+// The earlier stats kernel (itsd_groupnorm_partial_stats_cluster, the
+// yardstick of the one below): out[s] = the f32 sum over span s of x, or
+// with kSq of (x - mean[s])^2. The launch covers the spans as plan() says;
+// the team of a span (or the cluster of its parts) reduces as the fused
+// kernel does.
 template <typename T, int kVec, bool kSq>
 __global__ void __launch_bounds__(kMaxThreads)
-    groupnorm_stats_kernel(const T* __restrict__ x,
-                           const float* __restrict__ mean,
-                           float* __restrict__ out, long long spans, int span,
-                           int team, int nblk, int part) {
+    groupnorm_stats_cluster_kernel(const T* __restrict__ x,
+                                   const float* __restrict__ mean,
+                                   float* __restrict__ out, long long spans,
+                                   int span, int team, int nblk, int part) {
   __shared__ float scratch[32];
   __shared__ float slot;  // this block's partial, for the cluster
   const int tid = threadIdx.x;
@@ -399,6 +428,155 @@ __global__ void __launch_bounds__(kMaxThreads)
   if (nblk > 1) cg::this_cluster().sync();
 }
 
+// ------------------------------------------------ the stats kernel's plan
+
+constexpr int kStatsVpt = 8;            // vectors a thread a trip, when a
+                                        // span takes more than a block of
+                                        // single loads
+constexpr int kStatsPartThreads = 256;  // threads of such a span's blocks
+
+// How the stats kernel covers the tensor: a span in `nblk` parts (a
+// cluster), each part a block of `team` threads, or, for spans of up to 32
+// vectors, `spb` spans a block of `threads` threads, a team each. Each
+// thread loads `vpt` vectors of `vec` elements a trip. Sizes in elements.
+struct StatsPlan {
+  int vec, vpt, team, threads, spb, nblk, part, blocks;
+};
+
+StatsPlan stats_plan(long long spans, int span, int itemsize, bool vec_ok) {
+  StatsPlan p{};
+  p.vec = vec_ok ? 16 / itemsize : 1;
+  auto ceil_div = [](long long a, long long b) { return (a + b - 1) / b; };
+  const long long vecs = ceil_div(span, p.vec);
+  if (vecs <= kMaxThreads) {
+    // a team of one thread a vector, one load deep: no cluster barrier,
+    // and every load of the span issued at once
+    p.vpt = 1;
+    p.nblk = 1;
+    p.team = (int)pow2_ceil(vecs);
+  } else {
+    // blocks of up to 256 threads, 8 loads each a trip (more threads a
+    // block and fewer loads each ran slower on these spans), a cluster of
+    // up to 8 a span
+    p.vpt = kStatsVpt;
+    p.nblk = (int)std::min<long long>(
+        kMaxCluster,
+        pow2_ceil(ceil_div(vecs, kStatsPartThreads * kStatsVpt)));
+    p.team = (int)std::min<long long>(
+        kStatsPartThreads,
+        pow2_ceil(ceil_div(ceil_div(vecs, p.nblk), kStatsVpt)));
+  }
+  p.part = (int)(ceil_div(vecs, p.nblk) * p.vec);
+  if (p.team <= 32) {  // several spans a block: at least 2 blocks an SM
+    const long long per = spans * p.team / (2 * kSMs);
+    int t = 32;
+    while (t < kMaxTeamBlock && 2 * t <= per) t *= 2;
+    p.threads = t;
+    p.spb = t / p.team;
+  } else {
+    p.threads = p.team;
+    p.spb = 1;
+  }
+  p.blocks = (int)(p.nblk > 1 ? spans * p.nblk
+                              : (spans + p.spb - 1) / p.spb);
+  return p;
+}
+
+// Cluster barrier halves (PTX barrier.cluster): every thread of the
+// cluster arrives, then waits for all to have arrived.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The stats kernel: out[s] = the f32 sum over span s of x, or with kSq of
+// (x - mean[s])^2, under stats_plan() with kU = its vpt. Each thread sums
+// its vectors i, i + team, ... of the part, kU of them a trip, each into
+// its own partial; all kU loads of a trip are issued before any is used
+// (a vector past the part reads the part's last one, at a valid address,
+// and adds 0), and the partials are added in order. The team's sums by
+// shuffle (team <= 32) or over the block, then, with nblk > 1, the
+// cluster's in rank order in block 0.
+template <typename T, int kVec, bool kSq, int kU>
+__global__ void __launch_bounds__(kMaxThreads)
+    groupnorm_stats_kernel(const T* __restrict__ x,
+                           const float* __restrict__ mean,
+                           float* __restrict__ out, long long spans, int span,
+                           int team, int nblk, int part) {
+  __shared__ float scratch[32];
+  __shared__ float slots[kMaxCluster];  // the cluster's partials (block 0)
+  if (nblk > 1) cluster_arrive_relaxed();  // this block has started
+  const int tid = threadIdx.x;
+  const int ti = tid / team, lt = tid % team;
+  long long s, lo, hi;  // the team's span and its elements [lo, hi)
+  int rank = 0;
+  if (nblk > 1) {
+    rank = (int)(blockIdx.x % nblk);  // == the cluster rank (1-D clusters)
+    s = blockIdx.x / nblk;
+    lo = s * span + (long long)rank * part;
+    hi = s * span + min((long long)span, (long long)(rank + 1) * part);
+    lo = min(lo, hi);
+  } else {
+    s = (long long)blockIdx.x * (blockDim.x / team) + ti;
+    lo = min(s, spans) * span;
+    hi = min(s + 1, spans) * span;
+  }
+  const float m = (kSq && s < spans) ? mean[s] : 0.f;
+  const long long v1 = hi / kVec;
+  float part_sum[kU];
+#pragma unroll
+  for (int u = 0; u < kU; ++u) part_sum[u] = 0.f;
+  for (long long i0 = lo / kVec + lt; i0 < v1; i0 += (long long)team * kU) {
+    float f[kU][kVec];
+    bool in[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const long long i = i0 + (long long)u * team;
+      in[u] = i < v1;
+      load_vec<T, kVec>(x + (in[u] ? i : v1 - 1) * kVec, f[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        if constexpr (kSq) {
+          const float d = in[u] ? f[u][e] - m : 0.f;
+          part_sum[u] = fmaf(d, d, part_sum[u]);
+        } else {
+          part_sum[u] += in[u] ? f[u][e] : 0.f;
+        }
+      }
+  }
+  float acc = 0.f;
+#pragma unroll
+  for (int u = 0; u < kU; ++u) acc += part_sum[u];
+  acc = team_sum(acc, team, scratch);
+  if (nblk == 1) {
+    if (s < spans && lt == 0) out[s] = acc;
+    return;
+  }
+  cluster_wait();  // every block of the cluster has started
+  cg::cluster_group cluster = cg::this_cluster();
+  if (tid == 0) *cluster.map_shared_rank(&slots[rank], 0) = acc;
+  cluster_arrive_release();
+  cluster_wait();  // block 0 holds every partial
+  if (rank == 0 && tid == 0) {
+    float total = 0.f;
+    for (int r = 0; r < nblk; ++r) total += slots[r];
+    out[s] = total;
+  }
+}
+
+// An empty kernel, launched on a stats plan's grid: what such a launch
+// costs the card whatever the kernel does, the least any stats kernel of
+// that plan can take.
+__global__ void groupnorm_stats_empty_kernel() {}
+
 // The apply kernel: y = swish?((x - mean[s]) * rstd[s] * weight[c] +
 // bias[c]) with the fused kernel's arithmetic (a = weight * rstd, shift =
 // bias - mean * a, one FMA), kVec elements a thread and step.
@@ -431,32 +609,32 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T, int kVec, bool kSq>
-cudaError_t launch_stats(const Plan& p, const void* x, const float* mean,
-                         float* out, long long spans, int span,
-                         cudaStream_t stream) {
+// Launch `kernel` on `blocks` blocks of `threads`, as clusters of `nblk`
+// blocks when nblk > 1.
+template <typename Kernel, typename... Args>
+cudaError_t launch_clustered(Kernel kernel, int blocks, int threads,
+                             int nblk, cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.blocks);
-  cfg.blockDim = dim3(p.threads);
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.nblk;
+  attr[0].val.clusterDim.x = nblk;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = p.nblk > 1 ? 1 : 0;
-  cudaError_t e = cudaLaunchKernelEx(
-      &cfg, groupnorm_stats_kernel<T, kVec, kSq>, static_cast<const T*>(x),
-      mean, out, spans, span, p.team, p.nblk, p.part);
+  cfg.numAttrs = nblk > 1 ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_stats(const void* x, const void* mean, void* out, int B,
-                           int C, int HW, int G, cudaStream_t stream) {
+cudaError_t dispatch_stats_cluster(const void* x, const void* mean,
+                                   void* out, int B, int C, int HW, int G,
+                                   cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const int cg_ = C / G;
   const int span = cg_ * HW;
@@ -464,15 +642,56 @@ cudaError_t dispatch_stats(const void* x, const void* mean, void* out, int B,
   const bool vec_ok = HW % kVec == 0 && (uintptr_t)x % 16 == 0;
   // the fused kernel's plan; nothing is held in shared memory here
   const Plan p = plan(spans, span, cg_, sizeof(T), vec_ok);
+  const T* xt = static_cast<const T*>(x);
+  const float* m = static_cast<const float*>(mean);
+  float* o = static_cast<float*>(out);
+  auto go = [&](auto kernel) {
+    return launch_clustered(kernel, p.blocks, p.threads, p.nblk, stream, xt,
+                            m, o, spans, span, p.team, p.nblk, p.part);
+  };
+  if (mean == nullptr)
+    return vec_ok ? go(groupnorm_stats_cluster_kernel<T, kVec, false>)
+                  : go(groupnorm_stats_cluster_kernel<T, 1, false>);
+  return vec_ok ? go(groupnorm_stats_cluster_kernel<T, kVec, true>)
+                : go(groupnorm_stats_cluster_kernel<T, 1, true>);
+}
+
+template <typename T, int kVec, bool kSq>
+cudaError_t launch_stats(const StatsPlan& p, const T* x, const float* mean,
+                         float* out, long long spans, int span,
+                         cudaStream_t stream) {
+  auto go = [&](auto kernel) {
+    return launch_clustered(kernel, p.blocks, p.threads, p.nblk, stream, x,
+                            mean, out, spans, span, p.team, p.nblk, p.part);
+  };
+  return p.vpt == 1 ? go(groupnorm_stats_kernel<T, kVec, kSq, 1>)
+                    : go(groupnorm_stats_kernel<T, kVec, kSq, kStatsVpt>);
+}
+
+// empty: launch groupnorm_stats_empty_kernel on the plan's grid instead
+template <typename T>
+cudaError_t dispatch_stats(const void* x, const void* mean, void* out, int B,
+                           int C, int HW, int G, bool empty,
+                           cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int span = C / G * HW;
+  const long long spans = (long long)B * G;
+  const bool vec_ok = HW % kVec == 0 && (uintptr_t)x % 16 == 0;
+  const StatsPlan p = stats_plan(spans, span, sizeof(T), vec_ok);
+  if (empty)
+    return launch_clustered(groupnorm_stats_empty_kernel, p.blocks,
+                            p.threads, p.nblk, stream);
+  const T* xt = static_cast<const T*>(x);
   const float* m = static_cast<const float*>(mean);
   float* o = static_cast<float*>(out);
   if (mean == nullptr)
-    return vec_ok ? launch_stats<T, kVec, false>(p, x, m, o, spans, span,
+    return vec_ok ? launch_stats<T, kVec, false>(p, xt, m, o, spans, span,
                                                  stream)
-                  : launch_stats<T, 1, false>(p, x, m, o, spans, span,
+                  : launch_stats<T, 1, false>(p, xt, m, o, spans, span,
                                               stream);
-  return vec_ok ? launch_stats<T, kVec, true>(p, x, m, o, spans, span, stream)
-                : launch_stats<T, 1, true>(p, x, m, o, spans, span, stream);
+  return vec_ok ? launch_stats<T, kVec, true>(p, xt, m, o, spans, span,
+                                              stream)
+                : launch_stats<T, 1, true>(p, xt, m, o, spans, span, stream);
 }
 
 template <typename T>
@@ -549,10 +768,51 @@ extern "C" int itsd_groupnorm_partial_stats(const void* x, const void* mean,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case ITSD_F32:
-      return (int)dispatch_stats<float>(x, mean, out, B, C, HW, G, s);
+      return (int)dispatch_stats<float>(x, mean, out, B, C, HW, G, false, s);
     case ITSD_BF16:
       return (int)dispatch_stats<__nv_bfloat16>(x, mean, out, B, C, HW, G,
+                                                false, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// As itsd_groupnorm_partial_stats, through the earlier stats kernel on the
+// fused kernel's plan (the new kernel's yardstick).
+extern "C" int itsd_groupnorm_partial_stats_cluster(const void* x,
+                                                    const void* mean,
+                                                    void* out, int B, int C,
+                                                    int HW, int G, int dtype,
+                                                    void* stream) {
+  if (bad_shape(B, C, HW, G)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case ITSD_F32:
+      return (int)dispatch_stats_cluster<float>(x, mean, out, B, C, HW, G,
                                                 s);
+    case ITSD_BF16:
+      return (int)dispatch_stats_cluster<__nv_bfloat16>(x, mean, out, B, C,
+                                                        HW, G, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// An empty kernel on the grid itsd_groupnorm_partial_stats would launch for
+// x: [B, C, HW] (f32 or bf16, 16-byte aligned or not as `x` is): the
+// launch's own cost on the card. Returns the first CUDA error, or 0.
+extern "C" int itsd_groupnorm_stats_floor(const void* x, int B, int C,
+                                          int HW, int G, int dtype,
+                                          void* stream) {
+  if (bad_shape(B, C, HW, G)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case ITSD_F32:
+      return (int)dispatch_stats<float>(x, nullptr, nullptr, B, C, HW, G,
+                                        true, s);
+    case ITSD_BF16:
+      return (int)dispatch_stats<__nv_bfloat16>(x, nullptr, nullptr, B, C,
+                                                HW, G, true, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -46,6 +46,10 @@ SIGNATURES = {
     "itsd_groupnorm_swish": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     # x, mean (or null), out, B, C, HW, G, dtype, stream
     "itsd_groupnorm_partial_stats": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "itsd_groupnorm_partial_stats_cluster": (_P, _P, _P, _I, _I, _I, _I, _I,
+                                             _P),
+    # x, B, C, HW, G, dtype, stream
+    "itsd_groupnorm_stats_floor": (_P, _I, _I, _I, _I, _I, _P),
     # x, mean, rstd, weight, bias, y, B, C, HW, G, act, dtype, stream
     "itsd_groupnorm_apply": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _P),
@@ -62,6 +66,8 @@ SIGNATURES = {
                           _P),
     "itsd_flash_bwd_dq_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                               _I, _P),
+    "itsd_flash_bwd_dq_mma_sync": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _F, _I, _P),
     "itsd_flash_bwd_dq_wide": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                _I, _P),
     # q, k, v, dout, lse, dd, dk, dv, B, N, C, scale, dtype, stream

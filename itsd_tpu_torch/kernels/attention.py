@@ -11,11 +11,10 @@ and the backward ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``.
 
 Each of the three functions has three kernels, and ``route`` picks one
 from the function, the dtype and C:
-* "mma": bf16 with C % 16 == 0 and C <= 256, on the tensor cores: the
-  forward and dk/dv with Hopper's wgmma, TMA and mbarriers
-  (``csrc/flash_attention_hopper.cu``,
-  ``csrc/flash_attention_bwd_dkv_hopper.cu``), dq with mma.sync
-  (``csrc/flash_attention_bwd_dq_mma.cu``);
+* "mma": bf16 with C % 16 == 0 and C <= 256, on the tensor cores with
+  Hopper's wgmma, TMA and mbarriers (``csrc/flash_attention_hopper.cu``,
+  ``csrc/flash_attention_bwd_dq_hopper.cu``,
+  ``csrc/flash_attention_bwd_dkv_hopper.cu``);
 * "wide": bf16 with C % 16 == 0 and 256 < C <= 1024, on the tensor cores
   with the head dimension split across warps
   (``csrc/flash_attention_wide.cu``, ``csrc/flash_attention_bwd_dq_wide.cu``,
@@ -26,12 +25,13 @@ from the function, the dtype and C:
   ``csrc/flash_attention_bwd.cu``), so that f32 never runs at the tensor
   cores' reduced precision.
 
-The mma.sync forward and dk/dv that the Hopper kernels replaced
-(``csrc/flash_attention_mma.cu``, ``csrc/flash_attention_bwd_mma.cu``)
-stay in the library as their same-call yardstick: only the forced calls
-``_flash_mma_sync`` and ``_flash_bwd_dkv_mma_sync`` reach them (tests and
-``chip_smoke.py``), as ``_flash_simt`` and the other ``_simt`` calls force
-the CUDA-core kernels; no path routes there.
+The mma.sync forward, dq and dk/dv that the Hopper kernels replaced
+(``csrc/flash_attention_mma.cu``, ``csrc/flash_attention_bwd_dq_mma.cu``,
+``csrc/flash_attention_bwd_mma.cu``) stay in the library as their
+same-call yardstick: only the forced calls ``_flash_mma_sync``,
+``_flash_bwd_dq_mma_sync`` and ``_flash_bwd_dkv_mma_sync`` reach them
+(tests and ``chip_smoke.py``), as ``_flash_simt`` and the other ``_simt``
+calls force the CUDA-core kernels; no path routes there.
 
 Every entry point dispatches on where its inputs lie: CPU tensors go to the
 plain versions, CUDA tensors to the kernels, and anything the kernels do not
@@ -69,8 +69,8 @@ from . import _build
 
 # Kernel launches so far: the forward (both entry points, every route), the
 # dq kernel and the dk/dv kernel (every route), and of those the ones on
-# the "mma" and "wide" routes, and the forced calls of the mma.sync forward
-# and dk/dv. A run resets them to check what went through the kernels.
+# the "mma" and "wide" routes, and the forced calls of the mma.sync forward,
+# dq and dk/dv. A run resets them to check what went through the kernels.
 launches = 0
 mma_launches = 0
 wide_launches = 0
@@ -78,6 +78,7 @@ mma_sync_launches = 0
 dq_launches = 0
 dq_mma_launches = 0
 dq_wide_launches = 0
+dq_mma_sync_launches = 0
 dkv_launches = 0
 dkv_mma_launches = 0
 dkv_wide_launches = 0
@@ -302,6 +303,7 @@ def _check_rows(t, q, what):
 
 def _launch_dq(q, k, v, do, lse, dd, scale, which):
     global dq_launches, dq_mma_launches, dq_wide_launches
+    global dq_mma_sync_launches
     _check(q, k, v, do)
     _check_rows(lse, q, "lse")
     _check_rows(dd, q, "dd")
@@ -317,6 +319,7 @@ def _launch_dq(q, k, v, do, lse, dd, scale, which):
     dq_launches += 1
     dq_mma_launches += which == "mma"
     dq_wide_launches += which == "wide"
+    dq_mma_sync_launches += which == "mma_sync"
     return dq
 
 
@@ -331,6 +334,14 @@ def _flash_bwd_dq_simt(q, k, v, do, lse, dd, scale):
     be held and timed on the same bf16 inputs as the tensor-core kernels.
     No path of the program calls it."""
     return _launch_dq(q, k, v, do, lse, dd, scale, "simt")
+
+
+def _flash_bwd_dq_mma_sync(q, k, v, do, lse, dd, scale):
+    """dq through the mma.sync kernel that the Hopper kernel replaced on
+    the "mma" route, so that the two can be held and timed on the same
+    inputs. No path of the program calls it."""
+    _require_cuda(q, "_flash_bwd_dq_mma_sync")
+    return _launch_dq(q, k, v, do, lse, dd, scale, "mma_sync")
 
 
 def _launch_dkv(q, k, v, do, lse, dd, scale, which):

@@ -22,7 +22,12 @@ mean; the partial sums of squared deviations around it, an all-reduce, the
 rstd; then the normalization, affine and swish (the apply kernel,
 ``itsd_groupnorm_apply``). Its backward recomputes through the same
 sequence in PyTorch (``groupnorm_swish_rows_plain``), whose all-reduce is
-differentiable.
+differentiable. The stats kernel has a launch plan of its own, made for a
+streaming reduction; the earlier one, on the fused kernel's plan, stays in
+the library as its yardstick (``itsd_groupnorm_partial_stats_cluster``),
+which only the forced call ``_groupnorm_partial_stats_cluster`` reaches
+(tests and ``chip_smoke.py``); ``_groupnorm_stats_floor`` launches an
+empty kernel on the new plan's grid: what a launch costs whatever it does.
 """
 
 from __future__ import annotations
@@ -32,11 +37,13 @@ import torch
 from ..parallel.spatial import all_reduce_sum
 from . import _build
 
-# Kernel launches so far: the fused kernel, and the stats and apply kernels
-# of row shards; a run resets them to check what went through the kernels.
+# Kernel launches so far: the fused kernel, the stats and apply kernels of
+# row shards, and the forced calls of the earlier stats kernel; a run resets
+# them to check what went through the kernels.
 launches = 0
 stats_launches = 0
 apply_launches = 0
+stats_cluster_launches = 0
 
 
 def groupnorm_swish_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -56,6 +63,17 @@ def groupnorm_swish_plain(x: torch.Tensor, weight: torch.Tensor,
 
 
 def _check(x, weight, bias, groups):
+    _check_x(x, groups)
+    C = x.shape[1]
+    for name, p in (("weight", weight), ("bias", bias)):
+        if (p.shape != (C,) or p.dtype != torch.float32
+                or p.device != x.device or not p.is_contiguous()):
+            raise ValueError(
+                f"groupnorm_swish: {name} must be contiguous f32 [{C}] on "
+                f"{x.device}, got {p.dtype} {tuple(p.shape)} on {p.device}")
+
+
+def _check_x(x, groups):
     if x.dim() != 4:
         raise ValueError(
             f"groupnorm_swish: want NCHW, got shape {tuple(x.shape)}")
@@ -68,12 +86,6 @@ def _check(x, weight, bias, groups):
     if groups <= 0 or C % groups:
         raise ValueError(
             f"groupnorm_swish: {groups} groups do not divide C={C}")
-    for name, p in (("weight", weight), ("bias", bias)):
-        if (p.shape != (C,) or p.dtype != torch.float32
-                or p.device != x.device or not p.is_contiguous()):
-            raise ValueError(
-                f"groupnorm_swish: {name} must be contiguous f32 [{C}] on "
-                f"{x.device}, got {p.dtype} {tuple(p.shape)} on {p.device}")
 
 
 def _forward(x, weight, bias, groups, eps, act):
@@ -167,6 +179,23 @@ def _check_stats(t, x, groups, what):
                          f"{tuple(t.shape)} on {t.device}")
 
 
+def _launch_stats(x, groups, mean, entry):
+    """The stats kernel ``entry`` of csrc/groupnorm.cu on a CUDA ``x``."""
+    _check_x(x, groups)
+    if mean is not None:
+        _check_stats(mean, x, groups, "mean")
+    B, C, H, W = x.shape
+    out = torch.empty((B, groups), dtype=torch.float32, device=x.device)
+    kernels = _build.load()
+    with torch.cuda.device(x.device):
+        rc = getattr(kernels.lib, entry)(
+            x.data_ptr(), None if mean is None else mean.data_ptr(),
+            out.data_ptr(), B, C, H * W, groups,
+            _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
+    _build.check(kernels, rc, entry.removeprefix("itsd_"))
+    return out
+
+
 def groupnorm_partial_stats(x: torch.Tensor, groups: int,
                             mean=None) -> torch.Tensor:
     """``groupnorm_partial_stats_plain`` for a CPU tensor, the stats kernel
@@ -176,22 +205,45 @@ def groupnorm_partial_stats(x: torch.Tensor, groups: int,
         return groupnorm_partial_stats_plain(x, groups, mean)
     if x.device.type != "cuda":
         raise ValueError(f"groupnorm: no path for device {x.device}")
-    C = x.shape[1]
-    ones = torch.ones(C, dtype=torch.float32, device=x.device)
-    _check(x, ones, ones, groups)
-    if mean is not None:
-        _check_stats(mean, x, groups, "mean")
-    B, _, H, W = x.shape
-    out = torch.empty((B, groups), dtype=torch.float32, device=x.device)
-    kernels = _build.load()
-    with torch.cuda.device(x.device):
-        rc = kernels.lib.itsd_groupnorm_partial_stats(
-            x.data_ptr(), None if mean is None else mean.data_ptr(),
-            out.data_ptr(), B, C, H * W, groups,
-            _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
-    _build.check(kernels, rc, "groupnorm_partial_stats")
+    out = _launch_stats(x, groups, mean, "itsd_groupnorm_partial_stats")
     stats_launches += 1
     return out
+
+
+def _require_cuda(x, what):
+    """Raise unless ``x`` lies on a CUDA device: a forced call has no plain
+    version to fall back to."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: launches a CUDA kernel; it takes CUDA "
+                         f"tensors only, got {x.device}")
+
+
+def _groupnorm_partial_stats_cluster(x: torch.Tensor, groups: int,
+                                     mean=None) -> torch.Tensor:
+    """``groupnorm_partial_stats`` through the earlier stats kernel, on the
+    fused kernel's launch plan, so that the two can be held and timed on
+    the same inputs. No path of the program calls it."""
+    global stats_cluster_launches
+    _require_cuda(x, "_groupnorm_partial_stats_cluster")
+    out = _launch_stats(x, groups, mean,
+                        "itsd_groupnorm_partial_stats_cluster")
+    stats_cluster_launches += 1
+    return out
+
+
+def _groupnorm_stats_floor(x: torch.Tensor, groups: int) -> None:
+    """Launch an empty kernel on the grid ``groupnorm_partial_stats`` would
+    launch for ``x``: the least time any kernel of that plan takes on the
+    card. A measurement only; no path of the program calls it."""
+    _require_cuda(x, "_groupnorm_stats_floor")
+    _check_x(x, groups)
+    B, C, H, W = x.shape
+    kernels = _build.load()
+    with torch.cuda.device(x.device):
+        rc = kernels.lib.itsd_groupnorm_stats_floor(
+            x.data_ptr(), B, C, H * W, groups, _build.DTYPE_CODES[x.dtype],
+            _build.stream_ptr(x))
+    _build.check(kernels, rc, "groupnorm_stats_floor")
 
 
 def groupnorm_apply(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,

@@ -22,12 +22,15 @@ the private ``_flash_simt``, ``_flash_bwd_dq_simt`` and
 ``_flash_bwd_dkv_simt``. Run one route's tests with ``-k mma``, ``-k wide``
 or ``-k simt``, the dq tests of one route with ``-k "dq and mma"``,
 ``-k "wide and cfg"`` or ``-k "routes and simt"``, the tests at the CFG
-UNet's widths and maps with ``-k cfg``, the Hopper forward and dk/dv
+UNet's widths and maps with ``-k cfg``, the Hopper forward, dq and dk/dv
 (the mma route's since they replaced the mma.sync kernels, which forced
-calls still reach: ``_flash_mma_sync``, ``_flash_bwd_dkv_mma_sync``)
-against their plain versions and the mma.sync kernels with ``-k hopper``
-(``-k "hopper and forward"``, ``-k "hopper and dkv"``), the mma.sync
-entries' refusals with ``-k "mma_sync and refuse"``, those at
+calls still reach: ``_flash_mma_sync``, ``_flash_bwd_dq_mma_sync``,
+``_flash_bwd_dkv_mma_sync``) against their plain versions and the mma.sync
+kernels with ``-k hopper`` (``-k "hopper and forward"``, ``-k "hopper and
+dq"``, ``-k "hopper and dkv"``), the mma.sync entries' refusals with
+``-k "mma_sync and refuse"``, the stats kernel of GroupNorm over row
+shards against its plain version and the earlier stats kernel it replaced
+(``_groupnorm_partial_stats_cluster``) with ``-k stats``, those at
 Picard's folded batches
 (400 and 800 rows) with ``-k picard``, a batch at CUDA's gridDim.y
 cap and past it with ``-k grid_cap``, and gradient search's backward
@@ -619,8 +622,8 @@ def test_mma_entries_refuse_what_they_do_not_take(cuda_device):
 
 @pytest.mark.cuda
 def test_mma_sync_entries_refuse_what_they_do_not_take(cuda_device):
-    """The mma.sync forward and dk/dv, which the Hopper kernels replaced on
-    the mma route and which only forced calls reach, refuse what they
+    """The mma.sync forward, dq and dk/dv, which the Hopper kernels replaced
+    on the mma route and which only forced calls reach, refuse what they
     refused as the route's kernels: anything but bf16 with C % 16 == 0 and
     C <= 256. The forced wrappers raise the kernel's refusal."""
     from itsd_tpu_torch.kernels import _build
@@ -638,6 +641,9 @@ def test_mma_sync_entries_refuse_what_they_do_not_take(cuda_device):
         assert lib.itsd_flash_bwd_dkv_mma_sync(
             p, p, p, p, lse.data_ptr(), lse.data_ptr(), p, p, 1, 8, C, 0.5,
             code, stream) != 0
+        assert lib.itsd_flash_bwd_dq_mma_sync(
+            p, p, p, p, lse.data_ptr(), lse.data_ptr(), p, 1, 8, C, 0.5,
+            code, stream) != 0
     # C=24 passes the wrapper's checks (C % 4 == 0); the kernel refuses it
     q = torch.zeros((1, 8, 24), dtype=torch.bfloat16, device=cuda_device)
     lse = torch.zeros((1, 8), device=cuda_device)
@@ -645,6 +651,8 @@ def test_mma_sync_entries_refuse_what_they_do_not_take(cuda_device):
         attention._flash_mma_sync(q, q, q, 0.5, emit_lse=False)
     with pytest.raises(RuntimeError, match="flash_bwd_dkv_mma_sync: CUDA"):
         attention._flash_bwd_dkv_mma_sync(q, q, q, q, lse, lse, 0.5)
+    with pytest.raises(RuntimeError, match="flash_bwd_dq_mma_sync: CUDA"):
+        attention._flash_bwd_dq_mma_sync(q, q, q, q, lse, lse, 0.5)
 
 
 # The mma route's forward and dk/dv run the Hopper kernels
@@ -741,6 +749,179 @@ def test_hopper_dkv_matches_plain_and_mma_sync(cuda_device, B, N, C):
                     f"{kernel} {name} dlse={dlse is not None}: max err "
                     f"{err.max().item():.3g}, worst excess "
                     f"{(err - limit).max().item():.3g}")
+
+
+# The mma route's dq runs the Hopper kernel
+# (csrc/flash_attention_bwd_dq_hopper.cu: wgmma, TMA, mbarriers) since it
+# replaced the mma.sync kernel, which the forced call
+# ``_flash_bwd_dq_mma_sync`` still reaches. Every padded width (kC 64, 128,
+# 192, 256) and widths that are not multiples of 64, at N of one row, one
+# 64-row tile less one, one and one more, ragged and whole multi-tile maps;
+# then the kernel table's shapes (the CFG UNet's train step and gradient
+# search, the unconditional train step and gradient search, the ViT's heads
+# and its ring hop); then small N at more samples than the card's 132
+# SMs, where a tile packs ceil(B / 132) samples (2, 3, 4, 8 and 16), a last
+# tile in part among them, and N = 16 at B = 128, which packs none.
+HOPPER_DQ_SHAPES = ([(2, N, C) for C in (16, 48, 64, 128, 192, 256)
+                     for N in (1, 16, 63, 64, 65, 200, 1024)]
+                    + [(256, 1024, 128), (16, 1024, 128), (128, 256, 256),
+                       (8, 256, 256), (192, 256, 64), (24, 128, 64)]
+                    + [(256, 1, 256), (301, 7, 64), (400, 3, 128),
+                       (300, 32, 192), (1000, 24, 48), (2000, 1, 16),
+                       (128, 16, 256)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,C", HOPPER_DQ_SHAPES)
+def test_hopper_dq_matches_plain_and_mma_sync(cuda_device, B, N, C):
+    """The mma route's dq (the Hopper kernel), without and with dlse,
+    against its plain version at the bf16 tolerance plus the f32
+    summation-order bound (``_dq_order_bound``), and the mma.sync kernel it
+    replaced (forced) held to the same limit. Two launches agree bit for
+    bit; one launch is counted a call, on the mma route."""
+    assert attention.route(torch.bfloat16, C, "dq") == "mma"
+    gen = torch.Generator(device=cuda_device).manual_seed(B + N * 3 + C)
+    q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = C ** -0.5
+    o, lse = attention.attention_with_lse(q, k, v, scale)
+    bound = _dq_order_bound(q, k, v, do, lse, scale)
+    for dlse in (None, torch.randn((B, N), generator=gen,
+                                   device=cuda_device)):
+        dd = attention.row_dd(o, do, dlse).contiguous()
+        args = (q, k, v, do, lse, dd, scale)
+        counts, sync0 = _counts(), attention.dq_mma_sync_launches
+        got = attention.flash_bwd_dq(*args)
+        again = attention.flash_bwd_dq(*args)
+        sync = attention._flash_bwd_dq_mma_sync(*args)
+        want = attention.flash_bwd_dq_plain(*args)
+        torch.cuda.synchronize()
+        assert _launched(counts)[3:6] == (3, 2, 0)
+        assert attention.dq_mma_sync_launches - sync0 == 1
+        assert torch.equal(got, again)
+        limit = (BF16_RTOL * want.float().abs().max()
+                 + BF16_RTOL * want.float().abs() + bound)
+        for kernel, g in (("hopper", got), ("mma.sync", sync)):
+            assert g.dtype == torch.bfloat16 and g.shape == (B, N, C)
+            err = (g.float() - want.float()).abs()
+            assert (err <= limit).all(), (
+                f"{kernel} dq dlse={dlse is not None}: max err "
+                f"{err.max().item():.3g}, worst excess "
+                f"{(err - limit).max().item():.3g}")
+
+
+@pytest.mark.cuda
+def test_hopper_dq_entry_refuses_what_it_does_not_take(cuda_device):
+    """The Hopper dq's entry point (``itsd_flash_bwd_dq_mma``) takes bf16
+    with C % 16 == 0, C <= 256, 1 <= B <= 65535 and N >= 1 only; anything
+    else returns an error without a launch, which the wrapper raises."""
+    from itsd_tpu_torch.kernels import _build
+
+    lib = _build.load().lib
+    q = torch.zeros((2, 8, 64), dtype=torch.bfloat16, device=cuda_device)
+    lse = torch.zeros((2, 8), device=cuda_device)
+    stream = _build.stream_ptr(q)
+    p, lp = q.data_ptr(), lse.data_ptr()
+    bf16, f32 = _build.DTYPE_CODES[torch.bfloat16], _build.DTYPE_CODES[
+        torch.float32]
+    for B, N, C, code in ((1, 8, 64, f32), (1, 8, 24, bf16),
+                          (1, 8, 272, bf16), (1, 8, 0, bf16),
+                          (0, 8, 64, bf16), (65536, 1, 64, bf16),
+                          (1, 0, 64, bf16)):
+        assert lib.itsd_flash_bwd_dq_mma(p, p, p, p, lp, lp, p, B, N, C,
+                                         0.125, code, stream) != 0
+    assert lib.itsd_flash_bwd_dq_mma(p, p, p, p, lp, lp, p, 2, 8, 64, 0.125,
+                                     bf16, stream) == 0
+    torch.cuda.synchronize()
+    q24 = torch.zeros((1, 8, 24), dtype=torch.bfloat16, device=cuda_device)
+    lse = torch.zeros((1, 8), device=cuda_device)
+    with pytest.raises(RuntimeError, match="flash_bwd_dq_mma: CUDA"):
+        attention._launch_dq(q24, q24, q24, q24, lse, lse, 0.5, "mma")
+
+
+# The stats kernel (a launch plan of its own since the earlier kernel, on
+# the fused kernel's plan, became its yardstick, which the forced call
+# ``_groupnorm_partial_stats_cluster`` reaches): the flagship's rows at
+# K = 2 and 4 (its largest and smallest levels), the CIFAR UNet's, and the
+# scalar path (HW not a multiple of the 16-byte vector; below, a view one
+# element off the 16-byte alignment).
+STATS_SHAPES = [(2, 128, 128, 256), (2, 128, 64, 256), (2, 512, 16, 32),
+                (2, 512, 8, 32), (8, 128, 16, 32), (8, 256, 2, 8),
+                (8, 512, 1, 4), (2, 64, 3, 5), (3, 24, 1, 5),
+                (2, 256, 7, 9)]
+
+
+def _stats_against(x, G):
+    """Both stats kernels and the plain version on ``x``: sums within
+    ``_stats_close`` of the plain ones, two launches of the new kernel equal
+    bit for bit, one launch counted a call of each kernel."""
+    before = (groupnorm.stats_launches, groupnorm.stats_cluster_launches)
+    s1 = groupnorm.groupnorm_partial_stats(x, G)
+    s1b = groupnorm.groupnorm_partial_stats(x, G)
+    mean = s1 / (x[0].numel() // G)
+    s2 = groupnorm.groupnorm_partial_stats(x, G, mean)
+    s2b = groupnorm.groupnorm_partial_stats(x, G, mean)
+    c1 = groupnorm._groupnorm_partial_stats_cluster(x, G)
+    c2 = groupnorm._groupnorm_partial_stats_cluster(x, G, mean)
+    torch.cuda.synchronize()
+    assert (groupnorm.stats_launches - before[0],
+            groupnorm.stats_cluster_launches - before[1]) == (4, 2)
+    assert torch.equal(s1, s1b) and torch.equal(s2, s2b)
+    want1 = groupnorm.groupnorm_partial_stats_plain(x, G)
+    want2 = groupnorm.groupnorm_partial_stats_plain(x, G, mean)
+    for got1, got2 in ((s1, s2), (c1, c2)):
+        _stats_close(got1, want1, x, G, "sum")
+        _stats_close(got2, want2, x, G, "squares")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", STATS_SHAPES)
+def test_stats_kernel_matches_plain_and_the_earlier_kernel(cuda_device,
+                                                            dtype, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    x, _, _ = _gn_inputs(shape, dtype, gen, cuda_device)
+    _stats_against(x, _groups(shape[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stats_kernel_on_an_unaligned_view(cuda_device, dtype):
+    """A contiguous x whose data starts one element past a 16-byte
+    boundary takes the scalar path of both stats kernels."""
+    shape = (2, 128, 16, 32)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    flat = (torch.randn(1 + 2 * 128 * 16 * 32, generator=gen,
+                        device=cuda_device) * 2 + 0.5).to(dtype)
+    x = flat[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _stats_against(x, _groups(shape[1]))
+
+
+@pytest.mark.cuda
+def test_stats_floor_and_forced_calls_refuse_bad_shapes(cuda_device):
+    """The empty kernel launches on the stats plan's grid and returns 0;
+    both stats entries and the empty kernel's refuse groups that do not
+    divide C, which the wrappers raise."""
+    from itsd_tpu_torch.kernels import _build
+
+    x = torch.zeros((2, 64, 4, 4), dtype=torch.bfloat16, device=cuda_device)
+    groupnorm._groupnorm_stats_floor(x, 32)
+    torch.cuda.synchronize()
+    lib = _build.load().lib
+    out = torch.zeros((2, 32), device=cuda_device)
+    stream = _build.stream_ptr(x)
+    code = _build.DTYPE_CODES[x.dtype]
+    for entry in ("itsd_groupnorm_partial_stats",
+                  "itsd_groupnorm_partial_stats_cluster"):
+        assert getattr(lib, entry)(x.data_ptr(), None, out.data_ptr(), 2, 64,
+                                   16, 24, code, stream) != 0
+    assert lib.itsd_groupnorm_stats_floor(x.data_ptr(), 2, 64, 16, 24, code,
+                                          stream) != 0
+    with pytest.raises(ValueError, match="do not divide"):
+        groupnorm._groupnorm_partial_stats_cluster(x, 24)
+    with pytest.raises(ValueError, match="do not divide"):
+        groupnorm._groupnorm_stats_floor(x, 24)
 
 
 @pytest.mark.cuda

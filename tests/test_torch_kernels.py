@@ -309,7 +309,7 @@ def test_a_batch_past_the_grid_cap_raises_before_any_launch(monkeypatch):
 COUNTERS = ("launches", "mma_launches", "wide_launches", "dq_launches",
             "dq_mma_launches", "dq_wide_launches", "dkv_launches",
             "dkv_mma_launches", "dkv_wide_launches", "mma_sync_launches",
-            "dkv_mma_sync_launches")
+            "dq_mma_sync_launches", "dkv_mma_sync_launches")
 
 
 def _plain_path_launches_nothing(dtype, C, N=16):
@@ -360,6 +360,7 @@ def test_cpu_tensors_at_the_wide_widths_launch_no_kernel(dtype, C):
     ("flash_attention_bwd_dq_mma.cu", "MMA_MAX_C", None),
     ("flash_attention_bwd_mma.cu", "MMA_MAX_C", None),
     ("flash_attention_hopper.cu", "MMA_MAX_C", None),
+    ("flash_attention_bwd_dq_hopper.cu", "MMA_MAX_C", None),
     ("flash_attention_bwd_dkv_hopper.cu", "MMA_MAX_C", None),
     ("flash_attention_wide.cu", "WIDE_MAX_C", "MMA_MAX_C"),
     ("flash_attention_bwd_dq_wide.cu", "WIDE_MAX_C", "MMA_MAX_C"),
@@ -396,7 +397,9 @@ def test_every_entry_point_has_its_ctypes_signature():
                                    else param.split()[-2]])
             found[name] = tuple(types)
     assert {"itsd_flash_attention_wide", "itsd_flash_bwd_dq_wide",
-            "itsd_flash_bwd_dkv_wide"} <= set(found)
+            "itsd_flash_bwd_dkv_wide", "itsd_flash_bwd_dq_mma_sync",
+            "itsd_groupnorm_partial_stats_cluster",
+            "itsd_groupnorm_stats_floor"} <= set(found)
     assert found == _build.SIGNATURES
 
 
@@ -408,6 +411,7 @@ def test_build_commands_are_one_nvcc_per_source_for_sm90a(tmp_path):
             "flash_attention_bwd_dq_mma.cu", "flash_attention_wide.cu",
             "flash_attention_bwd_dq_wide.cu",
             "flash_attention_bwd_wide.cu", "flash_attention_hopper.cu",
+            "flash_attention_bwd_dq_hopper.cu",
             "flash_attention_bwd_dkv_hopper.cu"} <= {p.name for p in srcs}
     assert len(cmds) == len(srcs)
     for cmd, src in zip(cmds, srcs):
@@ -445,6 +449,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("wrapper", ["_flash_mma_sync",
+                                     "_flash_bwd_dq_mma_sync",
                                      "_flash_bwd_dkv_mma_sync"])
 def test_mma_sync_forced_calls_take_no_cpu_tensor(wrapper):
     """The forced calls of the mma.sync kernels (which the Hopper kernels
@@ -458,6 +463,51 @@ def test_mma_sync_forced_calls_take_no_cpu_tensor(wrapper):
     with pytest.raises(ValueError, match="CUDA tensors only"):
         getattr(attention, wrapper)(*args)
     assert [getattr(attention, n) for n in COUNTERS] == before
+
+
+GN_COUNTERS = ("launches", "stats_launches", "apply_launches",
+               "stats_cluster_launches")
+
+
+@pytest.mark.parametrize("wrapper,with_mean", [
+    ("_groupnorm_partial_stats_cluster", False),
+    ("_groupnorm_partial_stats_cluster", True),
+    ("_groupnorm_stats_floor", False)])
+def test_stats_forced_calls_take_no_cpu_tensor(wrapper, with_mean,
+                                               monkeypatch):
+    """The forced calls of the earlier stats kernel (the new one's
+    yardstick) and of the empty kernel on the new plan's grid have no plain
+    version: a CPU tensor raises before any build or launch, and no count
+    moves."""
+    calls = []
+    monkeypatch.setattr(_build, "load", lambda: calls.append("load"))
+    x = torch.zeros((2, 8, 4, 4), dtype=torch.bfloat16)
+    args = (x, 4)
+    if with_mean:
+        args += (torch.zeros((2, 4)),)
+    before = [getattr(groupnorm, n) for n in GN_COUNTERS]
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        getattr(groupnorm, wrapper)(*args)
+    assert calls == []
+    assert [getattr(groupnorm, n) for n in GN_COUNTERS] == before
+
+
+def test_stats_on_cpu_tensors_take_the_plain_version(monkeypatch):
+    """``groupnorm_partial_stats`` hands a CPU tensor to its plain version
+    (the sum, and the squared deviations around a given mean) without
+    loading the library or counting a launch."""
+    calls = []
+    monkeypatch.setattr(_build, "load", lambda: calls.append("load"))
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 8, 4, 4), generator=gen).to(torch.bfloat16)
+    before = [getattr(groupnorm, n) for n in GN_COUNTERS]
+    s1 = groupnorm.groupnorm_partial_stats(x, 4)
+    assert torch.equal(s1, groupnorm.groupnorm_partial_stats_plain(x, 4))
+    mean = s1 / 32
+    assert torch.equal(groupnorm.groupnorm_partial_stats(x, 4, mean),
+                       groupnorm.groupnorm_partial_stats_plain(x, 4, mean))
+    assert calls == []
+    assert [getattr(groupnorm, n) for n in GN_COUNTERS] == before
 
 
 def test_parse_sass_counts_opcodes_per_kernel():
