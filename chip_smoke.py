@@ -21,8 +21,8 @@ Phases, each ending with one line that carries its elapsed seconds:
    nvcc per source, all started together, and a link (its time and the
    ``-Xptxas -v`` registers and spills; a spill fails the run); the
    ``HGMMA`` and ``UTMALDG`` instructions of each Hopper kernel (the mma
-   route's forward, dq and dk/dv) in ``cuobjdump -sass`` of the library,
-   none of either failing the run;
+   route's forward, dq and dk/dv, the wide route's forward and dk/dv) in
+   ``cuobjdump -sass`` of the library, none of either failing the run;
 2. forward kernels: GroupNorm+swish and flash attention against their
    plain PyTorch versions at every shape the eval path (batch 8) and the
    train path (batch 128) give them, and the CFG model's guided eval
@@ -33,9 +33,10 @@ Phases, each ending with one line that carries its elapsed seconds:
    bf16 at C <= 256, and "wide", of bf16 at 256 < C <= 1024: the CFG
    model's C=512 and C=1024) and the CUDA-core one ("simt", the route of
    f32); the simt kernel is checked and timed on the same bf16 inputs as
-   the tensor-core one at every shape, and where bf16 takes mma, the
-   mma.sync forward that the Hopper kernel replaced (forced calls, timed
-   in turns with it). Also at Picard's folded batches
+   the tensor-core one at every shape, and the mma.sync forward that the
+   Hopper kernel replaced (forced calls) is checked at every shape and
+   timed in turns with it: on the wide route at every tag, on the mma
+   route at the train step. Also at Picard's folded batches
    (phase 13's time grid of 50 points in the batch: 400 rows for the
    unconditional UNet, 800 for the guided CFG UNet) and at phase 15's
    search folds (32 rows for the unconditional UNet: 4 chunked candidates,
@@ -66,7 +67,10 @@ Phases, each ending with one line that carries its elapsed seconds:
    turns with it, and an empty kernel on its grid (a launch's own cost);
    and each call cut into 2 and 4 row slices, whose stats, summed, must
    equal the stats kernel's on the whole and whose outputs, normalized with
-   the global statistics, the fused kernel's;
+   the global statistics, the fused kernel's. Last, the "plain" route at
+   the widths no kernel takes (C=1028 and C=6, bf16 and f32): the forward,
+   lse, gradients and backward entry equal the plain version's bit for
+   bit, counted in ``plain_calls``, no kernel launched;
 3. eval path: ``runner.evaluate`` at the full width of the CIFAR-10 UNet
    (ch 128, ch_mult 1,2,2,2, attention at 16x16, batch 8, 32x32, bf16,
    T=1000) on seeded weights; the kernels' launch counts must be exactly
@@ -78,9 +82,10 @@ Phases, each ending with one line that carries its elapsed seconds:
    one fed noise sequence;
 5. backward: the dq and dk/dv kernels (each on its bf16 route and on
    simt, as in phase 2; both on the wide route at C=512 and C=1024 and at
-   the flagship's C=384; where bf16 takes mma, the mma.sync dq and dk/dv
+   the flagship's C=384; the mma.sync dk/dv (and, on the mma route, dq)
    that the Hopper kernels replaced too, each timed in turns with its
-   Hopper kernel) against their
+   Hopper kernel: the wide route's at every tag, the mma route's at the
+   train step) against their
    plain versions at both train
    paths' shapes, gradient search's (the unconditional eval batch 8 and
    the CFG dual batch 16), one more C and the flagship's [1, 4096, 384],
@@ -105,7 +110,8 @@ Phases, each ending with one line that carries its elapsed seconds:
 8. CUDA tests: ``python -m pytest --noconftest -m cuda -q
    tests/test_torch_cuda.py`` in a subprocess, against the library built in
    phase 1; its pass count is printed and a failure fails the run (it runs
-   after phase 12);
+   beside phase 16, whose parity checks time nothing, and phase 17 waits
+   for it);
 9. guided eval path: ``runner.evaluate`` of the conditional UNet at the
    full width of ``configs/cifar10_cfg.yaml`` (ch 128, ch_mult
    1,4,8,8,4,2, 548 M parameters, bf16) on seeded weights, batch 8: CFG
@@ -313,9 +319,21 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12
 # Kernels built from csrc/flash_attention_hopper.cu (4 padded widths, with
 # and without lse), csrc/flash_attention_bwd_dq_hopper.cu (4 widths, each
-# also packing several samples a tile for N <= 64 past 132 samples) and
-# csrc/flash_attention_bwd_dkv_hopper.cu (4 widths).
-HOPPER_INSTANTIATIONS = 20
+# also packing several samples a tile for N <= 64 past 132 samples),
+# csrc/flash_attention_bwd_dkv_hopper.cu (4 widths),
+# csrc/flash_attention_wide_hopper.cu (3 padded widths, each also packing;
+# the lse a runtime choice) and csrc/flash_attention_bwd_dkv_wide_hopper.cu
+# (3 widths, each also packing).
+HOPPER_INSTANTIATIONS = 32
+# The tags whose steps time the mma route's mma.sync yardsticks (forced
+# calls) in turns with the Hopper kernels: the row's "work" step only
+# (PERF.md holds their comparisons at every tag); their checks against the
+# plain versions stay at every tag. The wide route's mma.sync forward and
+# dk/dv are timed at every wide tag.
+MMA_SYNC_TIMED = ("train",)
+# The tags whose steps also time the simt kernels on f32 inputs (the f32
+# parity paths' route) beside SDPA in f32 and the f32 bound (67 TFLOP/s).
+SIMT_F32_TIMED = ("train", "cond_train")
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
 
@@ -1158,28 +1176,31 @@ def check_rows_make_the_whole(gn_calls, batch, K, dev):
     return worst
 
 
-def check_flash_forward(attn_calls, dev, timer, n, with_lse):
+def check_flash_forward(attn_calls, dev, timer, n, with_lse, tag):
     """The flash forward kernels (with and without lse) against their plain
     version at every [B, N, C] of ``attn_calls``: the route's kernel in
     bf16 (mma or wide) and in f32 (simt), and the simt kernel on the bf16
-    inputs too; where bf16 takes mma, also the mma.sync kernel that the
-    Hopper kernel replaced (forced calls). Times at bf16 of the route's
-    kernel and of the simt kernel on the same inputs (the variant with lse
-    when ``with_lse``, as on a train path), and of the mma.sync kernel in
-    turns with the Hopper one. Rows: the route's kernel at each shape, the
-    simt kernel's forced calls where bf16 takes wide (the calls bf16 sent
-    to simt before the wide kernels), the mma.sync kernel's where bf16
-    takes mma. Returns {kernel: (max error, rows)}."""
+    inputs too; where bf16 takes mma or wide, also the mma.sync kernel
+    that the Hopper kernel replaced (forced calls). Times at bf16 of the
+    route's kernel and of the simt kernel on the same inputs (the variant
+    with lse when ``with_lse``, as on a train path), and of the mma.sync
+    kernel in turns with the Hopper one (the mma route's at the steps of
+    ``MMA_SYNC_TIMED`` only, the wide route's at every ``tag``). Rows: the
+    route's kernel at each shape, the simt kernel's forced calls where
+    bf16 takes wide (the calls bf16 sent to simt before the wide kernels),
+    the mma.sync kernel's where it was timed. Returns {kernel: (max error,
+    rows)}."""
     from itsd_tpu_torch.kernels import attention
 
     gen = torch.Generator(device=dev).manual_seed(1)
     names = ("flash_attention_mma", "flash_attention_wide",
-             "flash_attention_simt", "flash_attention_mma_sync")
+             "flash_attention_simt", "flash_attention_mma_sync",
+             "flash_attention_wide_sync", "flash_attention_simt_f32")
     worst = dict.fromkeys(names, 0.0)
     rows = {k: [] for k in names}
     log("flash_attention: [B,N,C] x calls/step route | max_abs_err o: route "
-        "bf16, simt bf16 f32, mma.sync bf16; lse | ms (bf16): route simt "
-        "plain sdpa bound mma.sync | host us/call route simt")
+        "bf16, simt bf16 f32, mma.sync (mma or wide) bf16; lse | ms (bf16): "
+        "route simt plain sdpa bound mma.sync | host us/call route simt")
 
     def forward(fn_lse, fn, q, k, v, scale, what):
         o, lse = fn_lse(q, k, v, scale)
@@ -1196,8 +1217,8 @@ def check_flash_forward(attn_calls, dev, timer, n, with_lse):
         errs, lse_err = {(bf16_route, torch.bfloat16): nan}, 0.0
         cases = ([(torch.bfloat16, bf16_route)] if bf16_route != "simt"
                  else [])
-        if bf16_route == "mma":
-            cases.append((torch.bfloat16, "mma_sync"))
+        if bf16_route in ("mma", "wide"):
+            cases.append((torch.bfloat16, f"{bf16_route}_sync"))
         for dtype, which in cases + [(torch.bfloat16, "simt"),
                                      (torch.float32, "simt")]:
             what = f"flash_attention {which} {(B, N, C)} {dtype}"
@@ -1209,8 +1230,9 @@ def check_flash_forward(attn_calls, dev, timer, n, with_lse):
                     lambda q, k, v, s: attention.spatial_attention(q, k, v),
                     q, k, v, scale, what)
             else:
-                forced = (attention._flash_mma_sync if which == "mma_sync"
-                          else attention._flash_simt)
+                forced = {"mma_sync": attention._flash_mma_sync,
+                          "wide_sync": attention._flash_wide_sync,
+                          "simt": attention._flash_simt}[which]
                 o, lse = forward(
                     lambda *a: forced(*a, emit_lse=True),
                     lambda *a: forced(*a, emit_lse=False),
@@ -1238,10 +1260,14 @@ def check_flash_forward(attn_calls, dev, timer, n, with_lse):
         route_fn = ((lambda: attention.attention_with_lse(q, k, v, scale))
                     if with_lse else
                     (lambda: attention.spatial_attention(q, k, v)))
-        if bf16_route == "mma":
+        sync_timed = (bf16_route == "wide"
+                      or (bf16_route == "mma" and tag in MMA_SYNC_TIMED))
+        if sync_timed:
+            forced = (attention._flash_mma_sync if bf16_route == "mma"
+                      else attention._flash_wide_sync)
             r_ms, y_ms, r_host, _ = timer.pair(
-                route_fn, lambda: attention._flash_mma_sync(
-                    q, k, v, scale, emit_lse=with_lse), n=n)
+                route_fn, lambda: forced(q, k, v, scale, emit_lse=with_lse),
+                n=n)
         elif bf16_route != "simt":
             r_ms, r_host = timer(route_fn, n=n)
         s_ms, s_host = timer(
@@ -1259,7 +1285,7 @@ def check_flash_forward(attn_calls, dev, timer, n, with_lse):
             f"{errs[bf16_route, torch.bfloat16]:.3g}, "
             f"{errs['simt', torch.bfloat16]:.3g} "
             f"{errs['simt', torch.float32]:.3g} "
-            f"{errs.get(('mma_sync', torch.bfloat16), nan):.3g}; "
+            f"{errs.get((f'{bf16_route}_sync', torch.bfloat16), nan):.3g}; "
             f"{lse_err:.3g} | "
             f"{r_ms:.5f} {s_ms:.5f} {p_ms:.5f} {l_ms:.5f} "
             f"{max(by_bytes, by_ops):.5f} {y_ms:.5f} | {r_host:.1f} "
@@ -1267,12 +1293,30 @@ def check_flash_forward(attn_calls, dev, timer, n, with_lse):
         rows[f"flash_attention_{bf16_route}"].append(
             (calls, r_ms if bf16_route != "simt" else s_ms, p_ms, l_ms,
              by_bytes, by_ops))
-        if bf16_route == "mma":
-            rows["flash_attention_mma_sync"].append(
+        if sync_timed:
+            rows[f"flash_attention_{bf16_route}_sync"].append(
                 (calls, y_ms, p_ms, l_ms, by_bytes, by_ops))
         if bf16_route == "wide":
             rows["flash_attention_simt"].append(
                 (calls, s_ms, p_ms, l_ms, by_bytes, by_ops))
+        if tag in SIMT_F32_TIMED:
+            # the simt kernel on f32 inputs, its own route, beside SDPA in
+            # f32 (no plain time: the row's plain_ms is not reported)
+            qf, kf, vf = (_rand((B, N, C), gen, dev, torch.float32)
+                          for _ in range(3))
+            f_ms, _ = timer(
+                (lambda: attention.attention_with_lse(qf, kf, vf, scale))
+                if with_lse else
+                (lambda: attention.spatial_attention(qf, kf, vf)), n=n)
+            fl_ms, _ = timer(lambda: F.scaled_dot_product_attention(
+                qf[:, None], kf[:, None], vf[:, None]), n=n)
+            fb_bytes, fb_ops = attn_bound_ms(B, N, C, 4)
+            log(f"  {[B, N, C]} x{calls} simt f32 | ms: simt "
+                f"{f_ms:.5f} sdpa {fl_ms:.5f} bound (67 TFLOP/s) "
+                f"{max(fb_bytes, fb_ops):.5f}")
+            rows["flash_attention_simt_f32"].append(
+                (calls, f_ms, 0.0, fl_ms, fb_bytes, fb_ops))
+            del qf, kf, vf
     return {k: (worst[k], rows[k]) for k in rows}
 
 
@@ -1370,6 +1414,56 @@ def sum_order_bounds(q, k, v, do, lse, scale):
             torch.einsum("bqk,bqc->bkc", e, q.float().abs()), None)
 
 
+def check_plain_route(dev):
+    """Phase 2's check of the "plain" route: at the widths no kernel takes
+    (C=1028 and C=6; JAX computes them through ``_attention_xla``), the
+    routed forward (``spatial_attention``) and its gradients on the card
+    equal the plain version's and autograd's of it bit for bit, in bf16
+    and f32; the forward with lse and the backward entry points take their
+    plain versions; every call counts in ``plain_calls`` and no kernel is
+    launched."""
+    from itsd_tpu_torch.kernels import attention
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for C in (1028, 6):
+        for dtype in (torch.bfloat16, torch.float32):
+            what = f"plain route C={C} {dtype}"
+            if any(attention.route(dtype, C, kernel) != "plain"
+                   for kernel in attention.KERNELS):
+                fail(f"{what}: route does not name the plain version")
+            q, k, v, do = (_rand((2, 64, C), gen, dev, dtype)
+                           for _ in range(4))
+            scale = C ** -0.5
+            n0 = read_launches()
+            ins = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = attention.spatial_attention(*ins)
+            grads = torch.autograd.grad(o, ins, do)
+            o_lse, lse = attention.attention_with_lse(q, k, v, scale)
+            bwd = attention.attention_bwd(q, k, v, o_lse, lse, do, scale)
+            n1 = read_launches()
+            ref = [t.clone().requires_grad_() for t in (q, k, v)]
+            want = attention.attention_plain(*ref, scale)
+            want_grads = torch.autograd.grad(want, ref, do)
+            want_o, want_lse = attention.attention_plain_stats(q, k, v,
+                                                               scale)
+            want_bwd = attention.attention_bwd_plain(q, k, v, o_lse, lse, do,
+                                                     scale)
+            torch.cuda.synchronize()
+            moved = {name: n1[name] - n0[name] for name in n1
+                     if n1[name] != n0[name]}
+            if moved != {"attention_plain": 3}:
+                fail(f"{what}: counts moved {moved}, want 3 plain calls "
+                     "and no launch")
+            if not (torch.equal(o, want) and torch.equal(o_lse, want_o)
+                    and torch.equal(lse, want_lse)
+                    and all(map(torch.equal, grads, want_grads))
+                    and all(map(torch.equal, bwd, want_bwd))):
+                fail(f"{what}: not the plain version's values")
+    log("  plain route (C=1028, C=6; bf16, f32): forward, lse, gradients and "
+        "the backward entry equal the plain version's, 3 plain calls each, "
+        "no launch")
+
+
 def check_forward_kernels(paths, rows_paths, dev, timer):
     """Phase 2: both forward kernels at the shapes of each path of
     ``paths`` (tag -> ((gn_calls, attn_calls), timing reps, with lse)), and
@@ -1389,9 +1483,10 @@ def check_forward_kernels(paths, rows_paths, dev, timer):
             out["groupnorm_swish"][tag] = check_groupnorm(gn_calls, dev,
                                                           timer, n)
         for name, res in check_flash_forward(attn_calls, dev, timer, n,
-                                             with_lse).items():
+                                             with_lse, tag).items():
             out[name][tag] = res
     out["groupnorm_swish"]["flagship"] = check_flagship_groupnorm(dev, timer)
+    check_plain_route(dev)
     for tag, (gn_calls, batch) in rows_paths.items():
         for K in ROWS_K:
             for name, res in check_groupnorm_rows(gn_calls, batch, K, dev,
@@ -1415,9 +1510,12 @@ def check_backward_kernels(paths, dev, timer):
     ones, on the same inputs, the Hopper dq and dk/dv each in turns with
     its mma.sync kernel, beside the plain versions, the backward of
     SDPA and the bound (rows: the route's kernels, the mma.sync kernels
-    where bf16 takes mma, and the simt dq's and dk/dv's forced calls where
-    it takes wide). Then the GroupNorm backward at each path's shapes.
-    Returns {kernel: {tag: (max error, rows)}}."""
+    where they were timed, and the simt dq's and dk/dv's forced calls where
+    it takes wide). Where bf16 takes wide, the mma.sync dk/dv the Hopper
+    kernel replaced is held too (forced calls) and timed in turns with it
+    at every tag; the mma route's mma.sync dq and dk/dv are timed at the
+    steps of ``MMA_SYNC_TIMED`` only. Then the GroupNorm backward at each
+    path's shapes. Returns {kernel: {tag: (max error, rows)}}."""
     from itsd_tpu_torch.kernels import attention
 
     t0 = time.perf_counter()
@@ -1425,13 +1523,14 @@ def check_backward_kernels(paths, dev, timer):
     kernels = ("flash_bwd_dq_mma", "flash_bwd_dq_wide", "flash_bwd_dq_simt",
                "flash_bwd_dkv_mma", "flash_bwd_dkv_wide",
                "flash_bwd_dkv_simt", "flash_bwd_dq_mma_sync",
-               "flash_bwd_dkv_mma_sync")
+               "flash_bwd_dkv_mma_sync", "flash_bwd_dkv_wide_sync",
+               "flash_bwd_dq_simt_f32", "flash_bwd_dkv_simt_f32")
     out = {k: {} for k in kernels}
     log("flash backward: [B,N,C] x calls/step routes | max_abs_err dq dk dv "
         "bf16 (routes), dq dk dv bf16 simt, dq dk dv f32 (simt), dq dk dv "
-        "bf16 mma.sync | ms (bf16): dq route simt plain bound mma.sync, dkv "
-        "route simt plain bound mma.sync | sdpa bwd ms | host us/call dq "
-        "route simt, dkv route simt")
+        "bf16 mma.sync (mma; wide: dk dv) | ms (bf16): dq route simt plain "
+        "bound mma.sync, dkv route simt plain bound mma.sync | sdpa bwd ms "
+        "| host us/call dq route simt, dkv route simt")
     log(f"  tolerance: f32 {BWD_F32_TOL}; bf16 2^-7*max|plain| + "
         f"2^-7*|plain| + the f32 summation-order bound of dq and dk")
 
@@ -1519,6 +1618,21 @@ def check_backward_kernels(paths, dev, timer):
                     errs["mma_sync"] = check_grads(
                         f"{what} mma.sync", got, want, dtype, bounds)
                     note(errs["mma_sync"], ("mma_sync", "mma_sync"))
+                if routes[1] == "wide":
+                    # the mma.sync dk/dv the Hopper kernel replaced, forced
+                    n0 = read_launches()
+                    got = attention._flash_bwd_dkv_wide_sync(q, k, v, do,
+                                                             lse, dd, scale)
+                    n1 = read_launches()
+                    torch.cuda.synchronize()
+                    if (n1["flash_bwd_dkv_wide_sync"]
+                            - n0["flash_bwd_dkv_wide_sync"] != 1):
+                        fail(f"{what}: flash_bwd_dkv_wide_sync not launched")
+                    e = check_grads(f"{what} wide mma.sync", got, want[1:],
+                                    dtype, bounds[1:], names=("dk", "dv"))
+                    errs["wide_sync"] = e
+                    worst["flash_bwd_dkv_wide_sync"] = max(
+                        worst["flash_bwd_dkv_wide_sync"], *e)
             if bf16_routes == ("simt", "simt"):
                 errs["simt"] = errs[torch.bfloat16]
             q, k, v, do = (_rand((B, N, C), gen, dev, torch.bfloat16)
@@ -1527,7 +1641,8 @@ def check_backward_kernels(paths, dev, timer):
             dd = attention.row_dd(o, do).contiguous()
             args = (q, k, v, do, lse, dd, scale)
             dq_sync_ms = float("nan")
-            if bf16_routes[0] == "mma":
+            mma_timed = tag in MMA_SYNC_TIMED
+            if bf16_routes[0] == "mma" and mma_timed:
                 dq_ms, dq_sync_ms, dq_host, _ = timer.pair(
                     lambda: attention.flash_bwd_dq(*args),
                     lambda: attention._flash_bwd_dq_mma_sync(*args), n=n)
@@ -1539,10 +1654,15 @@ def check_backward_kernels(paths, dev, timer):
             dq_simt_ms, dq_simt_host = timer(
                 lambda: attention._flash_bwd_dq_simt(*args), n=n)
             sync_ms = float("nan")
-            if bf16_routes[1] == "mma":
+            dkv_sync_timed = (bf16_routes[1] == "wide"
+                              or (bf16_routes[1] == "mma" and mma_timed))
+            if dkv_sync_timed:
+                forced = (attention._flash_bwd_dkv_mma_sync
+                          if bf16_routes[1] == "mma"
+                          else attention._flash_bwd_dkv_wide_sync)
                 dkv_ms, sync_ms, dkv_host, _ = timer.pair(
                     lambda: attention.flash_bwd_dkv(*args),
-                    lambda: attention._flash_bwd_dkv_mma_sync(*args), n=n)
+                    lambda: forced(*args), n=n)
             elif bf16_routes[1] != "simt":
                 dkv_ms, dkv_host = timer(
                     lambda: attention.flash_bwd_dkv(*args), n=n)
@@ -1561,6 +1681,7 @@ def check_backward_kernels(paths, dev, timer):
                 sdpa_out, (qs, ks, vs), do[:, None], retain_graph=True), n=n)
             del qs, ks, vs, sdpa_out
             b_dq = attn_bound_ms(B, N, C, 2, tensors=5, products=3)
+            sync_errs = errs.get("mma_sync", errs.get("wide_sync", ()))
             b_dkv = attn_bound_ms(B, N, C, 2, tensors=6, products=4)
             calls = counts.get((B, N, C), 0)
             log(f"  {[B, N, C]} x{calls} dq {bf16_routes[0]} dkv "
@@ -1568,7 +1689,7 @@ def check_backward_kernels(paths, dev, timer):
                 f"{' '.join(f'{x:.3g}' for x in errs[torch.bfloat16])}, "
                 f"{' '.join(f'{x:.3g}' for x in errs['simt'])}, "
                 f"{' '.join(f'{x:.3g}' for x in errs[torch.float32])}, "
-                f"{' '.join(f'{x:.3g}' for x in errs.get('mma_sync', ()))}"
+                f"{' '.join(f'{x:.3g}' for x in sync_errs)}"
                 f" | dq {dq_ms:.5f} {dq_simt_ms:.5f} {dq_plain:.5f} "
                 f"{max(b_dq):.5f} {dq_sync_ms:.5f}, dkv {dkv_ms:.5f} "
                 f"{simt_ms:.5f} "
@@ -1585,11 +1706,11 @@ def check_backward_kernels(paths, dev, timer):
             rows[f"flash_bwd_dkv_{dkv_route}"].append(
                 (calls, dkv_ms if dkv_route != "simt" else simt_ms,
                  dkv_plain, sdpa_ms, *b_dkv))
-            if dq_route == "mma":
+            if dq_route == "mma" and mma_timed:
                 rows["flash_bwd_dq_mma_sync"].append(
                     (calls, dq_sync_ms, dq_plain, sdpa_ms, *b_dq))
-            if dkv_route == "mma":
-                rows["flash_bwd_dkv_mma_sync"].append(
+            if dkv_sync_timed:
+                rows[f"flash_bwd_dkv_{dkv_route}_sync"].append(
                     (calls, sync_ms, dkv_plain, sdpa_ms, *b_dkv))
             if dq_route == "wide":
                 rows["flash_bwd_dq_simt"].append(
@@ -1597,6 +1718,36 @@ def check_backward_kernels(paths, dev, timer):
             if dkv_route == "wide":
                 rows["flash_bwd_dkv_simt"].append(
                     (calls, simt_ms, dkv_plain, sdpa_ms, *b_dkv))
+            if tag in SIMT_F32_TIMED:
+                # the simt dq and dk/dv on f32 inputs, their own route,
+                # beside SDPA's f32 backward and the f32 bound
+                qf, kf, vf, dof = (_rand((B, N, C), gen, dev, torch.float32)
+                                   for _ in range(4))
+                of, lsef = attention.attention_with_lse(qf, kf, vf, scale)
+                fargs = (qf, kf, vf, dof, lsef,
+                         attention.row_dd(of, dof).contiguous(), scale)
+                fq_ms, _ = timer(lambda: attention._flash_bwd_dq_simt(*fargs),
+                                 n=n)
+                fkv_ms, _ = timer(
+                    lambda: attention._flash_bwd_dkv_simt(*fargs), n=n)
+                qs, ks, vs = (t[:, None].detach().requires_grad_()
+                              for t in (qf, kf, vf))
+                sdpa_out = F.scaled_dot_product_attention(qs, ks, vs)
+                fsdpa_ms, _ = timer(lambda: torch.autograd.grad(
+                    sdpa_out, (qs, ks, vs), dof[:, None],
+                    retain_graph=True), n=n)
+                del qs, ks, vs, sdpa_out
+                fb_dq = attn_bound_ms(B, N, C, 4, tensors=5, products=3)
+                fb_dkv = attn_bound_ms(B, N, C, 4, tensors=6, products=4)
+                log(f"  {[B, N, C]} x{calls} simt f32 | ms: dq {fq_ms:.5f} "
+                    f"bound {max(fb_dq):.5f}, dkv {fkv_ms:.5f} bound "
+                    f"{max(fb_dkv):.5f} (67 TFLOP/s) | sdpa bwd f32 "
+                    f"{fsdpa_ms:.5f}")
+                rows["flash_bwd_dq_simt_f32"].append(
+                    (calls, fq_ms, 0.0, fsdpa_ms, *fb_dq))
+                rows["flash_bwd_dkv_simt_f32"].append(
+                    (calls, fkv_ms, 0.0, fsdpa_ms, *fb_dkv))
+                del qf, kf, vf, dof, of, lsef, fargs
         for k in kernels:
             out[k][tag] = (worst[k], rows[k])
         if gn_calls:
@@ -1681,17 +1832,20 @@ def reset_launches():
     groupnorm.stats_cluster_launches = 0
     attention.launches = attention.mma_launches = 0
     attention.wide_launches = attention.mma_sync_launches = 0
+    attention.wide_sync_launches = attention.plain_calls = 0
     attention.dq_launches = attention.dq_mma_launches = 0
     attention.dq_wide_launches = attention.dq_mma_sync_launches = 0
     attention.dkv_launches = attention.dkv_mma_launches = 0
     attention.dkv_wide_launches = attention.dkv_mma_sync_launches = 0
+    attention.dkv_wide_sync_launches = 0
 
 
 def read_launches() -> dict:
     """Launches so far: the totals of each function (every route) and, for
     the flash forward, dq and dk/dv, of each route's kernel (and of the
-    forced calls of the mma.sync forward, dq and dk/dv, and of the earlier
-    stats kernel)."""
+    forced calls of the mma.sync forward, dq and dk/dv, of the wide route's
+    mma.sync forward and dk/dv, and of the earlier stats kernel), and the
+    attention calls of the "plain" route."""
     from itsd_tpu_torch.kernels import attention, groupnorm
 
     a = attention
@@ -1705,24 +1859,32 @@ def read_launches() -> dict:
         dkv_wide=a.dkv_wide_launches, fwd_mma_sync=a.mma_sync_launches,
         dq_mma_sync=a.dq_mma_sync_launches,
         dkv_mma_sync=a.dkv_mma_sync_launches,
+        fwd_wide_sync=a.wide_sync_launches,
+        dkv_wide_sync=a.dkv_wide_sync_launches, plain=a.plain_calls,
         gn_stats_cluster=groupnorm.stats_cluster_launches)
 
 
 def route_counts(gn=0, fwd=0, fwd_mma=0, fwd_wide=0, dq=0, dq_mma=0,
                  dq_wide=0, dkv=0, dkv_mma=0, dkv_wide=0, gn_stats=0,
                  gn_apply=0, fwd_mma_sync=0, dq_mma_sync=0, dkv_mma_sync=0,
+                 fwd_wide_sync=0, dkv_wide_sync=0, plain=0,
                  gn_stats_cluster=0):
     """Launch counts in the layout of ``read_launches``: each function's
-    total and each route's kernel (simt: what the others leave), and the
-    forced calls of the mma.sync forward, dq and dk/dv and of the earlier
-    stats kernel (no path makes one)."""
+    total and each route's kernel (simt: what the others leave), the
+    forced calls of the mma.sync forward, dq and dk/dv, of the wide
+    route's mma.sync forward and dk/dv and of the earlier stats kernel (no
+    path makes one), and the "plain" route's attention calls (no path
+    makes one either: every width the UNets and the ViT give has a
+    kernel)."""
     return {"groupnorm_swish": gn, "groupnorm_partial_stats": gn_stats,
             "groupnorm_partial_stats_cluster": gn_stats_cluster,
             "groupnorm_apply": gn_apply, "flash_attention": fwd,
             "flash_attention_mma": fwd_mma,
             "flash_attention_wide": fwd_wide,
             "flash_attention_mma_sync": fwd_mma_sync,
-            "flash_attention_simt": fwd - fwd_mma - fwd_wide - fwd_mma_sync,
+            "flash_attention_wide_sync": fwd_wide_sync,
+            "flash_attention_simt": (fwd - fwd_mma - fwd_wide - fwd_mma_sync
+                                     - fwd_wide_sync),
             "flash_bwd_dq": dq, "flash_bwd_dq_mma": dq_mma,
             "flash_bwd_dq_wide": dq_wide,
             "flash_bwd_dq_mma_sync": dq_mma_sync,
@@ -1730,7 +1892,10 @@ def route_counts(gn=0, fwd=0, fwd_mma=0, fwd_wide=0, dq=0, dq_mma=0,
             "flash_bwd_dkv": dkv,
             "flash_bwd_dkv_mma": dkv_mma, "flash_bwd_dkv_wide": dkv_wide,
             "flash_bwd_dkv_mma_sync": dkv_mma_sync,
-            "flash_bwd_dkv_simt": dkv - dkv_mma - dkv_wide - dkv_mma_sync}
+            "flash_bwd_dkv_wide_sync": dkv_wide_sync,
+            "flash_bwd_dkv_simt": (dkv - dkv_mma - dkv_wide - dkv_mma_sync
+                                   - dkv_wide_sync),
+            "attention_plain": plain}
 
 
 def step_counts(gn, attn, mma=0, wide=0):
@@ -1964,7 +2129,8 @@ def _category(name: str) -> str:
     for cat, keys in (
             ("flash_fwd mma (ours)", ("flash_fwd_hopper_kernel",
                                       "flash_fwd_mma_kernel")),
-            ("flash_fwd wide (ours)", ("flash_fwd_wide_kernel",)),
+            ("flash_fwd wide (ours)", ("flash_fwd_wide_hopper_kernel",
+                                       "flash_fwd_wide_kernel")),
             ("flash_fwd simt (ours)", ("flash_fwd_kernel",)),
             ("flash_bwd_dq mma (ours)", ("flash_bwd_dq_hopper_kernel",
                                          "flash_bwd_dq_mma_kernel")),
@@ -1972,7 +2138,8 @@ def _category(name: str) -> str:
             ("flash_bwd_dq simt (ours)", ("flash_bwd_dq_kernel",)),
             ("flash_bwd_dkv mma (ours)", ("flash_bwd_dkv_hopper_kernel",
                                           "flash_bwd_dkv_mma_kernel")),
-            ("flash_bwd_dkv wide (ours)", ("flash_bwd_dkv_wide_kernel",)),
+            ("flash_bwd_dkv wide (ours)", ("flash_bwd_dkv_wide_hopper_kernel",
+                                           "flash_bwd_dkv_wide_kernel")),
             ("flash_bwd_dkv simt (ours)", ("flash_bwd_dkv_kernel",)),
             ("groupnorm (ours)", ("groupnorm_swish_kernel",
                                   "groupnorm_stats", "groupnorm_apply")),
@@ -5243,21 +5410,44 @@ def vit_path(tmpdir, card_line):
     return {"vit_train": launches, "vit_eval": eval_launches}, f32_launches
 
 
-def cuda_tests():
+_CHILDREN = []  # processes the script started: killed if a phase fails
+
+
+def start_cuda_tests():
     """Phase 8: the CUDA tests in a subprocess, against the library that
-    phase 1 built (the same sources hash to the same build directory)."""
-    t0 = time.perf_counter()
+    phase 1 built (the same sources hash to the same build directory),
+    started beside phase 16, whose parity checks time nothing (the tests'
+    own ~100 s then overlap it); ``cuda_tests`` waits for them. Returns
+    (process, its output file, start time, command)."""
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
            "-p", "no:cacheprovider", "tests/test_torch_cuda.py"]
-    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                          timeout=600)
-    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(cmd, cwd=root, stdout=out,
+                            stderr=subprocess.STDOUT, text=True)
+    _CHILDREN.append(proc)
+    return proc, out, time.perf_counter(), cmd
+
+
+def cuda_tests(started):
+    """Phase 8's end: waits for the tests ``start_cuda_tests`` started and
+    fails unless every one passed."""
+    proc, out, t0, cmd = started
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail("the CUDA tests did not end within 600 s")
+    out.seek(0)
+    text = out.read()
+    out.close()
+    tail = text.strip().splitlines()[-1:] or [""]
     log(f"{' '.join(cmd[1:])}: exit {proc.returncode}; {tail[0]}")
     if proc.returncode != 0:
-        log(proc.stdout[-6000:] + proc.stderr[-2000:])
+        log(text[-8000:])
         fail(f"the CUDA tests failed (exit {proc.returncode})")
-    phase_done(8, "CUDA tests", t0)
+    phase_done(8, "CUDA tests (beside phase 16)", t0)
 
 
 # The paths whose launches the kernels' JSON line carries: the bf16 runs of
@@ -5287,16 +5477,22 @@ WORK = {"train": "one train step of configs/cifar10_uncond.yaml (batch 128, "
                             "(batch 2, bf16) on the rows of one of 2 seq "
                             "ranks: its 51 GroupNorm calls"}
 # name -> (source, the TPU kernel it replaces, the step its times sum over)
-# The mma forward, dq and dk/dv are the Hopper kernels; the mma.sync
-# kernels they replaced (EARLIER) are timed beside them in phases 2 and 5,
-# and their times stand in those entries as "mma_sync_ms".
+# The mma forward, dq and dk/dv and the wide forward and dk/dv are the
+# Hopper kernels; the mma.sync kernels they replaced (EARLIER) are timed
+# beside them in phases 2 and 5 (the mma route's at the train step only,
+# MMA_SYNC_TIMED), and their times stand in those entries as
+# "mma_sync_ms".
 EARLIER = {
     "flash_attention_mma": ("flash_attention_mma_sync",
                             "itsd_tpu_torch/csrc/flash_attention_mma.cu"),
     "flash_bwd_dq_mma": ("flash_bwd_dq_mma_sync",
                          "itsd_tpu_torch/csrc/flash_attention_bwd_dq_mma.cu"),
     "flash_bwd_dkv_mma": ("flash_bwd_dkv_mma_sync",
-                          "itsd_tpu_torch/csrc/flash_attention_bwd_mma.cu")}
+                          "itsd_tpu_torch/csrc/flash_attention_bwd_mma.cu"),
+    "flash_attention_wide": ("flash_attention_wide_sync",
+                             "itsd_tpu_torch/csrc/flash_attention_wide.cu"),
+    "flash_bwd_dkv_wide": ("flash_bwd_dkv_wide_sync",
+                           "itsd_tpu_torch/csrc/flash_attention_bwd_wide.cu")}
 # The stats kernel's entry carries beside its two-launch total (its "ms",
 # "library_ms": torch.sum over the sum's launches, and "bound_ms"): the
 # kernel over the sum's launches alone ("sum_ms", like for like with
@@ -5318,9 +5514,9 @@ KERNELS = {
                         "flagship_rows_k2"),
     "flash_attention_mma": ("itsd_tpu_torch/csrc/flash_attention_hopper.cu",
                             "itsd_tpu/kernels/attention.py:50", "train"),
-    "flash_attention_wide": ("itsd_tpu_torch/csrc/flash_attention_wide.cu",
-                             "itsd_tpu/kernels/attention.py:50",
-                             "cond_train"),
+    "flash_attention_wide": (
+        "itsd_tpu_torch/csrc/flash_attention_wide_hopper.cu",
+        "itsd_tpu/kernels/attention.py:50", "cond_train"),
     "flash_attention_simt": ("itsd_tpu_torch/csrc/flash_attention.cu",
                              "itsd_tpu/kernels/attention.py:50",
                              "cond_train"),
@@ -5334,9 +5530,9 @@ KERNELS = {
     "flash_bwd_dkv_mma": (
         "itsd_tpu_torch/csrc/flash_attention_bwd_dkv_hopper.cu",
         "itsd_tpu/kernels/attention.py:260", "train"),
-    "flash_bwd_dkv_wide": ("itsd_tpu_torch/csrc/flash_attention_bwd_wide.cu",
-                           "itsd_tpu/kernels/attention.py:260",
-                           "cond_train"),
+    "flash_bwd_dkv_wide": (
+        "itsd_tpu_torch/csrc/flash_attention_bwd_dkv_wide_hopper.cu",
+        "itsd_tpu/kernels/attention.py:260", "cond_train"),
     "flash_bwd_dkv_simt": ("itsd_tpu_torch/csrc/flash_attention_bwd.cu",
                            "itsd_tpu/kernels/attention.py:260",
                            "cond_train"),
@@ -5377,11 +5573,12 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
         entry["launches_counted_on"] = counted_on
         entry["launches_by_path"] = by_path
         entry["launches_f32_parity"] = f32_launches[name]
+        def key(tag):
+            return "flagship_batch1" if tag == "flagship" else f"{tag}_step"
+
         for tag, (_, rows) in by_tag.items():
             if tag != work and rows:
-                key = ("flagship_batch1" if tag == "flagship"
-                       else f"{tag}_step")
-                entry[key] = rows_entry(rows)
+                entry[key(tag)] = rows_entry(rows)
         if name in EARLIER:
             earlier, earlier_source = EARLIER[name]
             sync = fwd[earlier] if earlier in fwd else bwd[earlier]
@@ -5389,8 +5586,15 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
             entry["mma_sync_ms"] = rows_entry(sync[work][1])["ms"]
             for tag, (_, rows) in sync.items():
                 if tag != work and rows:
-                    entry[f"{tag}_step"]["mma_sync_ms"] = rows_entry(
-                        rows)["ms"]
+                    entry[key(tag)]["mma_sync_ms"] = rows_entry(rows)["ms"]
+        f32 = fwd.get(f"{name}_f32") or bwd.get(f"{name}_f32")
+        if f32:
+            # the simt kernel on f32 inputs (its route), SDPA in f32 and the
+            # f32 bound, summed over each step timed so
+            entry["f32"] = {
+                tag: {k: v for k, v in rows_entry(rows).items()
+                      if k != "plain_ms"}
+                for tag, (_, rows) in f32.items() if rows}
         if name not in fwd:
             entry["library"] = ("one SDPA backward, which computes dq, dk "
                                 "and dv together")
@@ -5431,6 +5635,19 @@ def main() -> int:
     build()
     if sys.argv[1:2] == ["--sp-control"]:
         return sp_control(smi_line)
+    try:
+        return run_phases(dev, name, smi_line)
+    finally:
+        # a failed phase leaves no test process behind
+        for proc in list(_CHILDREN):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+
+def run_phases(dev, name, smi_line) -> int:
+    """Phases 2-22 and the result lines (``main`` after the build)."""
     with tempfile.TemporaryDirectory(prefix="itsd_chip_smoke_") as tmpdir:
         cfg = eval_config(tmpdir)
         params = seeded_params(cfg)
@@ -5541,7 +5758,9 @@ def main() -> int:
         clf, searched, _ = search_path(params, cparams, tmpdir, smi_line,
                                        held)
         paths.update(searched)
+        tests = start_cuda_tests()
         f32.append(search_parity(params, cparams, clf, tmpdir))
+        cuda_tests(tests)
         tracked, clip_path = tracked_path(
             os.path.join(tmpdir, "ckpt"), f"ckpt_{TRAIN_EPOCHS - 1}",
             cparams, params, clf, tmpdir, smi_line, timer)
@@ -5554,7 +5773,6 @@ def main() -> int:
         paths.update(vit)
         f32.append(vit_f32)
         paths["cond_train"] = cond_train_path(tmpdir, smi_line)
-    cuda_tests()
     f32_launches = {k: sum(n[k] for n in f32) for k in f32[0]}
     log(smi_line)
     log(json.dumps({"kernels": kernel_json(fwd, bwd, paths, f32_launches)}))

@@ -1,5 +1,9 @@
 // Single-head flash attention backward, dk and dv, on the tensor cores for
-// wide rows: bf16 over [B, N, C] with 256 < C <= 1024.
+// wide rows: bf16 over [B, N, C] with 256 < C <= 1024, on mma.sync. The
+// "wide" route's dk/dv is now the Hopper kernel of
+// csrc/flash_attention_bwd_dkv_wide_hopper.cu (wgmma, TMA, mbarriers); this
+// one stays as its same-call yardstick, itsd_flash_bwd_dkv_wide_sync, which
+// only the forced call _flash_bwd_dkv_wide_sync reaches.
 //
 // Replaces the TPU kernel itsd_tpu/kernels/attention.py:_flash_bwd_dkv_kernel
 // (launched by _attention_flash_bwd) for bf16 inputs with C % 16 == 0 and
@@ -349,12 +353,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // bf16; lse, dd: [B, N] f32. Needs C % 16 == 0, 256 < C <= 1024 and
 // 16-byte aligned q, k, v, dout, dk, dv. Any N >= 1.
 // Returns the first CUDA error of the launch, or 0.
-extern "C" int itsd_flash_bwd_dkv_wide(const void* q, const void* k,
-                                       const void* v, const void* dout,
-                                       const void* lse, const void* dd,
-                                       void* dk, void* dv, int B, int N,
-                                       int C, float scale, int dtype,
-                                       void* stream) {
+extern "C" int itsd_flash_bwd_dkv_wide_sync(const void* q, const void* k,
+                                            const void* v, const void* dout,
+                                            const void* lse, const void* dd,
+                                            void* dk, void* dv, int B, int N,
+                                            int C, float scale, int dtype,
+                                            void* stream) {
   if (dtype != ITSD_BF16 || B <= 0 || B > 65535 || N <= 0 || C <= kMinC ||
       C > kMaxC || C % 16 != 0)
     return (int)cudaErrorInvalidValue;

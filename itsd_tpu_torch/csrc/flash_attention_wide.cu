@@ -1,6 +1,10 @@
 // Single-head flash attention forward on the tensor cores for wide rows:
 // o = softmax(q k^T * scale) v over [B, N, C] in bf16 with
-// 256 < C <= 1024, with an optional f32 per-row log-sum-exp [B, N].
+// 256 < C <= 1024, with an optional f32 per-row log-sum-exp [B, N], on
+// mma.sync. The "wide" route's forward is now the Hopper kernel of
+// csrc/flash_attention_wide_hopper.cu (wgmma, TMA, mbarriers); this one
+// stays as its same-call yardstick, itsd_flash_attention_wide_sync, which
+// only the forced call _flash_wide_sync reaches.
 //
 // Replaces the TPU kernel itsd_tpu/kernels/attention.py:_flash_fwd_kernel
 // (launched by _flash_forward for _attention_flash and
@@ -339,10 +343,11 @@ cudaError_t dispatch_lse(const void* q, const void* k, const void* v,
 // [B, N] f32, or null for the plain forward. Needs C % 16 == 0,
 // 256 < C <= 1024, and 16-byte aligned q, k, v, o. Any N >= 1.
 // Returns the first CUDA error of the launch, or 0.
-extern "C" int itsd_flash_attention_wide(const void* q, const void* k,
-                                         const void* v, void* o, void* lse,
-                                         int B, int N, int C, float scale,
-                                         int dtype, void* stream) {
+extern "C" int itsd_flash_attention_wide_sync(const void* q, const void* k,
+                                              const void* v, void* o,
+                                              void* lse, int B, int N, int C,
+                                              float scale, int dtype,
+                                              void* stream) {
   if (dtype != ITSD_BF16 || B <= 0 || B > 65535 || N <= 0 || C <= kMinC ||
       C > kMaxC || C % 16 != 0)
     return (int)cudaErrorInvalidValue;

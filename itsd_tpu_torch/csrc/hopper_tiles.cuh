@@ -1,5 +1,7 @@
 // Hopper (sm_90a) building blocks of the tensor-core attention kernels
-// (flash_attention_hopper.cu, flash_attention_bwd_dkv_hopper.cu):
+// (flash_attention_hopper.cu, flash_attention_bwd_dq_hopper.cu,
+// flash_attention_bwd_dkv_hopper.cu, flash_attention_wide_hopper.cu,
+// flash_attention_bwd_dkv_wide_hopper.cu):
 // mbarriers, TMA copies through 3-D and 1-D tensor maps, wgmma shared-memory
 // descriptors and the bf16 wgmma products with f32 accumulation, and the
 // host-side encoding of the tensor maps.
@@ -232,6 +234,41 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // The wgmma products, each register named (PTX lists every register of
 // the accumulator).
+
+// d (+)= A.B^T, m64n16k16: A (64 x 16) and B (16 x 16) K-major in
+// shared memory (descriptors), d 8 f32 a thread; d is overwritten when
+// `accumulate` is 0.
+__device__ __forceinline__ void mma_ss_n16(float (&d)[8], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate)
+      : "memory");
+}
+
+// d (+)= A.B^T, m64n32k16: A (64 x 16) and B (32 x 16) K-major in
+// shared memory (descriptors), d 16 f32 a thread; d is overwritten when
+// `accumulate` is 0.
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate)
+      : "memory");
+}
 
 // d (+)= A.B^T, m64n64k16: A (64 x 16) and B (64 x 16) K-major in
 // shared memory (descriptors), d 32 f32 a thread; d is overwritten when
@@ -475,8 +512,13 @@ __device__ __forceinline__ void mma_rs_n256(float (&d)[128],
 template <int kN>
 __device__ __forceinline__ void mma_ss(float (&d)[kN / 2], uint64_t a,
                                        uint64_t b, int accumulate) {
-  static_assert(kN == 64 || kN == 128, "mma_ss: N is 64 or 128");
-  if constexpr (kN == 64) {
+  static_assert(kN == 16 || kN == 32 || kN == 64 || kN == 128,
+                "mma_ss: N is 16, 32, 64 or 128");
+  if constexpr (kN == 16) {
+    mma_ss_n16(d, a, b, accumulate);
+  } else if constexpr (kN == 32) {
+    mma_ss_n32(d, a, b, accumulate);
+  } else if constexpr (kN == 64) {
     mma_ss_n64(d, a, b, accumulate);
   } else {
     mma_ss_n128(d, a, b, accumulate);

@@ -61,6 +61,8 @@ SIGNATURES = {
                                       _I, _P),
     "itsd_flash_attention_wide": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                                   _P),
+    "itsd_flash_attention_wide_sync": (_P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                       _I, _P),
     # q, k, v, dout, lse, dd, dq, B, N, C, scale, dtype, stream
     "itsd_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                           _P),
@@ -79,6 +81,8 @@ SIGNATURES = {
                                     _I, _F, _I, _P),
     "itsd_flash_bwd_dkv_wide": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _F, _I, _P),
+    "itsd_flash_bwd_dkv_wide_sync": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _F, _I, _P),
 }
 
 

@@ -16,22 +16,31 @@ from the function, the dtype and C:
   ``csrc/flash_attention_bwd_dq_hopper.cu``,
   ``csrc/flash_attention_bwd_dkv_hopper.cu``);
 * "wide": bf16 with C % 16 == 0 and 256 < C <= 1024, on the tensor cores
-  with the head dimension split across warps
-  (``csrc/flash_attention_wide.cu``, ``csrc/flash_attention_bwd_dq_wide.cu``,
-  ``csrc/flash_attention_bwd_wide.cu``): the CFG UNet's C=512 and C=1024
-  and the flagship's C=384;
+  with the head dimension split over column owners: the forward and dk/dv
+  on Hopper's wgmma, TMA and mbarriers, two warpgroups a block and the
+  ranks of a thread-block cluster, each owner recomputing the scores over
+  all of C (``csrc/flash_attention_wide_hopper.cu``,
+  ``csrc/flash_attention_bwd_dkv_wide_hopper.cu``), dq on mma.sync with the
+  head dimension split across warps (``csrc/flash_attention_bwd_dq_wide.cu``):
+  the CFG UNet's C=512 and C=1024 and the flagship's C=384;
 * "simt": everything else the kernels take (C % 4 == 0 up to 1024), f32
   above all, on the CUDA cores in f32 (``csrc/flash_attention.cu``,
   ``csrc/flash_attention_bwd.cu``), so that f32 never runs at the tensor
-  cores' reduced precision.
+  cores' reduced precision;
+* "plain": the widths no kernel takes (C % 4 != 0 or C > 1024), whatever
+  the dtype: the plain versions, computed on the card, as JAX computes
+  ``_attention_xla`` wherever ``_flash_eligible`` fails. The width alone
+  decides it; these calls count in ``plain_calls``, not in the launches.
 
-The mma.sync forward, dq and dk/dv that the Hopper kernels replaced
+The mma.sync kernels that the Hopper kernels replaced
 (``csrc/flash_attention_mma.cu``, ``csrc/flash_attention_bwd_dq_mma.cu``,
-``csrc/flash_attention_bwd_mma.cu``) stay in the library as their
-same-call yardstick: only the forced calls ``_flash_mma_sync``,
-``_flash_bwd_dq_mma_sync`` and ``_flash_bwd_dkv_mma_sync`` reach them
-(tests and ``chip_smoke.py``), as ``_flash_simt`` and the other ``_simt``
-calls force the CUDA-core kernels; no path routes there.
+``csrc/flash_attention_bwd_mma.cu``; on the wide route
+``csrc/flash_attention_wide.cu`` and ``csrc/flash_attention_bwd_wide.cu``)
+stay in the library as their same-call yardsticks: only the forced calls
+``_flash_mma_sync``, ``_flash_bwd_dq_mma_sync``, ``_flash_bwd_dkv_mma_sync``,
+``_flash_wide_sync`` and ``_flash_bwd_dkv_wide_sync`` reach them (tests and
+``chip_smoke.py``), as ``_flash_simt`` and the other ``_simt`` calls force
+the CUDA-core kernels; no path routes there.
 
 Every entry point dispatches on where its inputs lie: CPU tensors go to the
 plain versions, CUDA tensors to the kernels, and anything the kernels do not
@@ -70,11 +79,15 @@ from . import _build
 # Kernel launches so far: the forward (both entry points, every route), the
 # dq kernel and the dk/dv kernel (every route), and of those the ones on
 # the "mma" and "wide" routes, and the forced calls of the mma.sync forward,
-# dq and dk/dv. A run resets them to check what went through the kernels.
+# dq and dk/dv (and of the wide route's mma.sync forward and dk/dv). A run
+# resets them to check what went through the kernels. ``plain_calls``
+# counts the calls of the "plain" route on CUDA tensors, which launch no
+# kernel of this module.
 launches = 0
 mma_launches = 0
 wide_launches = 0
 mma_sync_launches = 0
+wide_sync_launches = 0
 dq_launches = 0
 dq_mma_launches = 0
 dq_wide_launches = 0
@@ -83,6 +96,8 @@ dkv_launches = 0
 dkv_mma_launches = 0
 dkv_wide_launches = 0
 dkv_mma_sync_launches = 0
+dkv_wide_sync_launches = 0
+plain_calls = 0
 
 MAX_C = 1024  # kMaxC of csrc/flash_attention.cu and flash_attention_bwd.cu
 MMA_MAX_C = 256  # kMaxC of the csrc/flash_attention*_mma.cu kernels
@@ -101,20 +116,29 @@ def check_batch(B: int) -> None:
 
 def route(dtype: torch.dtype, C: int, kernel: str) -> str:
     """The kernel a CUDA call of ``kernel`` ("forward", "dq" or "dkv")
-    takes: "mma" (tensor cores) for bf16 with C % 16 == 0 and C <= 256;
-    "wide" (tensor cores, the head dimension split across warps) for bf16
-    with C % 16 == 0 and 256 < C <= 1024; "simt" (CUDA cores, f32
-    arithmetic) for the rest."""
+    takes: "plain" (the plain version, no kernel) for C % 4 != 0 or
+    C > 1024, whatever the dtype; "mma" (tensor cores) for bf16 with
+    C % 16 == 0 and C <= 256; "wide" (tensor cores, the head dimension
+    split over column owners) for bf16 with C % 16 == 0 and
+    256 < C <= 1024; "simt" (CUDA cores, f32 arithmetic) for the rest."""
     if kernel not in KERNELS:
         raise ValueError(f"route: kernel must be one of {KERNELS}, got "
                          f"{kernel!r}")
+    if C % 4 or C > MAX_C:
+        return "plain"
     if dtype != torch.bfloat16 or C % 16:
         return "simt"
     if C <= MMA_MAX_C:
         return "mma"
-    if C <= WIDE_MAX_C:
-        return "wide"
-    return "simt"
+    return "wide"
+
+
+def _plain(fn, *args):
+    """A "plain" route's call: ``fn`` (a plain version) on ``args``,
+    counted in ``plain_calls``."""
+    global plain_calls
+    plain_calls += 1
+    return fn(*args)
 
 
 def _scores(q, k, scale):
@@ -170,13 +194,15 @@ def _check(q, k, v, *more):
 def _entry(kernels, base, which):
     """The C entry point of a route's kernel: ``base`` for "simt",
     ``base_mma`` or ``base_wide`` for the tensor-core ones (and
-    ``base_mma_sync`` for the mma.sync kernels' forced calls)."""
+    ``base_mma_sync`` or ``base_wide_sync`` for the mma.sync kernels'
+    forced calls)."""
     name = base if which == "simt" else f"{base}_{which}"
     return getattr(kernels.lib, name), name
 
 
 def _launch_forward(q, k, v, scale, emit_lse, which):
     global launches, mma_launches, wide_launches, mma_sync_launches
+    global wide_sync_launches
     _check(q, k, v)
     B, N, C = q.shape
     o = torch.empty_like(q)
@@ -193,13 +219,18 @@ def _launch_forward(q, k, v, scale, emit_lse, which):
     mma_launches += which == "mma"
     wide_launches += which == "wide"
     mma_sync_launches += which == "mma_sync"
+    wide_sync_launches += which == "wide_sync"
     return (o, lse) if emit_lse else o
 
 
 def _flash(q, k, v, scale, emit_lse):
-    """The forward through the kernel ``route`` names."""
-    return _launch_forward(q, k, v, scale, emit_lse,
-                           route(q.dtype, q.shape[-1], "forward"))
+    """The forward through the kernel ``route`` names, or the plain version
+    at a width no kernel takes."""
+    which = route(q.dtype, q.shape[-1], "forward")
+    if which == "plain":
+        return _plain(attention_plain_stats if emit_lse else attention_plain,
+                      q, k, v, scale)
+    return _launch_forward(q, k, v, scale, emit_lse, which)
 
 
 def _flash_simt(q, k, v, scale, emit_lse):
@@ -224,6 +255,15 @@ def _flash_mma_sync(q, k, v, scale, emit_lse):
     calls it."""
     _require_cuda(q, "_flash_mma_sync")
     return _launch_forward(q, k, v, scale, emit_lse, "mma_sync")
+
+
+def _flash_wide_sync(q, k, v, scale, emit_lse):
+    """The forward through the mma.sync kernel that the Hopper kernel
+    replaced on the "wide" route (bf16, C % 16 == 0, 256 < C <= 1024), so
+    that the two can be held and timed on the same inputs. No path of the
+    program calls it."""
+    _require_cuda(q, "_flash_wide_sync")
+    return _launch_forward(q, k, v, scale, emit_lse, "wide_sync")
 
 
 def row_dd(o, do, dlse=None):
@@ -324,9 +364,12 @@ def _launch_dq(q, k, v, do, lse, dd, scale, which):
 
 
 def flash_bwd_dq(q, k, v, do, lse, dd, scale):
-    """dq through the dq kernel ``route`` names (CUDA tensors only)."""
-    return _launch_dq(q, k, v, do, lse, dd, scale,
-                      route(q.dtype, q.shape[-1], "dq"))
+    """dq through the dq kernel ``route`` names (CUDA tensors only), or the
+    plain version at a width no kernel takes."""
+    which = route(q.dtype, q.shape[-1], "dq")
+    if which == "plain":
+        return _plain(flash_bwd_dq_plain, q, k, v, do, lse, dd, scale)
+    return _launch_dq(q, k, v, do, lse, dd, scale, which)
 
 
 def _flash_bwd_dq_simt(q, k, v, do, lse, dd, scale):
@@ -346,7 +389,7 @@ def _flash_bwd_dq_mma_sync(q, k, v, do, lse, dd, scale):
 
 def _launch_dkv(q, k, v, do, lse, dd, scale, which):
     global dkv_launches, dkv_mma_launches, dkv_wide_launches
-    global dkv_mma_sync_launches
+    global dkv_mma_sync_launches, dkv_wide_sync_launches
     _check(q, k, v, do)
     _check_rows(lse, q, "lse")
     _check_rows(dd, q, "dd")
@@ -363,14 +406,17 @@ def _launch_dkv(q, k, v, do, lse, dd, scale, which):
     dkv_mma_launches += which == "mma"
     dkv_wide_launches += which == "wide"
     dkv_mma_sync_launches += which == "mma_sync"
+    dkv_wide_sync_launches += which == "wide_sync"
     return dk, dv
 
 
 def flash_bwd_dkv(q, k, v, do, lse, dd, scale):
     """(dk, dv) through the dk/dv kernel ``route`` names (CUDA tensors
-    only)."""
-    return _launch_dkv(q, k, v, do, lse, dd, scale,
-                       route(q.dtype, q.shape[-1], "dkv"))
+    only), or the plain version at a width no kernel takes."""
+    which = route(q.dtype, q.shape[-1], "dkv")
+    if which == "plain":
+        return _plain(flash_bwd_dkv_plain, q, k, v, do, lse, dd, scale)
+    return _launch_dkv(q, k, v, do, lse, dd, scale, which)
 
 
 def _flash_bwd_dkv_simt(q, k, v, do, lse, dd, scale):
@@ -388,14 +434,24 @@ def _flash_bwd_dkv_mma_sync(q, k, v, do, lse, dd, scale):
     return _launch_dkv(q, k, v, do, lse, dd, scale, "mma_sync")
 
 
+def _flash_bwd_dkv_wide_sync(q, k, v, do, lse, dd, scale):
+    """(dk, dv) through the mma.sync kernel that the Hopper kernel replaced
+    on the "wide" route, so that the two can be held and timed on the same
+    inputs. No path of the program calls it."""
+    _require_cuda(q, "_flash_bwd_dkv_wide_sync")
+    return _launch_dkv(q, k, v, do, lse, dd, scale, "wide_sync")
+
+
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                   scale: float, dlse=None):
-    """(dq, dk, dv): ``attention_bwd_plain`` for CPU tensors; for CUDA
-    tensors dd in PyTorch, then the dq kernel and the dk/dv kernel that
-    ``route`` names."""
+    """(dq, dk, dv): ``attention_bwd_plain`` for CPU tensors and, on the
+    "plain" route, for CUDA tensors; else dd in PyTorch, then the dq kernel
+    and the dk/dv kernel that ``route`` names."""
     if _on_cpu(q):
         return attention_bwd_plain(q, k, v, o, lse, do, scale, dlse)
+    if route(q.dtype, q.shape[-1], "dq") == "plain":
+        return _plain(attention_bwd_plain, q, k, v, o, lse, do, scale, dlse)
     dd = row_dd(o, do, dlse).contiguous()
     return (flash_bwd_dq(q, k, v, do, lse, dd, scale),
             *flash_bwd_dkv(q, k, v, do, lse, dd, scale))
@@ -455,11 +511,16 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One device's attention over all of ``[B, N, C]``, scale
     ``C ** -0.5``: "xla" the plain version; "flash" the kernels on CUDA
     tensors (through ``flash_attention`` when a gradient is wanted, else
-    the forward alone, without the lse) and the plain version on the
-    CPU."""
+    the forward alone, without the lse), the plain version (its gradient
+    autograd's) on CUDA tensors of a width no kernel takes, as JAX's
+    ``_attention_xla`` outside ``_flash_eligible``, and the plain version
+    on the CPU."""
     scale = float(q.shape[-1]) ** -0.5
     if path == "xla":
         return attention_plain(q, k, v, scale)
+    if (not _on_cpu(q)
+            and route(q.dtype, q.shape[-1], "forward") == "plain"):
+        return _plain(attention_plain, q, k, v, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return flash_attention(q, k, v, scale)[0]

@@ -22,7 +22,12 @@ the private ``_flash_simt``, ``_flash_bwd_dq_simt`` and
 ``_flash_bwd_dkv_simt``. Run one route's tests with ``-k mma``, ``-k wide``
 or ``-k simt``, the dq tests of one route with ``-k "dq and mma"``,
 ``-k "wide and cfg"`` or ``-k "routes and simt"``, the tests at the CFG
-UNet's widths and maps with ``-k cfg``, the Hopper forward, dq and dk/dv
+UNet's widths and maps with ``-k cfg``, the wide route's Hopper forward and
+dk/dv (which replaced the mma.sync kernels that ``_flash_wide_sync`` and
+``_flash_bwd_dkv_wide_sync`` still reach) against their plain versions and
+the mma.sync kernels with ``-k "wide and hopper"``, the "plain" route (the
+widths no kernel takes, computed by the plain versions on the card) with
+``-k plain_route``, the Hopper forward, dq and dk/dv
 (the mma route's since they replaced the mma.sync kernels, which forced
 calls still reach: ``_flash_mma_sync``, ``_flash_bwd_dq_mma_sync``,
 ``_flash_bwd_dkv_mma_sync``) against their plain versions and the mma.sync
@@ -926,9 +931,10 @@ def test_stats_floor_and_forced_calls_refuse_bad_shapes(cuda_device):
 
 @pytest.mark.cuda
 def test_wide_entries_refuse_what_they_do_not_take(cuda_device):
-    """The wide entry points take bf16 with C % 16 == 0 and
-    256 < C <= 1024 only; anything else returns an error, which the
-    wrapper raises."""
+    """The wide entry points (the Hopper forward and dk/dv, the mma.sync
+    dq, and the mma.sync forward and dk/dv the Hopper kernels replaced)
+    take bf16 with C % 16 == 0 and 256 < C <= 1024 only; anything else
+    returns an error, which the wrapper raises."""
     from itsd_tpu_torch.kernels import _build
 
     lib = _build.load().lib
@@ -947,6 +953,11 @@ def test_wide_entries_refuse_what_they_do_not_take(cuda_device):
         assert lib.itsd_flash_bwd_dq_wide(p, p, p, p, lse.data_ptr(),
                                           lse.data_ptr(), p, 1, 8, C, 0.5,
                                           code, stream) != 0
+        assert lib.itsd_flash_attention_wide_sync(p, p, p, p, None, 1, 8, C,
+                                                  0.5, code, stream) != 0
+        assert lib.itsd_flash_bwd_dkv_wide_sync(
+            p, p, p, p, lse.data_ptr(), lse.data_ptr(), p, p, 1, 8, C, 0.5,
+            code, stream) != 0
     # C=520 passes the wrapper's checks (C % 4 == 0, C <= 1024); the
     # kernel's refusal is raised
     q = torch.zeros((1, 8, 520), dtype=torch.bfloat16, device=cuda_device)
@@ -955,6 +966,151 @@ def test_wide_entries_refuse_what_they_do_not_take(cuda_device):
         attention._launch_forward(q, q, q, 0.5, False, "wide")
     with pytest.raises(RuntimeError, match="flash_bwd_dq_wide: CUDA"):
         attention._launch_dq(q, q, q, q, lse, lse, 0.5, "wide")
+    with pytest.raises(RuntimeError, match="flash_bwd_dkv_wide: CUDA"):
+        attention._launch_dkv(q, q, q, q, lse, lse, 0.5, "wide")
+    with pytest.raises(RuntimeError,
+                       match="flash_attention_wide_sync: CUDA"):
+        attention._flash_wide_sync(q, q, q, 0.5, emit_lse=False)
+    with pytest.raises(RuntimeError, match="flash_bwd_dkv_wide_sync: CUDA"):
+        attention._flash_bwd_dkv_wide_sync(q, q, q, q, lse, lse, 0.5)
+
+
+# The wide route's forward and dk/dv run the Hopper kernels
+# (csrc/flash_attention_wide_hopper.cu,
+# csrc/flash_attention_bwd_dkv_wide_hopper.cu: wgmma, TMA, mbarriers, the
+# head dimension split over warpgroups and cluster ranks), which pad C to
+# 384, 512 or 1024 through the tensor maps' zero fill; the mma.sync kernels
+# they replaced stay as forced calls (``_flash_wide_sync``,
+# ``_flash_bwd_dkv_wide_sync``). Shapes: every width class (C=272 and 400
+# padded with a column block wholly past C, 528 and 768 on the C=1024
+# kernels, 1008) at N of one row, the CFG UNet's maps, one 64-row tile less
+# one, one and one more, ragged and whole multi-tile maps; the kernel
+# table's shapes (the flagship's batch 1 and 2, the guided eval, the CFG
+# UNet's C=1024 maps and 2x2 map at its train batch); then small N past the
+# card's 132 SMs, where a tile packs samples (a last tile in part among
+# them).
+WIDE_HOPPER_SHAPES = ([(2, N, C)
+                       for C in (272, 384, 400, 512, 528, 768, 1008, 1024)
+                       for N in (1, 4, 16, 63, 64, 65, 200, 256, 1024)]
+                      + [(1, 4096, 384), (2, 4096, 384), (16, 256, 512),
+                         (256, 64, 1024), (256, 16, 1024), (256, 4, 512)]
+                      + [(300, 7, 384), (800, 16, 1024), (1000, 3, 512),
+                         (133, 32, 512)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,C", WIDE_HOPPER_SHAPES)
+def test_wide_hopper_forward_matches_plain_and_mma_sync(cuda_device, B, N,
+                                                        C):
+    """The wide route's forward (the Hopper kernel), with and without lse,
+    against its plain version at the bf16 tolerance above (lse 2e-5), and
+    the mma.sync kernel it replaced (forced) held to the same limits. Two
+    launches agree bit for bit; the variant without lse writes the same
+    o; each launch counts on the wide route."""
+    assert attention.route(torch.bfloat16, C, "forward") == "wide"
+    gen = torch.Generator(device=cuda_device).manual_seed(B + N * 7 + C)
+    q, k, v = (torch.randn((B, N, C), generator=gen, device=cuda_device)
+               .to(torch.bfloat16) for _ in range(3))
+    scale = C ** -0.5
+    counts, sync0 = _counts(), attention.wide_sync_launches
+    o, lse = attention.attention_with_lse(q, k, v, scale)
+    o2 = attention.spatial_attention(q, k, v)
+    o3, lse3 = attention.attention_with_lse(q, k, v, scale)
+    o_sync, lse_sync = attention._flash_wide_sync(q, k, v, scale,
+                                                  emit_lse=True)
+    want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert _launched(counts)[:3] == (4, 0, 3)
+    assert attention.wide_sync_launches - sync0 == 1
+    assert o.dtype == torch.bfloat16 and o.shape == (B, N, C)
+    assert torch.equal(o, o2) and torch.equal(o, o3)
+    assert torch.equal(lse, lse3)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse_sync, want_lse, atol=2e-5, rtol=0)
+    _close_bf16(o, want_o, v)
+    _close_bf16(o_sync, want_o, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,C", WIDE_HOPPER_SHAPES)
+def test_wide_hopper_dkv_matches_plain_and_mma_sync(cuda_device, B, N, C):
+    """The wide route's dk/dv (the Hopper kernel), without and with dlse,
+    against its plain version at the bf16 tolerance plus, for dk, the f32
+    summation-order bound (``_dk_order_bound``), and the mma.sync kernel
+    it replaced (forced) held to the same limit. Two launches agree bit
+    for bit; each counts on the wide route."""
+    assert attention.route(torch.bfloat16, C, "dkv") == "wide"
+    gen = torch.Generator(device=cuda_device).manual_seed(B + N * 5 + C)
+    q, k, v, do = (torch.randn((B, N, C), generator=gen, device=cuda_device)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = C ** -0.5
+    o, lse = attention.attention_with_lse(q, k, v, scale)
+    bound = _dk_order_bound(q, k, v, do, lse, scale)
+    for dlse in (None, torch.randn((B, N), generator=gen,
+                                   device=cuda_device)):
+        dd = attention.row_dd(o, do, dlse).contiguous()
+        args = (q, k, v, do, lse, dd, scale)
+        counts, sync0 = _counts(), attention.dkv_wide_sync_launches
+        got = attention.flash_bwd_dkv(*args)
+        again = attention.flash_bwd_dkv(*args)
+        sync = attention._flash_bwd_dkv_wide_sync(*args)
+        want = attention.flash_bwd_dkv_plain(*args)
+        torch.cuda.synchronize()
+        assert _launched(counts)[6:] == (3, 0, 2)
+        assert attention.dkv_wide_sync_launches - sync0 == 1
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+        for kernel, grads in (("hopper", got), ("mma.sync", sync)):
+            for name, g, w, b in zip(("dk", "dv"), grads, want,
+                                     (bound, 0.0)):
+                assert g.dtype == torch.bfloat16 and g.shape == (B, N, C)
+                err = (g.float() - w.float()).abs()
+                limit = (BF16_RTOL * w.float().abs().max()
+                         + BF16_RTOL * w.float().abs() + b)
+                assert (err <= limit).all(), (
+                    f"{kernel} {name} dlse={dlse is not None}: max err "
+                    f"{err.max().item():.3g}, worst excess "
+                    f"{(err - limit).max().item():.3g}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1028, 6])
+def test_plain_route_on_the_card(cuda_device, dtype, C):
+    """At the widths no kernel takes (C % 4 != 0, C > 1024) ``route`` names
+    the plain version ("plain", as JAX takes ``_attention_xla`` there):
+    ``spatial_attention``'s output and gradients equal the plain version's
+    and autograd's of it bit for bit, ``attention_with_lse`` and
+    ``attention_bwd`` the plain versions'; each counts one ``plain_calls``
+    and no kernel counter moves."""
+    assert all(attention.route(dtype, C, kernel) == "plain"
+               for kernel in attention.KERNELS)
+    gen = torch.Generator(device=cuda_device).manual_seed(C)
+    q, k, v, do = (torch.randn((2, 64, C), generator=gen, device=cuda_device)
+                   .to(dtype) for _ in range(4))
+    scale = C ** -0.5
+    counts = _counts() + (attention.wide_sync_launches,
+                          attention.dkv_wide_sync_launches,
+                          attention.mma_sync_launches)
+    plain0 = attention.plain_calls
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = attention.spatial_attention(*ins)
+    grads = torch.autograd.grad(o, ins, do)
+    o_lse, lse = attention.attention_with_lse(q, k, v, scale)
+    bwd = attention.attention_bwd(q, k, v, o_lse, lse, do, scale)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = attention.attention_plain(*ref, scale)
+    want_grads = torch.autograd.grad(want, ref, do)
+    want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert attention.plain_calls - plain0 == 3
+    assert _counts() + (attention.wide_sync_launches,
+                        attention.dkv_wide_sync_launches,
+                        attention.mma_sync_launches) == counts
+    assert o.device.type == "cuda" and torch.equal(o, want)
+    assert all(map(torch.equal, grads, want_grads))
+    assert torch.equal(o_lse, want_o) and torch.equal(lse, want_lse)
+    assert all(map(torch.equal, bwd, attention.attention_bwd_plain(
+        q, k, v, o_lse, lse, do, scale)))
 
 
 @pytest.mark.cuda
@@ -988,9 +1144,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         groupnorm.groupnorm_swish(x.transpose(2, 3), w, w, 8)
     with pytest.raises(ValueError, match="weight"):
         groupnorm.groupnorm_swish(x, w.cpu(), w, 8)
+    # the widths no kernel takes go to the plain versions
+    # (test_plain_route_on_the_card); the forced calls, which have none,
+    # refuse them
     q = torch.randn((2, 16, 6), device=cuda_device)
     with pytest.raises(ValueError, match="C % 4"):
-        attention.spatial_attention(q, q, q)
+        attention._flash_simt(q, q, q, 0.5, emit_lse=False)
     q = torch.randn((2, 16, 32), device=cuda_device)
     with pytest.raises(TypeError, match="one dtype"):
         attention.spatial_attention(q, q.bfloat16(), q)
@@ -1001,7 +1160,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     for C in (6, 1028):
         q = torch.randn((2, 16, C), device=cuda_device)
         with pytest.raises(ValueError, match="C % 4"):
-            attention.attention_bwd(q, q, q, q, lse, q, 0.5)
+            attention._flash_bwd_dq_simt(q, q, q, q, lse, lse, 0.5)
+        with pytest.raises(ValueError, match="C % 4"):
+            attention._flash_bwd_dkv_simt(q, q, q, q, lse, lse, 0.5)
     q = torch.randn((2, 16, 32), device=cuda_device)
     with pytest.raises(ValueError, match="lse must be"):
         attention.attention_bwd(q, q, q, q, lse.double(), q, 0.5)

@@ -225,14 +225,20 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     (torch.bfloat16, 512, "wide"), (torch.float32, 16, "simt"),
     (torch.float32, 256, "simt"), (torch.float32, 384, "simt"),
     (torch.bfloat16, 768, "wide"), (torch.bfloat16, 1024, "wide"),
-    (torch.bfloat16, 1040, "simt"), (torch.bfloat16, 520, "simt"),
-    (torch.float32, 512, "simt"), (torch.float32, 1024, "simt")])
+    (torch.bfloat16, 1040, "plain"), (torch.bfloat16, 520, "simt"),
+    (torch.float32, 512, "simt"), (torch.float32, 1024, "simt"),
+    (torch.bfloat16, 1028, "plain"), (torch.float32, 6, "plain"),
+    (torch.float32, 1028, "plain")])
 def test_route_is_chosen_by_dtype_and_width(dtype, C, want, monkeypatch):
     """bf16 rows of a multiple of 16 up to 256 take the tensor-core
     kernels; from 272 to 1024 the wide tensor-core kernels, dq included;
-    f32 (kept off the tensor cores) and other widths the CUDA-core ones.
-    The forward, dq and dk/dv wrappers each hand their launch the route's
-    kernel (the launches are recorded, not made)."""
+    f32 (kept off the tensor cores) and other widths the kernels take
+    (C % 4 == 0, C <= 1024) the CUDA-core ones; C % 4 != 0 and C > 1024,
+    whatever the dtype, the plain versions ("plain", as JAX computes
+    ``_attention_xla`` outside ``_flash_eligible``). The forward, dq and
+    dk/dv wrappers each hand their launch the route's kernel (the launches
+    are recorded, not made), or on the "plain" route return the plain
+    version's values, launch nothing and count one plain call each."""
     routes = dict.fromkeys(attention.KERNELS, want)
     assert {kernel: attention.route(dtype, C, kernel)
             for kernel in routes} == routes
@@ -241,14 +247,29 @@ def test_route_is_chosen_by_dtype_and_width(dtype, C, want, monkeypatch):
         monkeypatch.setattr(attention, name,
                             lambda *a, name=name: chosen.append((name,
                                                                  a[-1])))
-    q = torch.zeros((1, 4, C), dtype=dtype)
-    lse = torch.zeros((1, 4))
-    attention._flash(q, q, q, 0.5, emit_lse=True)
-    attention.flash_bwd_dq(q, q, q, q, lse, lse, 0.5)
-    attention.flash_bwd_dkv(q, q, q, q, lse, lse, 0.5)
-    assert chosen == [("_launch_forward", routes["forward"]),
-                      ("_launch_dq", routes["dq"]),
-                      ("_launch_dkv", routes["dkv"])]
+    gen = torch.Generator().manual_seed(C)
+    q = torch.randn((1, 4, C), generator=gen).to(dtype)
+    lse = torch.randn((1, 4), generator=gen)
+    plain0 = attention.plain_calls
+    got = (attention._flash(q, q, q, 0.5, emit_lse=True),
+           attention.flash_bwd_dq(q, q, q, q, lse, lse, 0.5),
+           attention.flash_bwd_dkv(q, q, q, q, lse, lse, 0.5))
+    if want == "plain":
+        assert chosen == [] and attention.plain_calls - plain0 == 3
+        want_values = (attention.attention_plain_stats(q, q, q, 0.5),
+                       attention.flash_bwd_dq_plain(q, q, q, q, lse, lse,
+                                                    0.5),
+                       attention.flash_bwd_dkv_plain(q, q, q, q, lse, lse,
+                                                     0.5))
+        for g, w in zip(got, want_values):
+            g = (g,) if isinstance(g, torch.Tensor) else g
+            w = (w,) if isinstance(w, torch.Tensor) else w
+            assert all(torch.equal(a, b) for a, b in zip(g, w))
+    else:
+        assert chosen == [("_launch_forward", routes["forward"]),
+                          ("_launch_dq", routes["dq"]),
+                          ("_launch_dkv", routes["dkv"])]
+        assert attention.plain_calls == plain0
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -309,7 +330,8 @@ def test_a_batch_past_the_grid_cap_raises_before_any_launch(monkeypatch):
 COUNTERS = ("launches", "mma_launches", "wide_launches", "dq_launches",
             "dq_mma_launches", "dq_wide_launches", "dkv_launches",
             "dkv_mma_launches", "dkv_wide_launches", "mma_sync_launches",
-            "dq_mma_sync_launches", "dkv_mma_sync_launches")
+            "dq_mma_sync_launches", "dkv_mma_sync_launches",
+            "wide_sync_launches", "dkv_wide_sync_launches", "plain_calls")
 
 
 def _plain_path_launches_nothing(dtype, C, N=16):
@@ -364,7 +386,9 @@ def test_cpu_tensors_at_the_wide_widths_launch_no_kernel(dtype, C):
     ("flash_attention_bwd_dkv_hopper.cu", "MMA_MAX_C", None),
     ("flash_attention_wide.cu", "WIDE_MAX_C", "MMA_MAX_C"),
     ("flash_attention_bwd_dq_wide.cu", "WIDE_MAX_C", "MMA_MAX_C"),
-    ("flash_attention_bwd_wide.cu", "WIDE_MAX_C", "MMA_MAX_C")])
+    ("flash_attention_bwd_wide.cu", "WIDE_MAX_C", "MMA_MAX_C"),
+    ("flash_attention_wide_hopper.cu", "WIDE_MAX_C", "MMA_MAX_C"),
+    ("flash_attention_bwd_dkv_wide_hopper.cu", "WIDE_MAX_C", "MMA_MAX_C")])
 def test_kernel_width_limits_match_the_route(source, max_c, min_c):
     text = (_build.CSRC / source).read_text()
 
@@ -398,6 +422,7 @@ def test_every_entry_point_has_its_ctypes_signature():
             found[name] = tuple(types)
     assert {"itsd_flash_attention_wide", "itsd_flash_bwd_dq_wide",
             "itsd_flash_bwd_dkv_wide", "itsd_flash_bwd_dq_mma_sync",
+            "itsd_flash_attention_wide_sync", "itsd_flash_bwd_dkv_wide_sync",
             "itsd_groupnorm_partial_stats_cluster",
             "itsd_groupnorm_stats_floor"} <= set(found)
     assert found == _build.SIGNATURES
@@ -412,7 +437,9 @@ def test_build_commands_are_one_nvcc_per_source_for_sm90a(tmp_path):
             "flash_attention_bwd_dq_wide.cu",
             "flash_attention_bwd_wide.cu", "flash_attention_hopper.cu",
             "flash_attention_bwd_dq_hopper.cu",
-            "flash_attention_bwd_dkv_hopper.cu"} <= {p.name for p in srcs}
+            "flash_attention_bwd_dkv_hopper.cu",
+            "flash_attention_wide_hopper.cu",
+            "flash_attention_bwd_dkv_wide_hopper.cu"} <= {p.name for p in srcs}
     assert len(cmds) == len(srcs)
     for cmd, src in zip(cmds, srcs):
         assert cmd[0] == "nvcc" and cmd[-1] == str(src)
@@ -450,14 +477,19 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("wrapper", ["_flash_mma_sync",
                                      "_flash_bwd_dq_mma_sync",
-                                     "_flash_bwd_dkv_mma_sync"])
+                                     "_flash_bwd_dkv_mma_sync",
+                                     "_flash_wide_sync",
+                                     "_flash_bwd_dkv_wide_sync"])
 def test_mma_sync_forced_calls_take_no_cpu_tensor(wrapper):
     """The forced calls of the mma.sync kernels (which the Hopper kernels
-    replaced on the mma route) have no plain version to fall back to: a CPU
-    tensor raises before any build or launch, and no count moves."""
-    q = torch.zeros((1, 8, 64), dtype=torch.bfloat16)
+    replaced on the mma and wide routes) have no plain version to fall
+    back to: a CPU tensor raises before any build or launch, and no count
+    moves."""
+    C = 512 if "wide" in wrapper else 64
+    q = torch.zeros((1, 8, C), dtype=torch.bfloat16)
     lse = torch.zeros((1, 8))
-    args = ((q, q, q, 0.125, False) if wrapper == "_flash_mma_sync"
+    args = ((q, q, q, 0.125, False)
+            if wrapper in ("_flash_mma_sync", "_flash_wide_sync")
             else (q, q, q, q, lse, lse, 0.125))
     before = [getattr(attention, n) for n in COUNTERS]
     with pytest.raises(ValueError, match="CUDA tensors only"):
