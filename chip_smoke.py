@@ -22,18 +22,24 @@ Phases, each ending with one line that carries its elapsed seconds:
    ``-Xptxas -v`` registers and spills; a spill fails the run); the
    ``HGMMA`` and ``UTMALDG`` instructions of each Hopper kernel (the mma
    route's forward, dq and dk/dv, the wide route's forward and dk/dv) in
-   ``cuobjdump -sass`` of the library, none of either failing the run;
+   ``cuobjdump -sass`` of the library, none of either failing the run,
+   and the ``HMMA`` instructions with the ``TF32`` modifier of each
+   tf32x3 kernel (the f32 forward), none failing the run;
 2. forward kernels: GroupNorm+swish and flash attention against their
    plain PyTorch versions at every shape the eval path (batch 8) and the
    train path (batch 128) give them, and the CFG model's guided eval
    (batch 16 inside the guidance interval, 8 outside) and train path
    (batch 256), in bf16 and f32, timed beside the plain version, one
    PyTorch library call and the least time the card could take. The flash
-   forward has three kernels: two on the tensor cores ("mma", the route of
-   bf16 at C <= 256, and "wide", of bf16 at 256 < C <= 1024: the CFG
-   model's C=512 and C=1024) and the CUDA-core one ("simt", the route of
-   f32); the simt kernel is checked and timed on the same bf16 inputs as
-   the tensor-core one at every shape, and the mma.sync forward that the
+   forward has four kernels: three on the tensor cores ("mma", the route of
+   bf16 at C <= 256, "wide", of bf16 at 256 < C <= 1024: the CFG model's
+   C=512 and C=1024, and "tf32x3", of f32: error-compensated TF32
+   products) and the CUDA-core one ("simt", which no path takes any more);
+   the simt kernel is checked at every shape on the same bf16 and f32
+   inputs as the tensor-core ones and timed on the bf16 ones, on the f32
+   ones in turns with the tf32x3 kernel at the train steps (with SDPA in
+   f32, the plain version, the 3xTF32 and the f32 bounds), and the
+   mma.sync forward that the
    Hopper kernel replaced (forced calls) is checked at every shape and
    timed in turns with it: on the wide route at every tag, on the mma
    route at the train step. Also at Picard's folded batches
@@ -44,7 +50,11 @@ Phases, each ending with one line that carries its elapsed seconds:
    UNet: 4 candidates and 2 survivors of the dual batch 16) and phase
    17's tracked batches (64 rows; the CFG UNet's dual 128); phase 15
    fails on an attention batch that this phase did not hold. The flash
-   forward also at the 256x256 flagship's attention, [1, 4096, 384] (bf16: wide).
+   forward also at the 256x256 flagship's attention, [1, 4096, 384] (bf16: wide),
+   and, in f32 alone, at configs/inference_config.yaml's attention at its
+   eval batch of 64 (tags infer384, [64, 4096, 384], 5 a forward, and
+   infer512, [64, 1024, 512], 1): tf32x3 and simt against the plain
+   version, then timed as at the train steps.
    GroupNorm also at the 256x256 flagship's largest spans (batch 1, spans
    of up to 786,432 elements, split over a thread-block cluster): forward
    and backward in f32 and bf16, two launches equal bit for bit, timed.
@@ -76,10 +86,14 @@ Phases, each ending with one line that carries its elapsed seconds:
    T=1000) on seeded weights; the kernels' launch counts must be exactly
    51 and 6 per step, all 6 flash forwards on the mma route, and the
    images finite;
-4. eval path parity: kernel path against plain path, in f32 (the simt
-   route) and in bf16 (the mma route): one full-width UNet forward (eps)
+4. eval path parity: kernel path against plain path, in f32 (the tf32x3
+   forward) and in bf16 (the mma route): one full-width UNet forward (eps)
    at timesteps across the chain, and 20 denoising steps from one x_T with
-   one fed noise sequence;
+   one fed noise sequence; then one eps forward of
+   configs/inference_config.yaml's model (the 256x256 flagship's widths,
+   f32, the config's dtype) on seeded weights at its batch of 64, kernels
+   against plain to the same f32 limit, with exact launches (its 6
+   attention calls all on tf32x3, none on simt) and its ms a forward;
 5. backward: the dq and dk/dv kernels (each on its bf16 route and on
    simt, as in phase 2; both on the wide route at C=512 and C=1024 and at
    the flagship's C=384; the mma.sync dk/dv (and, on the mma route, dq)
@@ -96,8 +110,8 @@ Phases, each ending with one line that carries its elapsed seconds:
    backward (autograd through the plain recompute) checked and timed;
 6. train-step parity: 3 steps of the kernel path against the plain path at
    full width and batch 128 (dropout 0, the same params, batches, t and
-   noise), in f32 (simt) and bf16 (mma): loss, pre-clip gradient norm, max
-   |dparam|;
+   noise), in f32 (the forward on tf32x3, dq and dk/dv on simt) and bf16
+   (mma): loss, pre-clip gradient norm, max |dparam|;
 7. train path: ``runner.train`` at the configuration of
    ``configs/cifar10_uncond.yaml`` on the shapes dataset (batch 128, lr
    2e-4, dropout 0.1, bf16) for 64 steps; exactly 6/6/6/51 launches a step
@@ -230,7 +244,7 @@ Phases, each ending with one line that carries its elapsed seconds:
     with model.backbone=vit: ViT-B/16 at 256x256, bf16): 4 train steps at
     batch 16 (exactly 12 flash forwards, 12 dq and 12 dk/dv a step, on mma
     at C=64), DDIM 50 at batch 8 from its checkpoint (12 forwards a model
-    evaluation), finite loss and images, and one f32 (simt) and one bf16
+    evaluation), finite loss and images, and one f32 (tf32x3) and one bf16
     forward of the kernel path against the plain path ("xla");
 21. the data-parallel path (torchrun, world size 1, NCCL), after phase 7:
     the CLI's ``train`` at phase 7's configuration (batch 128, bf16) for
@@ -291,10 +305,11 @@ kernels and GroupNorm; the two-rank runs of phase 22 (both ranks' launches
 summed) the stats and apply kernels and the ring's hops, wide for the
 flagship and mma for the CIFAR UNet and the ViT. The kernels' JSON line
 carries each
-kernel's launches summed over these paths, and per path; the simt
-forward, dq and dk/dv, which no bf16 path runs, carry their launches on
-the f32 kernel paths of phases 4, 6, 10, 11, 14, 16, 18, 20 and 22 (its
-f32 DDIM).
+kernel's launches summed over these paths, and per path; the tf32x3
+forward and the simt dq and dk/dv, which no bf16 path runs, carry their
+launches on the f32 kernel paths of phases 4, 6, 10, 11, 14, 16, 18, 20
+and 22 (its f32 DDIM), on each of which every f32 forward must take
+tf32x3 and none simt.
 """
 
 from __future__ import annotations
@@ -325,17 +340,25 @@ HBM_BYTES_PER_S = 3.35e12
 # the lse a runtime choice) and csrc/flash_attention_bwd_dkv_wide_hopper.cu
 # (3 widths, each also packing).
 HOPPER_INSTANTIATIONS = 32
+# Kernels built from csrc/flash_attention_tf32x3.cu (6 padded widths, the
+# lse a runtime choice): the f32 forward on mma.sync in TF32, each of
+# which must hold HMMA instructions with the TF32 modifier.
+TF32X3_INSTANTIATIONS = 6
 # The tags whose steps time the mma route's mma.sync yardsticks (forced
 # calls) in turns with the Hopper kernels: the row's "work" step only
 # (PERF.md holds their comparisons at every tag); their checks against the
 # plain versions stay at every tag. The wide route's mma.sync forward and
 # dk/dv are timed at every wide tag.
 MMA_SYNC_TIMED = ("train",)
-# The tags whose steps also time the simt kernels on f32 inputs (the f32
-# parity paths' route) beside SDPA in f32 and the f32 bound (67 TFLOP/s).
+# The tags whose steps also time the kernels on f32 inputs (the f32
+# parity paths' routes): the "tf32x3" forward in turns with the simt one
+# it replaced (a forced call), and the simt dq and dk/dv, beside SDPA in
+# f32, the plain version, the f32 bound (67 TFLOP/s) and the forward's
+# 3xTF32 bound (three TF32 products a product at 495 TFLOP/s).
 SIMT_F32_TIMED = ("train", "cond_train")
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
+TF32_TENSOR_FLOPS = 495e12
 
 DEVICE = "cuda"
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -451,6 +474,18 @@ FT_MEM_BATCH = 8            # peak memory with and without remat
 FT_TIMED_STEPS = 2
 FT_EVAL_STEPS = 20          # DDIM 20 at batch 8 from both checkpoints
 FT_EVAL_BATCH = 8
+# Phases 2 and 4: configs/inference_config.yaml (BASELINE.md's "Inference +
+# per-step metrics", the 256x256 flagship's widths, T=1000 extended to
+# inference_T=3000) sets no dtype, so it computes in f32 (ModelCfg's
+# default), at its train.eval_batch_size of 64. One forward makes 6
+# attention calls: 5 at its 64x64 stage (4096 tokens of C=384) and 1 in
+# its middle at 32x32 (1024 of C=512), each a kernel tag of phase 2
+# ([B, N, C] -> calls a forward); phase 4 holds one eps forward of its
+# model, kernels against plain.
+INFERENCE_YAML = os.path.join(ROOT, "configs", "inference_config.yaml")
+INFERENCE_BATCH = 64
+INFERENCE_ATTENTION = {"infer384": ((64, 4096, 384), 5),
+                       "infer512": ((64, 1024, 512), 1)}
 # Phase 20: the ViT backbone (configs/imagenet256_uncond.yaml with
 # model.backbone=vit: ModelCfg's ViT-B/16 defaults, patch 16, embed 768,
 # depth 12, 12 heads of 64, 256 tokens at 256x256), bf16.
@@ -771,6 +806,19 @@ def build():
         if not c["HGMMA"] or not c["UTMALDG"]:
             fail(f"{fn}: {c['HGMMA']} HGMMA and {c['UTMALDG']} UTMALDG "
                  "instructions; a Hopper kernel needs both")
+    # the f32 forward's kernels must run on the tensor cores in TF32
+    tf32 = [fn for fn, *_ in kernels.ptxas if "tf32x3_kernel" in fn]
+    counts = {fn: c for fn, c in _build.sass_counts(
+        kernels.path, opcodes=("HMMA.TF32", "HMMA"),
+        functions=tf32 or None).items() if "tf32x3_kernel" in fn}
+    if len(counts) != TF32X3_INSTANTIATIONS:
+        fail(f"cuobjdump lists {len(counts)} tf32x3 kernels, want "
+             f"{TF32X3_INSTANTIATIONS}: {sorted(counts)}")
+    for fn, c in sorted(counts.items()):
+        log(f"  sass {fn}: HMMA with TF32 {c['HMMA.TF32']} (of HMMA "
+            f"{c['HMMA']})")
+        if not c["HMMA.TF32"]:
+            fail(f"{fn}: no HMMA instruction with the TF32 modifier")
     phase_done(1, "build", t0, "(no spills)" if kernels.built else "")
 
 
@@ -872,16 +920,24 @@ def gn_bound_ms(shape, itemsize, act):
     return (bytes_ / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3)
 
 
-def attn_bound_ms(B, N, C, itemsize, tensors=4, products=2):
+def attn_bound_ms(B, N, C, itemsize, tensors=4, products=2, peak=None):
     """Least ms of an attention kernel: ``tensors`` [B, N, C] read or
     written once (plus two f32 [B, N] rows for the backward) against
-    ``products`` products of 2*B*N^2*C operations."""
+    ``products`` products of 2*B*N^2*C operations at ``peak`` (by default
+    the bf16 tensor cores' or the CUDA cores' f32 rate)."""
     bytes_ = tensors * B * N * C * itemsize
     if products > 2:
         bytes_ += 2 * B * N * 4  # lse and dd
     flops = products * 2 * B * N * N * C
-    peak = BF16_TENSOR_FLOPS if itemsize == 2 else F32_FLOPS
+    if peak is None:
+        peak = BF16_TENSOR_FLOPS if itemsize == 2 else F32_FLOPS
     return (bytes_ / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3)
+
+
+def tf32x3_bound_ms(B, N, C):
+    """Least ms of the f32 forward on the tensor cores: its two products
+    each done as three TF32 products (the split's), at 495 TFLOP/s."""
+    return attn_bound_ms(B, N, C, 4, peak=TF32_TENSOR_FLOPS / 3)
 
 
 def rows_entry(rows):
@@ -1179,28 +1235,31 @@ def check_rows_make_the_whole(gn_calls, batch, K, dev):
 def check_flash_forward(attn_calls, dev, timer, n, with_lse, tag):
     """The flash forward kernels (with and without lse) against their plain
     version at every [B, N, C] of ``attn_calls``: the route's kernel in
-    bf16 (mma or wide) and in f32 (simt), and the simt kernel on the bf16
-    inputs too; where bf16 takes mma or wide, also the mma.sync kernel
-    that the Hopper kernel replaced (forced calls). Times at bf16 of the
-    route's kernel and of the simt kernel on the same inputs (the variant
-    with lse when ``with_lse``, as on a train path), and of the mma.sync
-    kernel in turns with the Hopper one (the mma route's at the steps of
-    ``MMA_SYNC_TIMED`` only, the wide route's at every ``tag``). Rows: the
-    route's kernel at each shape, the simt kernel's forced calls where
-    bf16 takes wide (the calls bf16 sent to simt before the wide kernels),
-    the mma.sync kernel's where it was timed. Returns {kernel: (max error,
-    rows)}."""
+    bf16 (mma or wide) and in f32 (tf32x3), and the simt kernel on the
+    bf16 and the f32 inputs too (forced calls); where bf16 takes mma or
+    wide, also the mma.sync kernel that the Hopper kernel replaced (forced
+    calls). Times at bf16 of the route's kernel and of the simt kernel on
+    the same inputs (the variant with lse when ``with_lse``, as on a train
+    path), and of the mma.sync kernel in turns with the Hopper one (the
+    mma route's at the steps of ``MMA_SYNC_TIMED`` only, the wide route's
+    at every ``tag``); at the steps of ``SIMT_F32_TIMED`` also on f32
+    inputs (``time_f32_forward``). Rows: the route's kernel at each shape,
+    the mma.sync kernel's where it was timed, the f32 ones where they were
+    timed (the simt kernel's bf16 times are logged only: no path runs it).
+    Returns {kernel: (max error, rows)}."""
     from itsd_tpu_torch.kernels import attention
 
     gen = torch.Generator(device=dev).manual_seed(1)
     names = ("flash_attention_mma", "flash_attention_wide",
              "flash_attention_simt", "flash_attention_mma_sync",
-             "flash_attention_wide_sync", "flash_attention_simt_f32")
+             "flash_attention_wide_sync", "flash_attention_tf32x3",
+             "flash_attention_simt_f32")
     worst = dict.fromkeys(names, 0.0)
     rows = {k: [] for k in names}
     log("flash_attention: [B,N,C] x calls/step route | max_abs_err o: route "
-        "bf16, simt bf16 f32, mma.sync (mma or wide) bf16; lse | ms (bf16): "
-        "route simt plain sdpa bound mma.sync | host us/call route simt")
+        "bf16, simt bf16 f32, tf32x3 f32, mma.sync (mma or wide) bf16; lse "
+        "| ms (bf16): route simt plain sdpa bound mma.sync | host us/call "
+        "route simt")
 
     def forward(fn_lse, fn, q, k, v, scale, what):
         o, lse = fn_lse(q, k, v, scale)
@@ -1220,6 +1279,7 @@ def check_flash_forward(attn_calls, dev, timer, n, with_lse, tag):
         if bf16_route in ("mma", "wide"):
             cases.append((torch.bfloat16, f"{bf16_route}_sync"))
         for dtype, which in cases + [(torch.bfloat16, "simt"),
+                                     (torch.float32, "tf32x3"),
                                      (torch.float32, "simt")]:
             what = f"flash_attention {which} {(B, N, C)} {dtype}"
             q, k, v = (_rand((B, N, C), gen, dev, dtype) for _ in range(3))
@@ -1284,7 +1344,8 @@ def check_flash_forward(attn_calls, dev, timer, n, with_lse, tag):
             f"{' (with lse)' if with_lse else ''} | "
             f"{errs[bf16_route, torch.bfloat16]:.3g}, "
             f"{errs['simt', torch.bfloat16]:.3g} "
-            f"{errs['simt', torch.float32]:.3g} "
+            f"{errs['simt', torch.float32]:.3g}, "
+            f"{errs['tf32x3', torch.float32]:.3g}, "
             f"{errs.get((f'{bf16_route}_sync', torch.bfloat16), nan):.3g}; "
             f"{lse_err:.3g} | "
             f"{r_ms:.5f} {s_ms:.5f} {p_ms:.5f} {l_ms:.5f} "
@@ -1296,28 +1357,103 @@ def check_flash_forward(attn_calls, dev, timer, n, with_lse, tag):
         if sync_timed:
             rows[f"flash_attention_{bf16_route}_sync"].append(
                 (calls, y_ms, p_ms, l_ms, by_bytes, by_ops))
-        if bf16_route == "wide":
-            rows["flash_attention_simt"].append(
-                (calls, s_ms, p_ms, l_ms, by_bytes, by_ops))
         if tag in SIMT_F32_TIMED:
-            # the simt kernel on f32 inputs, its own route, beside SDPA in
-            # f32 (no plain time: the row's plain_ms is not reported)
-            qf, kf, vf = (_rand((B, N, C), gen, dev, torch.float32)
-                          for _ in range(3))
-            f_ms, _ = timer(
-                (lambda: attention.attention_with_lse(qf, kf, vf, scale))
-                if with_lse else
-                (lambda: attention.spatial_attention(qf, kf, vf)), n=n)
-            fl_ms, _ = timer(lambda: F.scaled_dot_product_attention(
-                qf[:, None], kf[:, None], vf[:, None]), n=n)
-            fb_bytes, fb_ops = attn_bound_ms(B, N, C, 4)
-            log(f"  {[B, N, C]} x{calls} simt f32 | ms: simt "
-                f"{f_ms:.5f} sdpa {fl_ms:.5f} bound (67 TFLOP/s) "
-                f"{max(fb_bytes, fb_ops):.5f}")
-            rows["flash_attention_simt_f32"].append(
-                (calls, f_ms, 0.0, fl_ms, fb_bytes, fb_ops))
-            del qf, kf, vf
+            time_f32_forward(B, N, C, calls, gen, dev, timer, n, with_lse,
+                             rows)
     return {k: (worst[k], rows[k]) for k in rows}
+
+
+def time_f32_forward(B, N, C, calls, gen, dev, timer, n, with_lse, rows):
+    """The f32 forward on its route ("tf32x3") timed in turns with the
+    simt kernel it replaced (a forced call) on the same f32 inputs, beside
+    the plain version, SDPA in f32, the f32 bound (67 TFLOP/s) and the
+    3xTF32 bound; rows appended to ``rows``: "flash_attention_tf32x3"
+    (against the 3xTF32 bound) and "flash_attention_simt_f32" (against the
+    f32 bound)."""
+    from itsd_tpu_torch.kernels import attention
+
+    scale = C ** -0.5
+    qf, kf, vf = (_rand((B, N, C), gen, dev, torch.float32)
+                  for _ in range(3))
+    route_fn = ((lambda: attention.attention_with_lse(qf, kf, vf, scale))
+                if with_lse else
+                (lambda: attention.spatial_attention(qf, kf, vf)))
+    t_ms, s_ms, t_host, s_host = timer.pair(
+        route_fn,
+        lambda: attention._flash_simt(qf, kf, vf, scale, emit_lse=with_lse),
+        n=n)
+    p_ms, _ = timer(
+        (lambda: attention.attention_plain_stats(qf, kf, vf, scale))
+        if with_lse else
+        (lambda: attention.attention_plain(qf, kf, vf, scale)), n=n)
+    l_ms, _ = timer(lambda: F.scaled_dot_product_attention(
+        qf[:, None], kf[:, None], vf[:, None]), n=n)
+    by_bytes, by_ops = attn_bound_ms(B, N, C, 4)
+    _, by_ops3 = tf32x3_bound_ms(B, N, C)
+    log(f"  {[B, N, C]} x{calls} f32{' (with lse)' if with_lse else ''} | "
+        f"ms: tf32x3 {t_ms:.5f} simt {s_ms:.5f} (in turns) plain "
+        f"{p_ms:.5f} sdpa {l_ms:.5f} bound 3xTF32 "
+        f"{max(by_bytes, by_ops3):.5f} f32 (67 TFLOP/s) "
+        f"{max(by_bytes, by_ops):.5f} | host us/call {t_host:.1f} "
+        f"{s_host:.1f}")
+    rows["flash_attention_tf32x3"].append(
+        (calls, t_ms, p_ms, l_ms, by_bytes, by_ops3))
+    rows["flash_attention_simt_f32"].append(
+        (calls, s_ms, p_ms, l_ms, by_bytes, by_ops))
+
+
+def check_f32_forward(attn_calls, dev, timer, n, with_lse):
+    """The f32 forward alone at every [B, N, C] of ``attn_calls`` (the
+    inference config's shapes, whose bf16 work no path runs): the route's
+    kernel (tf32x3, with and without lse, two launches equal bit for bit)
+    and the simt kernel (forced) against the plain version at the f32
+    limits, then ``time_f32_forward``. Returns {kernel: (max error,
+    rows)}."""
+    from itsd_tpu_torch.kernels import attention
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = {k: [] for k in ("flash_attention_tf32x3",
+                            "flash_attention_simt_f32")}
+    worst = [0.0, 0.0]
+    for (B, N, C), calls in collections.Counter(attn_calls).items():
+        scale = C ** -0.5
+        q, k, v = (_rand((B, N, C), gen, dev, torch.float32)
+                   for _ in range(3))
+        want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
+        errs = []
+        for which in ("tf32x3", "simt"):
+            what = f"flash_attention {which} {(B, N, C)} f32"
+            n0 = read_launches()
+            if which == attention.route(torch.float32, C, "forward"):
+                o, lse = attention.attention_with_lse(q, k, v, scale)
+                o2 = attention.spatial_attention(q, k, v)
+                o3 = attention.spatial_attention(q, k, v)
+            else:
+                o, lse = attention._flash_simt(q, k, v, scale, True)
+                o2 = o3 = attention._flash_simt(q, k, v, scale, False)
+            torch.cuda.synchronize()
+            n1 = read_launches()
+            want_n = 3 if which == "tf32x3" else 2
+            if n1[f"flash_attention_{which}"] - \
+                    n0[f"flash_attention_{which}"] != want_n:
+                fail(f"{what}: not launched on the {which} route")
+            if not (torch.equal(o, o2) and torch.equal(o2, o3)):
+                fail(f"{what}: launches with and without lse, or two "
+                     "launches, disagree")
+            errs.append(check_close(what, o, want_o, ATTN_F32_TOL, 0.0))
+            errs.append(check_close(f"{what} lse", lse, want_lse, LSE_TOL,
+                                    0.0))
+            del o, o2, o3, lse
+        worst = [max(worst[0], *errs[:2]), max(worst[1], *errs[2:])]
+        log(f"  {[B, N, C]} x{calls} f32 | max_abs_err o, lse: tf32x3 "
+            f"{errs[0]:.3g} {errs[1]:.3g}, simt {errs[2]:.3g} "
+            f"{errs[3]:.3g}")
+        del q, k, v, want_o, want_lse
+        time_f32_forward(B, N, C, calls, gen, dev, timer, n, with_lse, rows)
+    return {"flash_attention_tf32x3": (worst[0],
+                                       rows["flash_attention_tf32x3"]),
+            "flash_attention_simt_f32": (worst[1],
+                                         rows["flash_attention_simt_f32"])}
 
 
 # The 256x256 flagship's attention at its 64x64 stage (configs/
@@ -1464,13 +1600,14 @@ def check_plain_route(dev):
         "no launch")
 
 
-def check_forward_kernels(paths, rows_paths, dev, timer):
+def check_forward_kernels(paths, rows_paths, dev, timer, f32_paths=()):
     """Phase 2: both forward kernels at the shapes of each path of
-    ``paths`` (tag -> ((gn_calls, attn_calls), timing reps, with lse)), and
-    the stats and apply kernels of GroupNorm over row shards at each path
-    of ``rows_paths`` (tag -> (gn_calls, batch)) cut over each K of
-    ``ROWS_K`` (tag ``{tag}_k{K}``). Returns {kernel: {tag: (err,
-    rows)}}."""
+    ``paths`` (tag -> ((gn_calls, attn_calls), timing reps, with lse)), the
+    f32 forward alone at each of ``f32_paths`` (tag -> (attn_calls, timing
+    reps, with lse): ``check_f32_forward``), and the stats and apply
+    kernels of GroupNorm over row shards at each path of ``rows_paths``
+    (tag -> (gn_calls, batch)) cut over each K of ``ROWS_K`` (tag
+    ``{tag}_k{K}``). Returns {kernel: {tag: (err, rows)}}."""
     t0 = time.perf_counter()
     log(f"  tolerance GroupNorm: |err| <= atol + rtol*|plain|, bf16 atol "
         f"{GN_TOL[torch.bfloat16][0]} rtol 2^-7, f32 atol "
@@ -1484,6 +1621,11 @@ def check_forward_kernels(paths, rows_paths, dev, timer):
                                                           timer, n)
         for name, res in check_flash_forward(attn_calls, dev, timer, n,
                                              with_lse, tag).items():
+            out[name][tag] = res
+    for tag, (attn_calls, n, with_lse) in dict(f32_paths).items():
+        log(f"-- the f32 forward at the shapes of one {tag} forward")
+        for name, res in check_f32_forward(attn_calls, dev, timer, n,
+                                           with_lse).items():
             out[name][tag] = res
     out["groupnorm_swish"]["flagship"] = check_flagship_groupnorm(dev, timer)
     check_plain_route(dev)
@@ -1832,6 +1974,7 @@ def reset_launches():
     groupnorm.stats_cluster_launches = 0
     attention.launches = attention.mma_launches = 0
     attention.wide_launches = attention.mma_sync_launches = 0
+    attention.tf32x3_launches = 0
     attention.wide_sync_launches = attention.plain_calls = 0
     attention.dq_launches = attention.dq_mma_launches = 0
     attention.dq_wide_launches = attention.dq_mma_sync_launches = 0
@@ -1852,7 +1995,7 @@ def read_launches() -> dict:
     return route_counts(
         gn=groupnorm.launches, gn_stats=groupnorm.stats_launches,
         gn_apply=groupnorm.apply_launches, fwd=a.launches,
-        fwd_mma=a.mma_launches,
+        fwd_mma=a.mma_launches, fwd_tf32x3=a.tf32x3_launches,
         fwd_wide=a.wide_launches, dq=a.dq_launches,
         dq_mma=a.dq_mma_launches, dq_wide=a.dq_wide_launches,
         dkv=a.dkv_launches, dkv_mma=a.dkv_mma_launches,
@@ -1868,9 +2011,10 @@ def route_counts(gn=0, fwd=0, fwd_mma=0, fwd_wide=0, dq=0, dq_mma=0,
                  dq_wide=0, dkv=0, dkv_mma=0, dkv_wide=0, gn_stats=0,
                  gn_apply=0, fwd_mma_sync=0, dq_mma_sync=0, dkv_mma_sync=0,
                  fwd_wide_sync=0, dkv_wide_sync=0, plain=0,
-                 gn_stats_cluster=0):
+                 gn_stats_cluster=0, fwd_tf32x3=0):
     """Launch counts in the layout of ``read_launches``: each function's
-    total and each route's kernel (simt: what the others leave), the
+    total and each route's kernel (simt: what the others leave; the f32
+    forward's is "tf32x3"), the
     forced calls of the mma.sync forward, dq and dk/dv, of the wide
     route's mma.sync forward and dk/dv and of the earlier stats kernel (no
     path makes one), and the "plain" route's attention calls (no path
@@ -1883,8 +2027,9 @@ def route_counts(gn=0, fwd=0, fwd_mma=0, fwd_wide=0, dq=0, dq_mma=0,
             "flash_attention_wide": fwd_wide,
             "flash_attention_mma_sync": fwd_mma_sync,
             "flash_attention_wide_sync": fwd_wide_sync,
-            "flash_attention_simt": (fwd - fwd_mma - fwd_wide - fwd_mma_sync
-                                     - fwd_wide_sync),
+            "flash_attention_tf32x3": fwd_tf32x3,
+            "flash_attention_simt": (fwd - fwd_mma - fwd_wide - fwd_tf32x3
+                                     - fwd_mma_sync - fwd_wide_sync),
             "flash_bwd_dq": dq, "flash_bwd_dq_mma": dq_mma,
             "flash_bwd_dq_wide": dq_wide,
             "flash_bwd_dq_mma_sync": dq_mma_sync,
@@ -1898,13 +2043,26 @@ def route_counts(gn=0, fwd=0, fwd_mma=0, fwd_wide=0, dq=0, dq_mma=0,
             "attention_plain": plain}
 
 
-def step_counts(gn, attn, mma=0, wide=0):
+def every_f32_forward_on_tf32x3(counts: dict, what: str) -> None:
+    """Fail unless an f32 kernel path's flash forwards (some) all took the
+    tf32x3 route: none on simt."""
+    if (counts["flash_attention_simt"]
+            or not counts["flash_attention"]
+            or counts["flash_attention_tf32x3"] != counts["flash_attention"]):
+        fail(f"{what}: f32 forwards {counts['flash_attention']}, on tf32x3 "
+             f"{counts['flash_attention_tf32x3']}, on simt "
+             f"{counts['flash_attention_simt']}; want all on tf32x3")
+
+
+def step_counts(gn, attn, mma=0, wide=0, tf32x3=0):
     """Launches of one train step whose forward makes ``gn`` GroupNorm and
     ``attn`` attention calls: as many dq and dk/dv as forwards, ``mma`` of
-    each on the mma route and ``wide`` of each on the wide route."""
+    each on the mma route and ``wide`` of each on the wide route, and
+    ``tf32x3`` forwards on the f32 forward's route (its dq and dk/dv on
+    simt)."""
     return route_counts(gn=gn, fwd=attn, fwd_mma=mma, fwd_wide=wide,
                         dq=attn, dq_mma=mma, dq_wide=wide, dkv=attn,
-                        dkv_mma=mma, dkv_wide=wide)
+                        dkv_mma=mma, dkv_wide=wide, fwd_tf32x3=tf32x3)
 
 
 def scaled(counts: dict, k: float) -> dict:
@@ -2004,7 +2162,8 @@ def eval_parity(params, tmpdir):
         n1 = read_launches()
         n = 6 * (1 + PARITY_STEPS)
         want_n = route_counts(gn=51 * (1 + PARITY_STEPS), fwd=n,
-                              fwd_mma=n if dtype == torch.bfloat16 else 0)
+                              fwd_mma=n if dtype == torch.bfloat16 else 0,
+                              fwd_tf32x3=n if dtype == torch.float32 else 0)
         if n1 != want_n:
             fail(f"the kernel path launched {n1}, want {want_n}")
         if dtype == torch.float32:
@@ -2016,8 +2175,93 @@ def eval_parity(params, tmpdir):
             fail("the plain path launched a kernel")
         check("eps (one forward)", name, got_eps, want_eps, EPS_TOL[dtype])
         check(f"x ({PARITY_STEPS} steps)", name, got, want, PATH_TOL[dtype])
+        del model
+    inference = inference_parity(tmpdir, check)
+    f32_launches = {k: f32_launches[k] + inference[k] for k in inference}
     phase_done(4, "eval path parity", t0)
     return f32_launches
+
+
+def inference_config(tmpdir: str, *extra):
+    """configs/inference_config.yaml as it stands (its model in f32, the
+    dtype it sets none of), writing under ``tmpdir``."""
+    from itsd_tpu_torch.utils import load_config
+
+    return load_config(INFERENCE_YAML, [
+        "seed=0", f"save_weight_dir={tmpdir}/inference_ckpt",
+        f"sampled_dir={tmpdir}/inference_sampled",
+        f"metrics_save_dir={tmpdir}/inference_metrics", *extra])
+
+
+def inference_parity(tmpdir, check):
+    """Phase 4, configs/inference_config.yaml's model (the 256x256
+    flagship's widths, f32) on seeded weights at its eval batch of 64: one
+    eps forward at timesteps across its chain through the kernels and
+    through the plain path, to phase 4's f32 limit (``check``); exact
+    launches: every GroupNorm call, and the 6 attention calls of
+    INFERENCE_ATTENTION, all on the tf32x3 route, none on simt; the kernel
+    path's ms a forward (a second, timed run). Returns the kernel path's
+    launches."""
+    from itsd_tpu_torch.cli import runner
+
+    dev = torch.device(DEVICE)
+    cfg = inference_config(tmpdir)
+    if cfg.model.dtype != "float32" or \
+            cfg.train.eval_batch_size != INFERENCE_BATCH:
+        fail(f"{INFERENCE_YAML}: dtype {cfg.model.dtype}, eval batch "
+             f"{cfg.train.eval_batch_size}; want float32 and "
+             f"{INFERENCE_BATCH}")
+    params = seeded_params(cfg)
+    ((gn_calls, attn_calls),) = path_shapes(cfg, params, dev, (1,))
+    want_attn = sorted((INFERENCE_BATCH, N, C) for _, N, C in attn_calls)
+    if want_attn != sorted(shape for shape, calls
+                           in INFERENCE_ATTENTION.values()
+                           for _ in range(calls)):
+        fail(f"the inference config's attention calls {attn_calls} at "
+             f"batch 1 are not INFERENCE_ATTENTION's")
+    model, _ = runner.build_model(cfg)
+    model.load_state_dict(params)
+    model.to(dev).eval()
+    del params
+    size = cfg.data.img_size
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((INFERENCE_BATCH, size, size, 3), generator=gen,
+                    device=dev)
+    t = torch.linspace(0, cfg.diffusion.T - 1, INFERENCE_BATCH,
+                       device=dev).round().long()
+
+    def run():
+        with torch.inference_mode():
+            return model(x, t)
+
+    reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    n1 = read_launches()
+    n = len(attn_calls)
+    want_n = route_counts(gn=len(gn_calls), fwd=n, fwd_tf32x3=n)
+    if n1 != want_n:
+        fail(f"the inference config's kernel path launched {n1}, want "
+             f"{want_n}")
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    reset_launches()
+    p_gn, p_attn = plain_path()
+    with p_gn, p_attn:
+        want = run()
+    if any(read_launches().values()):
+        fail("the inference config's plain path launched a kernel")
+    log(f"inference config ({INFERENCE_BATCH} x {size}x{size}, f32, "
+        f"seeded weights): {ms:.2f} ms a forward through the kernels "
+        f"({n} attention calls, all tf32x3)")
+    check("eps (one forward of configs/inference_config.yaml's model, "
+          f"batch {INFERENCE_BATCH})", "float32", got, want,
+          EPS_TOL[torch.float32])
+    del model, x, got, want
+    torch.cuda.empty_cache()
+    return n1
 
 
 def train_parity(tmpdir):
@@ -2067,7 +2311,7 @@ def train_parity(tmpdir):
         n1 = read_launches()
         per = {k: n / TRAIN_PARITY_STEPS for k, n in n1.items()}
         mma = 6 if dtype == torch.bfloat16 else 0
-        if per != step_counts(51, 6, mma):
+        if per != step_counts(51, 6, mma, tf32x3=6 - mma):
             fail(f"train parity {name}: the kernel path launched {per} a "
                  "step")
         if dtype == torch.float32:
@@ -2131,6 +2375,7 @@ def _category(name: str) -> str:
                                       "flash_fwd_mma_kernel")),
             ("flash_fwd wide (ours)", ("flash_fwd_wide_hopper_kernel",
                                        "flash_fwd_wide_kernel")),
+            ("flash_fwd tf32x3 (ours)", ("flash_fwd_tf32x3_kernel",)),
             ("flash_fwd simt (ours)", ("flash_fwd_kernel",)),
             ("flash_bwd_dq mma (ours)", ("flash_bwd_dq_hopper_kernel",
                                          "flash_bwd_dq_mma_kernel")),
@@ -3020,10 +3265,11 @@ def spatial_path(tmpdir, counts, card_line):
             "flagship_ddim": (flag_gn, flag_attn, SP_FLAG_DDIM, False,
                               "wide"),
             "flagship_ddim_f32": (flag_gn, flag_attn, SP_FLAG_DDIM, False,
-                                  "simt"),
+                                  "tf32x3"),
             "vit_train": (vit_gn, vit_attn, SP_VIT_STEPS, True, "mma"),
             "vit_ddim": (vit_gn, vit_attn, SP_FLAG_DDIM, False, "mma"),
-            "vit_ddim_f32": (vit_gn, vit_attn, SP_FLAG_DDIM, False, "simt")}
+            "vit_ddim_f32": (vit_gn, vit_attn, SP_FLAG_DDIM, False,
+                             "tf32x3")}
     g = got[0]
     log(f"phase 22: {SP_RANKS} ranks of a {g['group']['backend']} group "
         f"(world size {g['group']['world_size']}) on cuda:0, started in "
@@ -3283,7 +3529,8 @@ def guided_parity(cparams, tmpdir):
         forwards = 2 + PARITY_STEPS
         tc = forwards if dtype == torch.bfloat16 else 0  # tensor cores
         want_n = route_counts(gn=gn * forwards, fwd=fwd * forwards,
-                              fwd_mma=mma * tc, fwd_wide=wide * tc)
+                              fwd_mma=mma * tc, fwd_wide=wide * tc,
+                              fwd_tf32x3=fwd * (forwards - tc))
         if n1 != want_n:
             fail(f"guided parity {name}: the kernel path launched {n1}, "
                  f"want {want_n}")
@@ -3365,7 +3612,8 @@ def cond_train_parity(cparams, tmpdir):
         gn, fwd, mma, wide = CFG_PER_FORWARD
         if dtype == torch.float32:
             mma = wide = 0
-        if per != step_counts(gn, fwd, mma, wide):
+        if per != step_counts(gn, fwd, mma, wide,
+                              tf32x3=fwd - mma - wide):
             fail(f"cond train parity {name}: the kernel path launched {per} "
                  "a step")
         if dtype == torch.float32:
@@ -3865,7 +4113,8 @@ def fast_sampler_parity(params, cparams, tmpdir):
         n1 = read_launches()
         fwds = FAST_STEPS + DPM_STEPS
         tc = fwds if dtype == torch.bfloat16 else 0
-        if n1 != route_counts(gn=51 * fwds, fwd=6 * fwds, fwd_mma=6 * tc):
+        if n1 != route_counts(gn=51 * fwds, fwd=6 * fwds, fwd_mma=6 * tc,
+                              fwd_tf32x3=6 * (fwds - tc)):
             fail(f"fast parity {name}: the kernel path launched {n1}")
         p_gn, p_attn = plain_path()
         with p_gn, p_attn:
@@ -3883,7 +4132,9 @@ def fast_sampler_parity(params, cparams, tmpdir):
         n2 = read_launches()
         want_n = sweeps + m
         if n2 != route_counts(gn=51 * want_n, fwd=6 * want_n,
-                              fwd_mma=6 * want_n * (dtype == torch.bfloat16)):
+                              fwd_mma=6 * want_n * (dtype == torch.bfloat16),
+                              fwd_tf32x3=6 * want_n * (dtype
+                                                       == torch.float32)):
             fail(f"fast parity {name}: Picard and DDIM launched {n2}, want "
                  f"{sweeps} sweeps and {m} steps")
         e["picard"] = check(f"Picard {m} ({sweeps} sweeps) vs sequential "
@@ -3906,7 +4157,8 @@ def fast_sampler_parity(params, cparams, tmpdir):
         gn, fwd, mma, wide = CFG_PER_FORWARD
         tc = PARITY_STEPS if dtype == torch.bfloat16 else 0
         if n3 != route_counts(gn=gn * PARITY_STEPS, fwd=fwd * PARITY_STEPS,
-                              fwd_mma=mma * tc, fwd_wide=wide * tc):
+                              fwd_mma=mma * tc, fwd_wide=wide * tc,
+                              fwd_tf32x3=fwd * (PARITY_STEPS - tc)):
             fail(f"fast parity {name}: the guided kernel path launched {n3}")
         p_gn, p_attn = plain_path()
         with p_gn, p_attn:
@@ -4244,8 +4496,9 @@ def search_path(params, cparams, tmpdir, card_line, held):
 
 def search_parity(params, cparams, clf, tmpdir):
     """Phase 16: search through the kernels against the plain path on the
-    same seeds, in f32 (simt) and bf16 (mma, wide). Random N=16 and pruned
-    16 -> 4 at t=500 of the unconditional UNet over DDIM 50 at eta 0 (the
+    same seeds, in f32 (the forward on tf32x3, dq and dk/dv on simt) and
+    bf16 (mma, wide). Random N=16 and pruned 16 -> 4 at t=500 of the
+    unconditional UNet over DDIM 50 at eta 0 (the
     candidates drawn from one seed; nothing else is drawn): every
     candidate's score within SCORE_TOL of the plain path's, and the same
     winner unless the plain path's two best lie within SCORE_TOL (the
@@ -4289,6 +4542,7 @@ def search_parity(params, cparams, clf, tmpdir):
             if not n1["flash_attention"]:
                 fail(f"search parity {what} {name}: no kernel launched")
             if dtype == torch.float32:
+                every_f32_forward_on_tf32x3(n1, f"search parity {what}")
                 f32_launches.update(n1)
             p_gn, p_attn = plain_path()
             with p_gn, p_attn:
@@ -4370,6 +4624,7 @@ def search_parity(params, cparams, clf, tmpdir):
                     or n1["flash_bwd_dkv"] != per * steps):
                 fail(f"gradient parity {tag} {name}: launches {n1}")
             if dtype == torch.float32:
+                every_f32_forward_on_tf32x3(n1, f"gradient parity {tag}")
                 f32_launches.update(n1)
             p_gn, p_attn = plain_path()
             with p_gn, p_attn:
@@ -4507,7 +4762,8 @@ def gradient_search_parity(params, clf, tmpdir, f32_launches,
         n1 = read_launches()
         want_n = route_counts(
             gn=51 * 2 * steps, fwd=6 * 2 * steps, dq=6 * steps,
-            dkv=6 * steps, **({} if dtype == torch.float32 else dict(
+            dkv=6 * steps, **(dict(fwd_tf32x3=6 * 2 * steps)
+                              if dtype == torch.float32 else dict(
                 fwd_mma=6 * 2 * steps, dq_mma=6 * steps,
                 dkv_mma=6 * steps)))
         if n1 != want_n:
@@ -4595,6 +4851,8 @@ def gradient_search_parity(params, clf, tmpdir, f32_launches,
                     or n1["flash_bwd_dq"] != 6 * GS_T
                     or n1["flash_bwd_dkv"] != 6 * GS_T):
                 fail(f"gradient remat={remat} {name}: launches {n1}")
+            if name == "float32":
+                every_f32_forward_on_tf32x3(n1, f"gradient remat={remat}")
         rel = ((grads[True] - grads[False]).norm()
                / grads[False].norm()).item()
         ok = (torch.equal(grads[True], grads[False])
@@ -4993,6 +5251,7 @@ def tracked_parity(params, clf, clip_path, tmpdir):
         hist[path] = out["history"]
         if path == "kernels":
             f32_launches = read_launches()
+            every_f32_forward_on_tf32x3(f32_launches, "tracked parity")
     worst = [0.0, 0.0, 0.0]
     for k, p in zip(hist["kernels"], hist["plain"]):
         if k[0] != p[0]:
@@ -5313,7 +5572,7 @@ def vit_path(tmpdir, card_line):
     16 (exactly 12 flash forwards, 12 dq and 12 dk/dv a step, all on mma
     at C=64, no GroupNorm), then ``runner.evaluate`` through DDIM 50 at
     batch 8 from its checkpoint (12 forwards a model evaluation on mma);
-    finite loss and images; one f32 (simt) and one bf16 (mma) forward of
+    finite loss and images; one f32 (tf32x3) and one bf16 (mma) forward of
     the kernel path against the plain path ("xla") on the same weights.
     Returns ({run: launches}, the f32 forward's launches)."""
     from itsd_tpu_torch.cli import runner
@@ -5391,7 +5650,8 @@ def vit_path(tmpdir, card_line):
             n = read_launches()
             if impl == "auto":
                 want = route_counts(fwd=depth, fwd_mma=depth * (
-                    dtype == "bfloat16"))
+                    dtype == "bfloat16"), fwd_tf32x3=depth * (
+                    dtype == "float32"))
                 if n != want:
                     fail(f"ViT {dtype} kernel path launched {n}")
                 if dtype == "float32":
@@ -5517,9 +5777,9 @@ KERNELS = {
     "flash_attention_wide": (
         "itsd_tpu_torch/csrc/flash_attention_wide_hopper.cu",
         "itsd_tpu/kernels/attention.py:50", "cond_train"),
-    "flash_attention_simt": ("itsd_tpu_torch/csrc/flash_attention.cu",
-                             "itsd_tpu/kernels/attention.py:50",
-                             "cond_train"),
+    "flash_attention_tf32x3": ("itsd_tpu_torch/csrc/flash_attention_tf32x3.cu",
+                               "itsd_tpu/kernels/attention.py:50",
+                               "cond_train"),
     "flash_bwd_dq_mma": (
         "itsd_tpu_torch/csrc/flash_attention_bwd_dq_hopper.cu",
         "itsd_tpu/kernels/attention.py:229", "train"),
@@ -5550,15 +5810,21 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
     runner.evaluate, runner.train, runner.run_search and the tracked entry
     points (``launches_by_path``); the simt forward, dq and dk/dv, which no
     bf16 path sends there, count their launches on the f32 kernel paths of
-    the parity phases 4, 6, 10, 11, 14, 16 and 18
-    (``launches_f32_parity``, kept for every kernel)."""
+    the parity phases 4, 6, 10, 11, 14, 16, 18, 20 and 22
+    (``launches_f32_parity``, kept for every kernel), and so does the
+    f32 forward ("tf32x3"), whose times sum over the CFG train step's
+    attention calls on f32 inputs, beside the simt forward it replaced
+    (timed in turns with it: "simt_ms") and the f32 bound at 67 TFLOP/s
+    ("bound_f32_ms"); its "bound_ms" is the 3xTF32 one. The simt forward,
+    which no path runs any more (bf16 at C % 16 != 0 only), has no entry
+    of its own."""
     entries = []
     for name, (source, replaces, work) in KERNELS.items():
         by_tag = fwd[name] if name in fwd else bwd[name]
         err = max(res[0] for res in by_tag.values())
         by_path = {p: path_launches[p][name] for p in MAIN_PATHS}
         launches, counted_on = sum(by_path.values()), "bf16 runner paths"
-        if not launches and name in ("flash_attention_simt",
+        if not launches and name in ("flash_attention_tf32x3",
                                      "flash_bwd_dq_simt",
                                      "flash_bwd_dkv_simt"):
             launches = f32_launches[name]
@@ -5595,6 +5861,19 @@ def kernel_json(fwd, bwd, path_launches, f32_launches):
                 tag: {k: v for k, v in rows_entry(rows).items()
                       if k != "plain_ms"}
                 for tag, (_, rows) in f32.items() if rows}
+        if name == "flash_attention_tf32x3":
+            entry["work"] = ("the attention calls of one train step of "
+                             "configs/cifar10_cfg.yaml (batch 256) on f32 "
+                             "inputs")
+            entry["library"] = "SDPA on f32 inputs"
+            entry["simt_source"] = "itsd_tpu_torch/csrc/flash_attention.cu"
+            simt = fwd["flash_attention_simt_f32"]
+            for tag, (_, rows) in simt.items():
+                if not rows:
+                    continue
+                at = entry if tag == work else entry[key(tag)]
+                at["simt_ms"] = rows_entry(rows)["ms"]
+                at["bound_f32_ms"] = rows_entry(rows)["bound_ms"]
         if name not in fwd:
             entry["library"] = ("one SDPA backward, which computes dq, dk "
                                 "and dv together")
@@ -5710,7 +5989,11 @@ def run_phases(dev, name, smi_line) -> int:
             "vit_eval": (vit_eval_shapes, 5, False),
             "vit_rows2": (vit_rows_shapes, 5, True)}, {
             "flagship_rows": (ft_shapes[0], SP_FLAG_BATCH),
-            "cifar_rows": (train_shapes[0], SP_CIFAR_BATCH)}, dev, timer)
+            "cifar_rows": (train_shapes[0], SP_CIFAR_BATCH)}, dev, timer,
+            # the inference config's f32 attention (its bf16 work no path
+            # runs): the simt kernel takes ~0.2 s a call at infer384
+            {tag: ([shape] * calls, 1 if tag == "infer384" else 3, False)
+             for tag, (shape, calls) in INFERENCE_ATTENTION.items()})
         # the attention batches phase 2 held, for phase 15's search runs
         held = {model: {B for _, attn in paths for B, _, _ in attn}
                 for model, paths in (

@@ -8,6 +8,13 @@
 // p rounded to the input dtype before the p.v product, o = acc / l and
 // lse = m + log(l).
 //
+// Which inputs reach it: bf16 at C % 16 != 0 (the "simt" route of the
+// forward), and the forced call _flash_simt, the same-call yardstick of
+// the tensor-core forwards. f32 forwards took this kernel until the
+// "tf32x3" route (csrc/flash_attention_tf32x3.cu, tensor cores with
+// f32-accurate products) replaced it for them; the f32 backward stays on
+// the CUDA cores (csrc/flash_attention_bwd.cu).
+//
 // Bound on the card: at the UNet's shape (B=8, N=256, C=256, bf16) the call
 // does 0.54 GFLOP and must move 4.2 MB; at 989 TFLOP/s and 3.35 TB/s the
 // least time is ~1.25 us, set by the bytes. This version does its products

@@ -5,9 +5,9 @@
 // (launched by _attention_flash_bwd) for bf16 inputs with C % 16 == 0 and
 // 256 < C <= 1024: the CFG UNet's C=512 (16x16 and 2x2) and C=1024 (8x8
 // and 4x4), and the 256x256 flagship's C=384. Narrower bf16 rows take
-// csrc/flash_attention_bwd_dq_mma.cu; f32 and every other width the
-// CUDA-core kernel of csrc/flash_attention_bwd.cu, so that f32 never runs
-// on the tensor cores. Same arithmetic as flash_attention_bwd_dq_mma.cu:
+// csrc/flash_attention_bwd_dq_hopper.cu; f32 and every other width the
+// CUDA-core kernel of csrc/flash_attention_bwd.cu. Same arithmetic as
+// flash_attention_bwd_dq_hopper.cu:
 // s = (q.k^T summed in f32) * scale, p = exp(s - lse) from the forward's
 // per-row log-sum-exp, dp = dO.v^T in f32, ds = p * (dp - dd) with
 // dd = rowsum(dO * O) - dlse taken by the caller, then dq = scale * ds.k
@@ -75,7 +75,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;      // bf16 elements of padding a row (16 B)
-constexpr int kMinC = 256;   // narrower C: flash_attention_bwd_dq_mma.cu
+constexpr int kMinC = 256;   // narrower C: flash_attention_bwd_dq_hopper.cu
 constexpr int kMaxC = 1024;
 
 // K and V tiles in two stages, the s and dp partials (kBK/2 floats a lane

@@ -8,8 +8,8 @@
 // _attention_flash_stats) for bf16 inputs with C % 16 == 0 and
 // 256 < C <= 1024: the CFG UNet's C=512 (16x16 and 2x2) and C=1024 (8x8
 // and 4x4), and the 256x256 flagship's C=384. Narrower bf16 rows take
-// csrc/flash_attention_hopper.cu, f32 and other widths the CUDA-core kernel
-// of csrc/flash_attention.cu. The mma.sync kernel this one replaced
+// csrc/flash_attention_hopper.cu, f32 csrc/flash_attention_tf32x3.cu and
+// other bf16 widths the CUDA-core kernel of csrc/flash_attention.cu. The mma.sync kernel this one replaced
 // (csrc/flash_attention_wide.cu) stays as itsd_flash_attention_wide_sync.
 // Same arithmetic as the Pallas kernel and flash_attention_hopper.cu:
 // s = (q.k^T summed in f32) * scale, an online softmax with f32 running max

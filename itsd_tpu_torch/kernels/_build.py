@@ -63,6 +63,8 @@ SIGNATURES = {
                                   _P),
     "itsd_flash_attention_wide_sync": (_P, _P, _P, _P, _P, _I, _I, _I, _F,
                                        _I, _P),
+    "itsd_flash_attention_tf32x3": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                                    _P),
     # q, k, v, dout, lse, dd, dq, B, N, C, scale, dtype, stream
     "itsd_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                           _P),
@@ -159,10 +161,9 @@ _SASS_FN = re.compile(r"^\s*Function : (\S+)")
 def sass_counts(path: Path, opcodes=("HGMMA", "UTMALDG"),
                 functions=None) -> dict:
     """{kernel: {opcode: count}} of the built library's SASS, from
-    ``cuobjdump -sass``: how many instructions of each opcode (a prefix of
-    the mnemonic, as ``HGMMA`` for every ``HGMMA.64x...``) each kernel
-    holds; only the kernels named in ``functions`` (mangled names), when
-    given. Raises when cuobjdump fails."""
+    ``cuobjdump -sass``: how many instructions of each opcode each kernel
+    holds (see ``parse_sass``); only the kernels named in ``functions``
+    (mangled names), when given. Raises when cuobjdump fails."""
     cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
     only = ["-fun", ",".join(functions)] if functions else []
     proc = subprocess.run([str(cuobjdump), "-sass", *only, str(path)],
@@ -171,6 +172,15 @@ def sass_counts(path: Path, opcodes=("HGMMA", "UTMALDG"),
         raise RuntimeError(f"cuobjdump failed (exit {proc.returncode}): "
                            f"{proc.stderr[-2000:]}")
     return parse_sass(proc.stdout, opcodes)
+
+
+def _matches(mnemonic: str, op: str) -> bool:
+    """An opcode names an instruction and, after dots, modifiers it must
+    carry: ``HGMMA`` matches every ``HGMMA.64x...``, ``HMMA.TF32`` every
+    ``HMMA`` with a ``TF32`` modifier (``HMMA.1688.F32.TF32``)."""
+    name, *mods = mnemonic.split(".")
+    op_name, *op_mods = op.split(".")
+    return name == op_name and all(m in mods for m in op_mods)
 
 
 def parse_sass(text: str, opcodes) -> dict:
@@ -188,7 +198,7 @@ def parse_sass(text: str, opcodes) -> dict:
                 if word.startswith("@"):
                     continue  # a predicate guard
                 for op in ops:
-                    if word == op or word.startswith(op + "."):
+                    if _matches(word, op):
                         counts[fn][op] += 1
                 break
     return counts

@@ -9,8 +9,8 @@ and the backward ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``.
 ``flash_attention`` ties them together as a ``torch.autograd.Function``, as
 ``_flash_attention_diff`` does with ``jax.custom_vjp``.
 
-Each of the three functions has three kernels, and ``route`` picks one
-from the function, the dtype and C:
+Each of the three functions has three kernels (the forward four), and
+``route`` picks one from the function, the dtype and C:
 * "mma": bf16 with C % 16 == 0 and C <= 256, on the tensor cores with
   Hopper's wgmma, TMA and mbarriers (``csrc/flash_attention_hopper.cu``,
   ``csrc/flash_attention_bwd_dq_hopper.cu``,
@@ -23,10 +23,14 @@ from the function, the dtype and C:
   ``csrc/flash_attention_bwd_dkv_wide_hopper.cu``), dq on mma.sync with the
   head dimension split across warps (``csrc/flash_attention_bwd_dq_wide.cu``):
   the CFG UNet's C=512 and C=1024 and the flagship's C=384;
-* "simt": everything else the kernels take (C % 4 == 0 up to 1024), f32
-  above all, on the CUDA cores in f32 (``csrc/flash_attention.cu``,
-  ``csrc/flash_attention_bwd.cu``), so that f32 never runs at the tensor
-  cores' reduced precision;
+* "tf32x3": the f32 forward (C % 4 == 0 up to 1024), on the tensor cores
+  with f32-accurate products: each f32 operand split as hi + lo in TF32
+  and three TF32 products a product, f32 accumulation
+  (``csrc/flash_attention_tf32x3.cu``), so that f32 keeps its accuracy at
+  the tensor cores' rate;
+* "simt": everything else the kernels take (C % 4 == 0 up to 1024): bf16
+  at C % 16 != 0, and the f32 dq and dk/dv, on the CUDA cores in f32
+  (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``);
 * "plain": the widths no kernel takes (C % 4 != 0 or C > 1024), whatever
   the dtype: the plain versions, computed on the card, as JAX computes
   ``_attention_xla`` wherever ``_flash_eligible`` fails. The width alone
@@ -40,7 +44,8 @@ stay in the library as their same-call yardsticks: only the forced calls
 ``_flash_mma_sync``, ``_flash_bwd_dq_mma_sync``, ``_flash_bwd_dkv_mma_sync``,
 ``_flash_wide_sync`` and ``_flash_bwd_dkv_wide_sync`` reach them (tests and
 ``chip_smoke.py``), as ``_flash_simt`` and the other ``_simt`` calls force
-the CUDA-core kernels; no path routes there.
+the CUDA-core kernels (the f32 forward's yardstick too); no path routes
+there.
 
 Every entry point dispatches on where its inputs lie: CPU tensors go to the
 plain versions, CUDA tensors to the kernels, and anything the kernels do not
@@ -78,7 +83,8 @@ from . import _build
 
 # Kernel launches so far: the forward (both entry points, every route), the
 # dq kernel and the dk/dv kernel (every route), and of those the ones on
-# the "mma" and "wide" routes, and the forced calls of the mma.sync forward,
+# the "mma", "wide" and (the forward) "tf32x3" routes, and the forced calls
+# of the mma.sync forward,
 # dq and dk/dv (and of the wide route's mma.sync forward and dk/dv). A run
 # resets them to check what went through the kernels. ``plain_calls``
 # counts the calls of the "plain" route on CUDA tensors, which launch no
@@ -86,6 +92,7 @@ from . import _build
 launches = 0
 mma_launches = 0
 wide_launches = 0
+tf32x3_launches = 0
 mma_sync_launches = 0
 wide_sync_launches = 0
 dq_launches = 0
@@ -99,7 +106,8 @@ dkv_mma_sync_launches = 0
 dkv_wide_sync_launches = 0
 plain_calls = 0
 
-MAX_C = 1024  # kMaxC of csrc/flash_attention.cu and flash_attention_bwd.cu
+MAX_C = 1024  # kMaxC of csrc/flash_attention.cu, flash_attention_bwd.cu
+#               and flash_attention_tf32x3.cu
 MMA_MAX_C = 256  # kMaxC of the csrc/flash_attention*_mma.cu kernels
 WIDE_MAX_C = 1024  # kMaxC of the csrc/flash_attention*_wide.cu kernels
 KERNELS = ("forward", "dq", "dkv")
@@ -120,12 +128,15 @@ def route(dtype: torch.dtype, C: int, kernel: str) -> str:
     C > 1024, whatever the dtype; "mma" (tensor cores) for bf16 with
     C % 16 == 0 and C <= 256; "wide" (tensor cores, the head dimension
     split over column owners) for bf16 with C % 16 == 0 and
-    256 < C <= 1024; "simt" (CUDA cores, f32 arithmetic) for the rest."""
+    256 < C <= 1024; "tf32x3" (tensor cores, f32-accurate products) for
+    the f32 forward; "simt" (CUDA cores, f32 arithmetic) for the rest."""
     if kernel not in KERNELS:
         raise ValueError(f"route: kernel must be one of {KERNELS}, got "
                          f"{kernel!r}")
     if C % 4 or C > MAX_C:
         return "plain"
+    if dtype == torch.float32 and kernel == "forward":
+        return "tf32x3"
     if dtype != torch.bfloat16 or C % 16:
         return "simt"
     if C <= MMA_MAX_C:
@@ -193,7 +204,8 @@ def _check(q, k, v, *more):
 
 def _entry(kernels, base, which):
     """The C entry point of a route's kernel: ``base`` for "simt",
-    ``base_mma`` or ``base_wide`` for the tensor-core ones (and
+    ``base_mma``, ``base_wide`` or ``base_tf32x3`` for the tensor-core ones
+    (and
     ``base_mma_sync`` or ``base_wide_sync`` for the mma.sync kernels'
     forced calls)."""
     name = base if which == "simt" else f"{base}_{which}"
@@ -202,7 +214,7 @@ def _entry(kernels, base, which):
 
 def _launch_forward(q, k, v, scale, emit_lse, which):
     global launches, mma_launches, wide_launches, mma_sync_launches
-    global wide_sync_launches
+    global wide_sync_launches, tf32x3_launches
     _check(q, k, v)
     B, N, C = q.shape
     o = torch.empty_like(q)
@@ -218,6 +230,7 @@ def _launch_forward(q, k, v, scale, emit_lse, which):
     launches += 1
     mma_launches += which == "mma"
     wide_launches += which == "wide"
+    tf32x3_launches += which == "tf32x3"
     mma_sync_launches += which == "mma_sync"
     wide_sync_launches += which == "wide_sync"
     return (o, lse) if emit_lse else o
@@ -235,8 +248,9 @@ def _flash(q, k, v, scale, emit_lse):
 
 def _flash_simt(q, k, v, scale, emit_lse):
     """The forward through the CUDA-core kernel whatever the route, so that
-    it can be held and timed on the same bf16 inputs as the tensor-core
-    kernels. No path of the program calls it."""
+    it can be held and timed on the same inputs as the tensor-core kernels
+    (bf16, and f32 beside the "tf32x3" kernel that replaced it there). No
+    path of the program calls it."""
     return _launch_forward(q, k, v, scale, emit_lse, "simt")
 
 

@@ -16,11 +16,13 @@ first term: atol 2^-7 * max|v|, rtol 2^-7.
 
 The forward, the dq backward and the dk/dv backward each have two
 tensor-core kernels ("mma", C <= 256, and "wide", 256 < C <= 1024) and a
-CUDA-core one ("simt"); ``route`` picks one from the function, the dtype
-and C. They are held here on the same bf16 inputs, the "simt" ones through
-the private ``_flash_simt``, ``_flash_bwd_dq_simt`` and
-``_flash_bwd_dkv_simt``. Run one route's tests with ``-k mma``, ``-k wide``
-or ``-k simt``, the dq tests of one route with ``-k "dq and mma"``,
+CUDA-core one ("simt"); the f32 forward has a tensor-core kernel of its own
+("tf32x3": error-compensated TF32 products, f32 accuracy); ``route`` picks
+one from the function, the dtype and C. They are held here on the same
+inputs, the "simt" ones through the private ``_flash_simt``,
+``_flash_bwd_dq_simt`` and ``_flash_bwd_dkv_simt``. Run one route's tests
+with ``-k mma``, ``-k wide``, ``-k tf32x3`` or ``-k simt``, the dq tests of
+one route with ``-k "dq and mma"``,
 ``-k "wide and cfg"`` or ``-k "routes and simt"``, the tests at the CFG
 UNet's widths and maps with ``-k cfg``, the wide route's Hopper forward and
 dk/dv (which replaced the mma.sync kernels that ``_flash_wide_sync`` and
@@ -366,8 +368,10 @@ def _launched(before):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flagship_attention_shape(cuda_device, dtype):
     """The 256x256 flagship's attention, [1, 4096, 384], forward and
-    backward through the CUDA-core kernels: the route of f32, and forced
-    for bf16, whose forward, dq and dk/dv take the wide kernels
+    backward through the CUDA-core kernels (forced): the route of the f32
+    dq and dk/dv, whose forward takes the tf32x3 kernel
+    (``test_tf32x3_forward_matches_plain_and_simt`` holds it here), and of
+    no bf16 function, whose forward, dq and dk/dv take the wide kernels
     (``test_wide_mma_kernels_at_the_cfg_widths`` holds those here)."""
     B, N, C = 1, 4096, 384
     assert attention.route(dtype, C, "dq") == (
@@ -406,8 +410,9 @@ def test_simt_kernels_at_the_cfg_widths(cuda_device, dtype, C, N):
     widths of the CFG UNet's 16x16 (C=512) and 8x8 and 4x4 (C=1024)
     stages, and C=768, each against its plain version (f32: 2e-5; bf16:
     the tolerances above), with dlse; two launches of each agree bit for
-    bit. f32 takes this route at these widths; bf16, which takes the wide
-    kernels, is forced here."""
+    bit. The f32 dq and dk/dv take this route at these widths, the f32
+    forward the tf32x3 kernel; bf16, which takes the wide kernels, is
+    forced here."""
     assert attention.route(dtype, C, "dq") == (
         "simt" if dtype == torch.float32 else "wide")
     B = 3
@@ -1113,6 +1118,77 @@ def test_plain_route_on_the_card(cuda_device, dtype, C):
         q, k, v, o_lse, lse, do, scale)))
 
 
+# The f32 forward's tensor-core kernel ("tf32x3",
+# csrc/flash_attention_tf32x3.cu: mma.sync in TF32, three products a
+# product of the operands split as hi + lo), which pads C to 64, 128, 256,
+# 384, 512 or 1024 through the copies' zero fill: every width class (C=4
+# and 12 on the narrowest, 100, 520 and 1020 padded) at N of one row, a
+# packed tile's 4 and 16, one 64-row tile less one, one and one more, and
+# several tiles; the UNets' and the inference config's calls (the
+# flagship's [1, 4096, 384], [2, 1024, 512], the CFG UNet's C=1024 and
+# C=512 small maps at its train batch, where tiles pack samples, and a
+# last packed tile in part).
+TF32X3_SHAPES = ([(3, N, C)
+                  for C in (4, 12, 100, 128, 256, 384, 512, 520, 1020, 1024)
+                  for N in (1, 4, 16, 63, 64, 65, 256)]
+                 + [(1, 4096, 384), (2, 1024, 512), (256, 16, 1024),
+                    (256, 4, 512), (300, 7, 384)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,C", TF32X3_SHAPES)
+def test_tf32x3_forward_matches_plain_and_simt(cuda_device, B, N, C):
+    """The f32 forward on its route ("tf32x3"), with and without lse,
+    against the plain version at the f32 limits (o and lse within 2e-5),
+    two launches equal bit for bit and each counted on the route; the simt
+    kernel it replaced (``_flash_simt``) held to the same limits on the
+    same inputs."""
+    assert attention.route(torch.float32, C, "forward") == "tf32x3"
+    gen = torch.Generator(device=cuda_device).manual_seed(B * N + C)
+    q, k, v = (torch.randn((B, N, C), generator=gen, device=cuda_device)
+               for _ in range(3))
+    scale = C ** -0.5
+    before = (attention.tf32x3_launches, attention.launches)
+    o, lse = attention.attention_with_lse(q, k, v, scale)
+    o2, lse2 = attention.attention_with_lse(q, k, v, scale)
+    o3 = attention.spatial_attention(q, k, v)
+    o4 = attention.spatial_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (attention.tf32x3_launches - before[0],
+            attention.launches - before[1]) == (4, 4)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(o3, o4) and torch.equal(o, o3)
+    want_o, want_lse = attention.attention_plain_stats(q, k, v, scale)
+    s_o, s_lse = attention._flash_simt(q, k, v, scale, emit_lse=True)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32 and o.shape == (B, N, C)
+    for got_o, got_lse in ((o, lse), (s_o, s_lse)):
+        torch.testing.assert_close(got_o, want_o, atol=2e-5, rtol=0)
+        torch.testing.assert_close(got_lse, want_lse, atol=2e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_tf32x3_entry_refuses_what_it_does_not_take(cuda_device):
+    """The tf32x3 entry point takes f32 with C % 4 == 0 and C <= 1024
+    only: bf16, or a width past those, returns an error, which the wrapper
+    raises (bf16 passes the wrapper's own checks)."""
+    from itsd_tpu_torch.kernels import _build
+
+    lib = _build.load().lib
+    for dtype, C in ((torch.bfloat16, 384), (torch.float32, 6),
+                     (torch.float32, 1028)):
+        q = torch.zeros((1, 8, C), dtype=dtype, device=cuda_device)
+        p = q.data_ptr()
+        assert lib.itsd_flash_attention_tf32x3(
+            p, p, p, p, None, 1, 8, C, 0.5, _build.DTYPE_CODES[dtype],
+            _build.stream_ptr(q)) != 0
+    q = torch.zeros((1, 8, 384), dtype=torch.bfloat16, device=cuda_device)
+    before = attention.tf32x3_launches
+    with pytest.raises(RuntimeError, match="flash_attention_tf32x3: CUDA"):
+        attention._launch_forward(q, q, q, 0.5, False, "tf32x3")
+    assert attention.tf32x3_launches == before
+
+
 @pytest.mark.cuda
 def test_autograd_functions_pass_gradcheck_in_f32(cuda_device):
     """Finite differences of the kernels' forward against their backward:
@@ -1183,7 +1259,7 @@ PICARD_GN = [(400, 128, 32, 32), (400, 256, 16, 16), (400, 512, 4, 4),
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,C", PICARD_ATTENTION)
 def test_flash_forward_at_picard_folded_batches(cuda_device, B, N, C):
-    """The flash forward on the route bf16 takes, and simt in f32, against
+    """The flash forward on the route bf16 takes, and tf32x3 in f32, against
     the plain version at Picard's folded batches."""
     gen = torch.Generator(device=cuda_device).manual_seed(B + N + C)
     scale = C ** -0.5
@@ -1587,7 +1663,8 @@ VIT_ATTENTION = [(16 * 12, 256, 64), (8 * 12, 256, 64)]
 def test_vit_attention_on_mma_at_c64(cuda_device, dtype, B, N, C):
     """``mha_attention`` with a gradient, as a ViT block runs it: the
     folded [B*H, N, 64] forward, dq and dk/dv on the route each dtype
-    takes (bf16: mma; f32: simt), against the plain versions of the same
+    takes (bf16: mma; f32: the forward tf32x3, dq and dk/dv simt), against
+    the plain versions of the same
     formula on the folded tensors at the tolerances above (bf16: plus the
     f32 summation-order bound of dq and dk; the backward from the kernel's
     o and lse, as the autograd Function saved them), and the forward
@@ -1598,9 +1675,10 @@ def test_vit_attention_on_mma_at_c64(cuda_device, dtype, B, N, C):
                                device=cuda_device).to(dtype)
                    for _ in range(4))
     which = attention.route(dtype, C, "forward")
-    assert which == ("mma" if dtype == torch.bfloat16 else "simt")
+    assert which == ("mma" if dtype == torch.bfloat16 else "tf32x3")
     ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     counts = _counts()
+    tf32x3 = attention.tf32x3_launches
     o = attention.mha_attention(*ins)
     got = torch.autograd.grad(o, ins, do)
     with torch.no_grad():
@@ -1608,6 +1686,7 @@ def test_vit_attention_on_mma_at_c64(cuda_device, dtype, B, N, C):
     torch.cuda.synchronize()
     mma = int(which == "mma")
     assert _launched(counts) == (2, 2 * mma, 0, 1, mma, 0, 1, mma, 0)
+    assert attention.tf32x3_launches - tf32x3 == 2 * (1 - mma)
     assert torch.equal(o.detach(), o_nograd)
 
     def fold(t):

@@ -183,6 +183,65 @@ def test_attention_at_the_wide_widths_matches_flash_interpret(C):
                                    rtol=0)
 
 
+def _tf32(x):
+    """f32 rounded to TF32 as cvt.rna.tf32.f32 does: to nearest, ties away
+    from zero, the low 13 mantissa bits cleared (adding half a TF32 unit to
+    the magnitude's bits carries into the exponent where it should)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product(a, b, equation, split):
+    """einsum of f32 ``a`` and ``b`` with f32 accumulation, from TF32
+    operands: three products of the split (a_lo.b_hi + a_hi.b_lo, then
+    + a_hi.b_hi, as csrc/flash_attention_tf32x3.cu adds them) or, without
+    ``split``, one product of the rounded operands."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if not split:
+        return torch.einsum(equation, a_hi, b_hi)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    small = (torch.einsum(equation, a_lo, b_hi)
+             + torch.einsum(equation, a_hi, b_lo))
+    return small + torch.einsum(equation, a_hi, b_hi)
+
+
+def _attention_tf32(q, k, v, scale, split):
+    """The tf32x3 kernel's arithmetic on the CPU: s = q.k^T * scale from
+    TF32 products, the softmax in f32, o = p.v from TF32 products."""
+    p = torch.softmax(_product(q, k, "bqc,bkc->bqk", split) * scale, dim=-1)
+    return _product(p, v, "bqk,bkc->bqc", split)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """``_tf32`` against hand-made values: 1 + 2^-11 (half a TF32 unit)
+    rounds away to 1 + 2^-10, 1 + 2^-12 down to 1, negatives by magnitude,
+    and a carry into the exponent."""
+    x = torch.tensor([1 + 2.0 ** -11, 1 + 2.0 ** -12, -(1 + 2.0 ** -11),
+                      2 - 2.0 ** -12, 3.0], dtype=torch.float32)
+    want = torch.tensor([1 + 2.0 ** -10, 1.0, -(1 + 2.0 ** -10), 2.0, 3.0])
+    assert torch.equal(_tf32(x), want)
+
+
+@pytest.mark.parametrize("C", [4, 384, 1024])
+@pytest.mark.parametrize("N", [1, 64, 257])
+def test_tf32x3_arithmetic_matches_xla_in_f32(C, N):
+    """The error-compensated TF32 products of the f32 forward's kernel
+    ("tf32x3"), emulated here (TF32 rounding by bit masks, the hi/lo split,
+    three products with f32 accumulation), against JAX's ``_attention_xla``
+    in f32 (Precision.HIGHEST) at the CUDA tests' limit, 2e-5; a single
+    TF32 product of the rounded operands misses that limit on the same
+    inputs (by ~2^-11 of |v|, with N=1 too, where p = 1), so the limit
+    tells the two apart."""
+    q, k, v = _qkv(C + N, 2, N, C)
+    scale = C ** -0.5
+    want = np.asarray(_attention_xla(*map(jnp.asarray, (q, k, v)), scale))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = _attention_tf32(tq, tk, tv, scale, split=True)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+    one = _attention_tf32(tq, tk, tv, scale, split=False)
+    assert np.abs(one.numpy() - want).max() > 2e-5
+
+
 def test_attention_plain_bf16_matches_xla():
     q, k, v = _qkv(2, 2, 64, 32)
     jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
@@ -217,7 +276,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert (groupnorm.launches, attention.launches) == before
 
 
-# want: the kernel of all three functions (forward, dq and dk/dv).
+# want: the kernel of dq and dk/dv, and of the forward too except in f32,
+# whose forward takes "tf32x3" wherever a kernel takes the width.
 @pytest.mark.parametrize("dtype,C,want", [
     (torch.bfloat16, 16, "mma"), (torch.bfloat16, 64, "mma"),
     (torch.bfloat16, 128, "mma"), (torch.bfloat16, 256, "mma"),
@@ -232,14 +292,18 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
 def test_route_is_chosen_by_dtype_and_width(dtype, C, want, monkeypatch):
     """bf16 rows of a multiple of 16 up to 256 take the tensor-core
     kernels; from 272 to 1024 the wide tensor-core kernels, dq included;
-    f32 (kept off the tensor cores) and other widths the kernels take
-    (C % 4 == 0, C <= 1024) the CUDA-core ones; C % 4 != 0 and C > 1024,
-    whatever the dtype, the plain versions ("plain", as JAX computes
-    ``_attention_xla`` outside ``_flash_eligible``). The forward, dq and
-    dk/dv wrappers each hand their launch the route's kernel (the launches
-    are recorded, not made), or on the "plain" route return the plain
-    version's values, launch nothing and count one plain call each."""
+    the f32 forward the tensor-core kernel with f32-accurate products
+    ("tf32x3"), and the f32 dq and dk/dv and other bf16 widths the kernels
+    take (C % 4 == 0, C <= 1024) the CUDA-core ones; C % 4 != 0 and
+    C > 1024, whatever the dtype, the plain versions ("plain", as JAX
+    computes ``_attention_xla`` outside ``_flash_eligible``). The forward,
+    dq and dk/dv wrappers each hand their launch the route's kernel (the
+    launches are recorded, not made), or on the "plain" route return the
+    plain version's values, launch nothing and count one plain call
+    each."""
     routes = dict.fromkeys(attention.KERNELS, want)
+    if dtype == torch.float32 and want != "plain":
+        routes["forward"] = "tf32x3"
     assert {kernel: attention.route(dtype, C, kernel)
             for kernel in routes} == routes
     chosen = []
@@ -276,15 +340,18 @@ def test_route_is_chosen_by_dtype_and_width(dtype, C, want, monkeypatch):
 def test_route_at_every_width_the_kernels_take(dtype):
     """Every C the kernels take (C % 4 == 0 up to 1024), for all three
     functions: bf16 with C % 16 == 0 goes to "mma" up to 256 and to "wide"
-    above; f32 and every other width to "simt"."""
+    above; the f32 forward to "tf32x3"; the f32 dq and dk/dv and every
+    other width to "simt"."""
     for C in range(4, attention.MAX_C + 1, 4):
         if dtype != torch.bfloat16 or C % 16:
             want = "simt"
         else:
             want = "mma" if C <= attention.MMA_MAX_C else "wide"
+        routes = dict.fromkeys(attention.KERNELS, want)
+        if dtype == torch.float32:
+            routes["forward"] = "tf32x3"
         assert {kernel: attention.route(dtype, C, kernel)
-                for kernel in attention.KERNELS} == dict.fromkeys(
-                    attention.KERNELS, want), C
+                for kernel in attention.KERNELS} == routes, C
 
 
 def test_route_refuses_an_unknown_kernel():
@@ -327,9 +394,10 @@ def test_a_batch_past_the_grid_cap_raises_before_any_launch(monkeypatch):
     assert [getattr(attention, n) for n in COUNTERS] == before
 
 
-COUNTERS = ("launches", "mma_launches", "wide_launches", "dq_launches",
-            "dq_mma_launches", "dq_wide_launches", "dkv_launches",
-            "dkv_mma_launches", "dkv_wide_launches", "mma_sync_launches",
+COUNTERS = ("launches", "mma_launches", "wide_launches", "tf32x3_launches",
+            "dq_launches", "dq_mma_launches", "dq_wide_launches",
+            "dkv_launches", "dkv_mma_launches", "dkv_wide_launches",
+            "mma_sync_launches",
             "dq_mma_sync_launches", "dkv_mma_sync_launches",
             "wide_sync_launches", "dkv_wide_sync_launches", "plain_calls")
 
@@ -378,6 +446,7 @@ def test_cpu_tensors_at_the_wide_widths_launch_no_kernel(dtype, C):
 @pytest.mark.parametrize("source,max_c,min_c", [
     ("flash_attention.cu", "MAX_C", None),
     ("flash_attention_bwd.cu", "MAX_C", None),
+    ("flash_attention_tf32x3.cu", "MAX_C", None),
     ("flash_attention_mma.cu", "MMA_MAX_C", None),
     ("flash_attention_bwd_dq_mma.cu", "MMA_MAX_C", None),
     ("flash_attention_bwd_mma.cu", "MMA_MAX_C", None),
@@ -424,7 +493,8 @@ def test_every_entry_point_has_its_ctypes_signature():
             "itsd_flash_bwd_dkv_wide", "itsd_flash_bwd_dq_mma_sync",
             "itsd_flash_attention_wide_sync", "itsd_flash_bwd_dkv_wide_sync",
             "itsd_groupnorm_partial_stats_cluster",
-            "itsd_groupnorm_stats_floor"} <= set(found)
+            "itsd_groupnorm_stats_floor",
+            "itsd_flash_attention_tf32x3"} <= set(found)
     assert found == _build.SIGNATURES
 
 
@@ -439,7 +509,8 @@ def test_build_commands_are_one_nvcc_per_source_for_sm90a(tmp_path):
             "flash_attention_bwd_dq_hopper.cu",
             "flash_attention_bwd_dkv_hopper.cu",
             "flash_attention_wide_hopper.cu",
-            "flash_attention_bwd_dkv_wide_hopper.cu"} <= {p.name for p in srcs}
+            "flash_attention_bwd_dkv_wide_hopper.cu",
+            "flash_attention_tf32x3.cu"} <= {p.name for p in srcs}
     assert len(cmds) == len(srcs)
     for cmd, src in zip(cmds, srcs):
         assert cmd[0] == "nvcc" and cmd[-1] == str(src)
@@ -562,6 +633,23 @@ def test_parse_sass_counts_opcodes_per_kernel():
     assert _build.parse_sass(text, ("HGMMA", "UTMALDG")) == {
         "_Z3fooPf": {"HGMMA": 2, "UTMALDG": 1},
         "_Z3barPf": {"HGMMA": 0, "UTMALDG": 0}}
+
+
+def test_parse_sass_counts_opcodes_with_modifiers():
+    """An opcode with dotted modifiers (``HMMA.TF32``) counts the mnemonics
+    of that instruction that carry them, in any position: the tf32x3
+    kernel's ``HMMA.1688.F32.TF32``, not a bf16 ``HMMA.16816.F32.BF16``."""
+    text = (
+        "\t\tFunction : _Z3bazPf\n"
+        "        /*0000*/                   HMMA.1688.F32.TF32 R4, R8, R12, "
+        "R4 ;  /* 0x0 */\n"
+        "        /*0010*/              @P1  HMMA.1688.F32.TF32 R4, R8, R14, "
+        "R4 ;  /* 0x0 */\n"
+        "        /*0020*/                   HMMA.16816.F32.BF16 R4, R8, R12, "
+        "R4 ;  /* 0x0 */\n")
+    assert _build.parse_sass(text, ("HMMA.TF32", "HMMA", "HMMA.BF16",
+                                    "HGMMA")) == {
+        "_Z3bazPf": {"HMMA.TF32": 2, "HMMA": 3, "HMMA.BF16": 1, "HGMMA": 0}}
 
 
 def test_parse_ptxas_report():

@@ -26,7 +26,8 @@ from _torch_port import one_torch_thread  # noqa: F401
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "itsd_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_ab.py", ROOT / "chip_gs_repeat.py",
-    ROOT / "chip_wide_probe.py", ROOT / "tests" / "_torch_dist_worker.py"]
+    ROOT / "chip_wide_probe.py", ROOT / "chip_tf32x3_probe.py",
+    ROOT / "tests" / "_torch_dist_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "itsd_tpu")
 
 TINY = ["channel=16", "channel_mult=[1,2]", "attn=[1]", "num_res_blocks=1",
